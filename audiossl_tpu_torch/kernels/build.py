@@ -1,0 +1,148 @@
+"""Build the hand-written CUDA kernels with nvcc and bind them by ctypes.
+
+All ``csrc/*.cu`` files compile for Hopper (``sm_90a``) into one shared
+library with a plain C interface, at the first CUDA call, into
+``build/`` at the repository root. The library's name carries a hash of
+the sources and flags, so an edited source is rebuilt and a stale
+library is never loaded. Each C entry point takes the device index, raw
+device pointers and the CUDA stream, and returns ``cudaGetLastError()``.
+
+``LAUNCHES`` counts the kernel launches of each wrapper; a wrapper adds
+one only where it launched its kernel, so a run can show that its main
+path went through the kernels.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+LAUNCHES = {"mel_db": 0, "attn_block": 0, "mlp_block": 0}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_SIGNATURES = {
+    # every entry point starts with the device index and ends with the
+    # stream; the kernel library links its own CUDA runtime, whose current
+    # device is set from the first argument.
+    # stft, fb, out, B, F, T, n_mels, amin
+    "mel_db_launch": [_I, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    # x, valid_k, valid_v, dp, ln_w, ln_b, w_qkv, b_qkv, w_proj, b_proj,
+    # out, h, qkv, o, B, N, C, H, scale, eps
+    "attn_block_launch": [_I] + [_P] * 14 + [_I, _I, _I, _I, _F, _F, _P],
+    # x, dp, ln_w, ln_b, w1, b1, w2, b2, out, h, u, B, N, C, Hd, eps
+    "mlp_block_launch": [_I] + [_P] * 11 + [_I, _I, _I, _I, _F, _P],
+}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels are built with "
+                           "the CUDA toolkit's nvcc (set CUDA_HOME)")
+    return path
+
+
+def _digest(files) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in files:
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile ``csrc/*.cu`` (in parallel, one nvcc per file) and link them
+    into ``build/libaudiossl_kernels_<hash>.so``; returns its path. The
+    compiler's output (``-Xptxas -v``: registers, shared memory, spills)
+    is kept beside it in ``<hash>.log``."""
+    sources = sorted(CSRC.glob("*.cu"))
+    digest = _digest(sorted(CSRC.glob("*.cu*")))
+    lib = BUILD_DIR / f"libaudiossl_kernels_{digest}.so"
+    if lib.exists():
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp) / (s.stem + ".o") for s in sources]
+        procs = [subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", str(s), "-o", str(o)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for s, o in zip(sources, objs)]
+        logs = [p.communicate()[0] for p in procs]
+        tmp_lib = Path(tmp) / lib.name
+        link = subprocess.run(
+            [nvcc, *NVCC_FLAGS, "-shared", *map(str, objs), "-o",
+             str(tmp_lib)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        logs.append(link.stdout)
+        (BUILD_DIR / f"{digest}.log").write_text("\n".join(logs))
+        failed = [s.name for s, p in zip(sources, procs) if p.returncode]
+        if failed or link.returncode:
+            raise RuntimeError(f"nvcc failed ({failed or 'link'}):\n"
+                               + "\n".join(logs)[-8000:])
+        os.replace(tmp_lib, lib)  # atomic: concurrent builds agree
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The built kernel library, loaded once per process."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.audiossl_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.audiossl_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def launch(name: str, device: torch.device, *args) -> None:
+    """Call the C entry point ``<name>_launch`` on ``device`` and PyTorch's
+    current stream there, and count the launch; raises when the launch
+    was refused or faulted."""
+    lib = library()
+    s = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+    err = getattr(lib, f"{name}_launch")(device.index or 0, *args, s)
+    if err:
+        msg = lib.audiossl_cuda_error_string(err).decode()
+        raise RuntimeError(f"CUDA kernel {name} failed: {msg} ({err})")
+    LAUNCHES[name] += 1
+
+
+def require_cuda(name: str, *tensors: torch.Tensor) -> None:
+    """Checks a kernel wrapper makes before it launches: every tensor on
+    the same CUDA device, contiguous and 16-byte aligned (the kernels
+    load 16 bytes at a time)."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev or dev.type != "cuda":
+            raise ValueError(f"{name}: tensors must share one CUDA device, "
+                             f"got {t.device} and {dev}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name}: tensor of shape {tuple(t.shape)} "
+                             "is not contiguous and 16-byte aligned")

@@ -1,0 +1,92 @@
+"""Pre-norm ViT blocks with variable-length attention masking (PyTorch).
+
+Port of ``audiossl_tpu/models/transformer.py`` (reference
+``audiossl/modules/transformer.py``), eval forward only: ``Attention``
+(joint qkv projection, additive -10000 padding mask), ``Mlp`` (exact
+GELU through the A&S erf polynomial) and the pre-norm residual
+``Block``. Parameter names are the reference's torch names, so reference
+state dicts load as they are.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+# The reference uses an additive -10000 mask (not -inf); kept for parity.
+MASK_VALUE = -10000.0
+
+
+def length_to_attn_mask(lengths: torch.Tensor, max_len: int) -> torch.Tensor:
+    """[B] token counts -> additive attention mask [B, 1, 1, max_len]."""
+    pos = torch.arange(max_len, device=lengths.device)
+    pad = pos[None, :] >= lengths[:, None]  # True where padded
+    return (pad.float() * MASK_VALUE)[:, None, None, :]
+
+
+def length_to_token_mask(lengths: torch.Tensor, max_len: int) -> torch.Tensor:
+    """[B] token counts -> boolean validity mask [B, max_len]."""
+    return torch.arange(max_len, device=lengths.device)[None, :] < lengths[:, None]
+
+
+def erf_approx(x: torch.Tensor) -> torch.Tensor:
+    """erf via Abramowitz & Stegun 7.1.26 (|err| < 1.5e-7), the form the
+    JAX package and its kernels use in place of a true erf."""
+    s = torch.sign(x)
+    a = torch.abs(x)
+    t = 1.0 / (1.0 + 0.3275911 * a)
+    poly = t * (0.254829592 + t * (-0.284496736 + t * (
+        1.421413741 + t * (-1.453152027 + t * 1.061405429))))
+    return s * (1.0 - poly * torch.exp(-a * a))
+
+
+def gelu_exact(x: torch.Tensor) -> torch.Tensor:
+    """Erf-form GELU (torch.nn.GELU's default), computed in f32 with
+    :func:`erf_approx`."""
+    xf = x.float()
+    return (0.5 * xf * (1.0 + erf_approx(xf * 0.7071067811865476))).to(x.dtype)
+
+
+class Attention(nn.Module):
+    def __init__(self, dim: int, num_heads: int, qkv_bias: bool = False,
+                 device=None):
+        super().__init__()
+        self.num_heads = num_heads
+        self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias, device=device)
+        self.proj = nn.Linear(dim, dim, device=device)
+
+    def forward(self, x, attn_mask=None):
+        B, N, C = x.shape
+        H = self.num_heads
+        d = C // H
+        qkv = self.qkv(x).reshape(B, N, 3, H, d)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        attn = torch.einsum("bnhd,bmhd->bhnm", q, k) * d ** -0.5
+        if attn_mask is not None:
+            attn = attn + attn_mask
+        attn = attn.softmax(dim=-1)
+        out = torch.einsum("bhnm,bmhd->bnhd", attn, v).reshape(B, N, C)
+        return self.proj(out)
+
+
+class Mlp(nn.Module):
+    def __init__(self, dim: int, hidden_dim: int, device=None):
+        super().__init__()
+        self.fc1 = nn.Linear(dim, hidden_dim, device=device)
+        self.fc2 = nn.Linear(hidden_dim, dim, device=device)
+
+    def forward(self, x):
+        return self.fc2(gelu_exact(self.fc1(x)))
+
+
+class Block(nn.Module):
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
+                 qkv_bias: bool = False, eps: float = 1e-6, device=None):
+        super().__init__()
+        self.norm1 = nn.LayerNorm(dim, eps=eps, device=device)
+        self.attn = Attention(dim, num_heads, qkv_bias, device=device)
+        self.norm2 = nn.LayerNorm(dim, eps=eps, device=device)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), device=device)
+
+    def forward(self, x, attn_mask=None):
+        x = x + self.attn(self.norm1(x), attn_mask)
+        return x + self.mlp(self.norm2(x))

@@ -5,7 +5,9 @@ setup(
     version="0.1.0",
     description=("TPU-native audio self-supervised learning framework "
                  "(ATST-Clip / ATST-Frame, downstream suite, SED stack)"),
-    packages=find_packages(include=["audiossl_tpu", "audiossl_tpu.*"]),
+    packages=find_packages(include=["audiossl_tpu", "audiossl_tpu.*",
+                                    "audiossl_tpu_torch",
+                                    "audiossl_tpu_torch.*"]),
     python_requires=">=3.10",
     install_requires=[
         "jax", "flax", "optax", "orbax-checkpoint", "numpy", "scipy",

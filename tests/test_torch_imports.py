@@ -1,0 +1,49 @@
+"""The port stands without JAX, and its kernel wrappers launch nothing for
+a CPU tensor (they take their plain versions)."""
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+from audiossl_tpu_torch.kernels import build as kb
+from audiossl_tpu_torch.ops import block_infer, mel_db
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def test_port_imports_without_jax():
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'optax'):\n"
+        "    sys.modules[m] = None\n"
+        "import audiossl_tpu_torch, audiossl_tpu_torch.embedding\n"
+        "import audiossl_tpu_torch.ops, audiossl_tpu_torch.models\n"
+        "from audiossl_tpu_torch import load_model, get_scene_embedding\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] == 'audiossl_tpu']\n"
+        "assert not bad, bad\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+
+
+def test_wrappers_on_cpu_launch_nothing():
+    kb.reset_launches()
+    g = torch.Generator().manual_seed(0)
+    B, N, C, H = 2, 8, 32, 1
+    x = torch.randn(B, N, C, generator=g)
+    valid = torch.ones(B, N)
+    ln_w, ln_b = torch.ones(C), torch.zeros(C)
+    y = block_infer.attn_block_infer(
+        x, valid, ln_w, ln_b, torch.randn(3 * C, C, generator=g) * 0.1, None,
+        torch.randn(C, C, generator=g) * 0.1, torch.zeros(C), H)
+    y = block_infer.mlp_block_infer(
+        y, ln_w, ln_b, torch.randn(4 * C, C, generator=g) * 0.1,
+        torch.zeros(4 * C), torch.randn(C, 4 * C, generator=g) * 0.1,
+        torch.zeros(C))
+    db = mel_db.stft_to_mel_db(torch.rand(B, 2 * 5, 7, generator=g),
+                               torch.rand(5, 3, generator=g))
+    assert y.shape == (B, N, C) and db.shape == (B, 3, 7)
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(db).all())
+    assert kb.LAUNCHES == {"mel_db": 0, "attn_block": 0, "mlp_block": 0}
