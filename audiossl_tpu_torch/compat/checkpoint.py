@@ -6,11 +6,16 @@
   ``audiossl_tpu/compat/torch_import.py:201``);
 * :func:`state_dict_from_flax` turns the JAX package's
   ``AudioTransformer`` param tree (numpy arrays) into the port's state
-  dict, the inverse of ``torch_import.encoder_params_from_torch``.
+  dict, the inverse of ``torch_import.encoder_params_from_torch``;
+* :func:`branch_state_from_flax`, :func:`opt_state_from_flax` and
+  :func:`pretrain_state_from_flax` carry a whole pretraining state of the
+  JAX package (``training/pretrain.py:69 PretrainState``: both branches,
+  BatchNorm statistics, Adam's moments and count) into the port, so both
+  start a step from the same state.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -32,7 +37,7 @@ def subtree(sd: Mapping[str, object], prefix: str) -> Dict[str, object]:
 
 def _t(a, transpose=False) -> torch.Tensor:
     a = np.asarray(a)
-    return torch.from_numpy(np.ascontiguousarray(a.T if transpose else a))
+    return torch.from_numpy(np.array(a.T if transpose else a))  # a copy
 
 
 def _dense(p, prefix, out):
@@ -74,6 +79,77 @@ def state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
             raise KeyError(f"param group {name!r} has no place in the "
                            "frame encoder")
     return out
+
+
+def _head_from_flax(p: Mapping, stats: Mapping, prefix: str, out) -> None:
+    """MLPHead {fc0, bn0, fc1} -> ``prefix.fc0.weight`` etc.; BatchNorm
+    statistics ``mean``/``var`` -> ``running_mean``/``running_var``."""
+    for name, q in p.items():
+        if name in ("fc0", "fc1"):
+            _dense(q, f"{prefix}.{name}", out)
+        elif name == "bn0":
+            out[f"{prefix}.bn0.weight"] = _t(q["scale"])
+            out[f"{prefix}.bn0.bias"] = _t(q["bias"])
+        else:
+            raise KeyError(f"param group {name!r} has no place in a head")
+    for name, q in stats.items():
+        out[f"{prefix}.{name}.running_mean"] = _t(q["mean"])
+        out[f"{prefix}.{name}.running_var"] = _t(q["var"])
+
+
+def branch_state_from_flax(params: Mapping,
+                           batch_stats: Mapping = None
+                           ) -> Dict[str, torch.Tensor]:
+    """A JAX ``Branch`` (frame encoder + projector [+ predictor]) param
+    tree and its ``batch_stats`` -> the port's ``Branch`` state dict:
+    ``encoder.*`` under the serving names, ``head.projector.*`` and
+    ``head.predictor.*``. With ``batch_stats`` None only the parameters
+    are mapped (a tree of Adam moments has the params' structure)."""
+    out = {f"encoder.{k}": v
+           for k, v in state_dict_from_flax(params["encoder"]).items()}
+    stats = (batch_stats or {}).get("head", {})
+    for name, p in params.get("head", {}).items():
+        if name not in ("projector", "predictor"):
+            raise KeyError(f"head group {name!r} is not ported")
+        _head_from_flax(p, stats.get(name, {}), f"head.{name}", out)
+    return out
+
+
+def opt_state_from_flax(opt_state) -> Tuple[Dict[str, torch.Tensor],
+                                            Dict[str, torch.Tensor], int]:
+    """optax ``ScaleByAdamState`` of a ``Branch`` -> (mu, nu, count) keyed
+    by the port's parameter names, in torch's layouts."""
+    return (branch_state_from_flax(opt_state.mu),
+            branch_state_from_flax(opt_state.nu), int(opt_state.count))
+
+
+def pretrain_state_from_flax(state, method, generator: torch.Generator):
+    """The JAX package's ``PretrainState`` -> the port's, loaded into the
+    branches of ``method`` (a ``FrameMethod``); ``generator`` becomes the
+    state's generator (JAX keys do not carry over)."""
+    from audiossl_tpu_torch.training.pretrain import PretrainState
+
+    dev = method.device
+    method.student.load_state_dict(branch_state_from_flax(
+        _tree_np(state.params), _tree_np(state.batch_stats)))
+    method.teacher.load_state_dict(branch_state_from_flax(
+        _tree_np(state.teacher_params), _tree_np(state.teacher_batch_stats)))
+    mu, nu, count = opt_state_from_flax(state.opt_state._replace(
+        mu=_tree_np(state.opt_state.mu), nu=_tree_np(state.opt_state.nu)))
+    names = [k for k, _ in method.student.named_parameters()]
+    return PretrainState(
+        step=int(np.asarray(state.step)), student=method.student,
+        teacher=method.teacher,
+        mu={k: mu[k].to(dev) for k in names},
+        nu={k: nu[k].to(dev) for k in names},
+        count=count, generator=generator)
+
+
+def _tree_np(tree):
+    """Nested mappings of arrays -> the same nesting of numpy arrays."""
+    if isinstance(tree, Mapping):
+        return {k: _tree_np(v) for k, v in tree.items()}
+    return np.asarray(tree)
 
 
 def load_pretrain_checkpoint(path: str, which: str = "teacher"):

@@ -1,0 +1,177 @@
+// Kernel K5: the trainable MLP residual half of a pre-LN transformer block,
+// y = x + dp * fc2(gelu(fc1(LN2(x)))), forward and backward, for the student
+// encoder of the pretraining step.
+//
+// Replaces the TPU kernel audiossl_tpu/ops/pallas_mlp.py:255
+// fused_mlp_block (forward _fwd :277 / _fwd_kernel :98, call :313; backward
+// _bwd :350 / _bwd_impl :147, call :376), a custom_vjp whose kernels keep
+// fc1/fc2 resident in VMEM, save the fc1 pre-activation u, rebuild GELU and
+// its derivative in the backward from one shared exp(-u^2/2), and
+// accumulate dW1/dW2/db/dLN in VMEM across a sequential batch grid.
+//
+// What bounds it on the H100: at the training step (M = 48,000 rows,
+// C = 768, hidden 3072) the forward is 453 GFLOP and the backward 906 GFLOP
+// of bf16 products against a 295 MB bf16 u -- bound by the tensor-core
+// rate. The weights (9.4 MB bf16) cannot stay resident in a 227 KB SM, and
+// the sequential-grid accumulation becomes one product over all M rows.
+//
+// Design (first, simple version), every launch on the caller's stream:
+// forward, as K3 (mlp_block.cu) plus the saved pre-activation:
+//  (a) h = bf16(LN2(x))                                        (common.cuh)
+//  (b) u = h W1^T + b1 (f32); saves bf16(u) and a = bf16(gelu(u)) with the
+//      A&S erf from exp(-u^2/2) and an exact reciprocal      (gemm_bf16.cuh)
+//  (c) y = bf16(x + dp * (a W2^T + b2))
+// backward, with the rounding points of _bwd_impl:
+//  (1) dyb = bf16(dy * dp), db2 = sum of the f32 dy * dp  (train_common.cuh)
+//  (2) a = bf16(u * Phi(u)) rebuilt from the saved bf16 u
+//  (3) dW2 = dyb^T a (split-K, f32 atomics)
+//  (4) da = dyb W2; du = da * gelu'(u), gelu'(u) = Phi(u) + u phi(u) from the
+//      same exp(-u^2/2); stores bf16(du), db1 = sum of the f32 du (epilogue)
+//  (5) h recomputed as in (a); dW1 = du^T h; dh = du W1 (f32)
+//  (6) LN2 backward from recomputed f32 statistics: dx, dls, dlb
+// Keeping du on chip (the TPU kernel never writes it to memory), wgmma and
+// TMA are later work.
+#include "common.cuh"
+#include "gemm_bf16.cuh"
+#include "train_common.cuh"
+
+namespace {
+
+constexpr float kInvSqrt2 = 0.7071067811865476f;
+constexpr float kInvSqrt2Pi = 0.3989422804014327f;
+
+// Phi(u) = 0.5 (1 + erf(u / sqrt 2)) and exp(-u^2/2) for GELU and its
+// derivative: A&S 7.1.26 given the shared exponential, exact reciprocal
+// (pallas_mlp.py _erf_from_exp).
+__device__ __forceinline__ float half_cdf(float u, float ex2) {
+  float x = u * kInvSqrt2;
+  float a = fabsf(x);
+  float t = 1.0f / (1.0f + 0.3275911f * a);
+  float poly = t * (0.254829592f + t * (-0.284496736f + t * (1.421413741f +
+               t * (-1.453152027f + t * 1.061405429f))));
+  float erf = 1.0f - poly * ex2;
+  erf = x < 0.0f ? -erf : (x > 0.0f ? erf : 0.0f);
+  return 0.5f * (1.0f + erf);
+}
+
+// (b): u = acc + b1; saves bf16(u) and bf16(gelu(u))
+struct EpiBiasGeluSave {
+  static constexpr bool kColSum = false;
+  bf16* u_out;
+  bf16* a_out;
+  const float* bias;
+  int N;
+  __device__ float operator()(int m, int n, float acc) const {
+    size_t i = (size_t)m * N + n;
+    float u = acc + bias[n];
+    u_out[i] = __float2bfloat16(u);
+    a_out[i] = __float2bfloat16(u * half_cdf(u, expf(-u * u * 0.5f)));
+    return 0.0f;
+  }
+};
+
+// (4): du = da * gelu'(u) from the saved bf16 u; stores bf16(du) and sums
+// the f32 du per column into db1
+struct EpiGeluGrad {
+  static constexpr bool kColSum = true;
+  float* colsum;
+  const bf16* u;
+  bf16* du_out;
+  int N;
+  __device__ float operator()(int m, int n, float acc) const {
+    size_t i = (size_t)m * N + n;
+    float uf = __bfloat162float(u[i]);
+    float ex2 = expf(-uf * uf * 0.5f);
+    float du = acc * (half_cdf(uf, ex2) + uf * kInvSqrt2Pi * ex2);
+    du_out[i] = __float2bfloat16(du);
+    return du;
+  }
+};
+
+// (2): a = bf16(u * Phi(u)) elementwise
+__global__ void gelu_from_u_kernel(const bf16* __restrict__ u,
+                                   bf16* __restrict__ a, size_t n) {
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n;
+       i += (size_t)gridDim.x * blockDim.x) {
+    float uf = __bfloat162float(u[i]);
+    a[i] = __float2bfloat16(uf * half_cdf(uf, expf(-uf * uf * 0.5f)));
+  }
+}
+
+}  // namespace
+
+extern "C" int mlp_train_fwd_launch(int device, const void* x,
+                                    const float* dp, const float* ln_w,
+                                    const float* ln_b, const void* w1,
+                                    const float* b1, const void* w2,
+                                    const float* b2, void* out, void* h,
+                                    void* u, void* a, int B, int N, int C,
+                                    int Hd, float eps, void* stream) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return e;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int M = B * N;
+  const bf16* xb = static_cast<const bf16*>(x);
+  bf16* hb = static_cast<bf16*>(h);
+  bf16* ab = static_cast<bf16*>(a);
+  if ((e = layer_norm_bf16(xb, ln_w, ln_b, hb, M, C, eps, s))) return e;
+  if ((e = gemm::gemm_bf16_tn(
+           hb, static_cast<const bf16*>(w1), M, Hd, C,
+           EpiBiasGeluSave{static_cast<bf16*>(u), ab, b1, Hd}, s)))
+    return e;
+  return gemm::gemm_bf16_tn(
+      ab, static_cast<const bf16*>(w2), M, C, Hd,
+      gemm::EpiBiasResidual{static_cast<bf16*>(out), xb, b2, dp, C, N}, s);
+}
+
+// Gradients dw1 [Hd, C], db1 [Hd], dw2 [C, Hd], db2, dls, dlb [C] are f32
+// and overwritten. Scratch: h, dyb [M, C] bf16; a, du [M, Hd] bf16; dh
+// [M, C] f32.
+extern "C" int mlp_train_bwd_launch(
+    int device, const void* x, const void* dy, const void* u, const float* dp,
+    const float* ln_w, const float* ln_b, const void* w1, const void* w2,
+    void* dx, float* dw1, float* db1, float* dw2, float* db2, float* dls,
+    float* dlb, void* h, void* dyb, void* a, void* du, float* dh, int B,
+    int N, int C, int Hd, float eps, void* stream) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return e;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int M = B * N;
+  const bf16* xb = static_cast<const bf16*>(x);
+  const bf16* ub = static_cast<const bf16*>(u);
+  bf16* hb = static_cast<bf16*>(h);
+  bf16* dybb = static_cast<bf16*>(dyb);
+  bf16* ab = static_cast<bf16*>(a);
+  bf16* dub = static_cast<bf16*>(du);
+  const size_t c4 = sizeof(float) * C;
+  if ((e = cudaMemsetAsync(dw1, 0, Hd * c4, s)) ||
+      (e = cudaMemsetAsync(db1, 0, sizeof(float) * Hd, s)) ||
+      (e = cudaMemsetAsync(dw2, 0, Hd * c4, s)) ||
+      (e = cudaMemsetAsync(db2, 0, c4, s)) ||
+      (e = cudaMemsetAsync(dls, 0, c4, s)) ||
+      (e = cudaMemsetAsync(dlb, 0, c4, s)))
+    return e;
+  // (1), (2), (3)
+  if ((e = train::scale_dy(static_cast<const bf16*>(dy), dp, N, M, C, dybb,
+                           db2, false, s)))
+    return e;
+  const size_t nu = (size_t)M * Hd;
+  gelu_from_u_kernel<<<(unsigned)std::min<size_t>((nu + 255) / 256, 65535),
+                       256, 0, s>>>(ub, ab, nu);
+  if ((e = cudaGetLastError())) return e;
+  if ((e = gemm::gemm_bf16_weight_grad(dybb, ab, M, C, Hd, dw2, s))) return e;
+  // (4)
+  if ((e = gemm::gemm_bf16<true, false>(
+           dybb, static_cast<const bf16*>(w2), M, Hd, C,
+           EpiGeluGrad{db1, ub, dub, Hd}, s)))
+    return e;
+  // (5)
+  if ((e = layer_norm_bf16(xb, ln_w, ln_b, hb, M, C, eps, s))) return e;
+  if ((e = gemm::gemm_bf16_weight_grad(dub, hb, M, Hd, C, dw1, s))) return e;
+  if ((e = gemm::gemm_bf16<true, false>(dub, static_cast<const bf16*>(w1), M,
+                                        C, Hd, gemm::EpiStoreF32{dh, C}, s)))
+    return e;
+  // (6)
+  return train::ln_bwd(xb, dh, static_cast<const bf16*>(dy), ln_w,
+                       static_cast<bf16*>(dx), dls, dlb, M, C, eps, s);
+}

@@ -29,11 +29,14 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-LAUNCHES = {"mel_db": 0, "attn_block": 0, "mlp_block": 0}
+LAUNCHES = {"mel_db": 0, "attn_block": 0, "mlp_block": 0,
+            "attn_train_fwd": 0, "attn_train_bwd": 0,
+            "mlp_train_fwd": 0, "mlp_train_bwd": 0, "adamw_ema": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 _SIGNATURES = {
     # every entry point starts with the device index and ends with the
     # stream; the kernel library links its own CUDA runtime, whose current
@@ -45,6 +48,20 @@ _SIGNATURES = {
     "attn_block_launch": [_I] + [_P] * 14 + [_I, _I, _I, _I, _F, _F, _P],
     # x, dp, ln_w, ln_b, w1, b1, w2, b2, out, h, u, B, N, C, Hd, eps
     "mlp_block_launch": [_I] + [_P] * 11 + [_I, _I, _I, _I, _F, _P],
+    # as attn_block, then r; B, N, C, H, scale, eps
+    "attn_train_fwd_launch": [_I] + [_P] * 15 + [_I, _I, _I, _I, _F, _F, _P],
+    # x, dy, qkv, o, r, valid_k, dp, ln_w, ln_b, w_qkv, w_proj, dx, dw_qkv,
+    # db_qkv, dw_proj, db_proj, dls, dlb, h, dyb, dor, dqkv, d_f32, nd,
+    # B, N, C, H, scale, eps
+    "attn_train_bwd_launch": [_I] + [_P] * 24 + [_I, _I, _I, _I, _F, _F, _P],
+    # x, dp, ln_w, ln_b, w1, b1, w2, b2, out, h, u, a, B, N, C, Hd, eps
+    "mlp_train_fwd_launch": [_I] + [_P] * 12 + [_I, _I, _I, _I, _F, _P],
+    # x, dy, u, dp, ln_w, ln_b, w1, w2, dx, dw1, db1, dw2, db2, dls, dlb,
+    # h, dyb, a, du, dh, B, N, C, Hd, eps
+    "mlp_train_bwd_launch": [_I] + [_P] * 20 + [_I, _I, _I, _I, _F, _P],
+    # table, n_leaves, n_chunks, lr, wd, m, 1-m, rc1, rc2, b1, 1-b1, b2,
+    # 1-b2, eps
+    "adamw_ema_launch": [_I, _P, _I, _L] + [_F] * 11 + [_P],
 }
 
 

@@ -1,0 +1,228 @@
+"""ATST-Frame pretraining, end to end on the device (PyTorch port of
+``audiossl_tpu/methods/atstframe/method.py``).
+
+One fixed-length crop per clip and one mel computation for the batch;
+two views of it (view 1 for the teacher, view 2 for the student), each
+with optional mixup and freq warp; ONE token mask shared by both views.
+The student sees its inputs with the masked tokens replaced
+(``apply_mask=True``), the teacher sees them whole and uses the mask to
+select positions only; the loss is the symmetric cross-view frame BYOL
+loss; the teacher follows the student by EMA.
+
+Every random number of a step comes from :func:`draw_step` (a
+``torch.Generator`` on the device) as a :class:`StepDraws`, and the rest
+of the step is a function of those draws, so a caller (the tests) can
+hand in other draws, such as the JAX package's.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from audiossl_tpu_torch.models.atst import (frame_ast_base, frame_ast_small,
+                                            frame_ast_tiny)
+from audiossl_tpu_torch.models.byol import frame_byol_loss
+from audiossl_tpu_torch.models.transformer import drop_path_multipliers
+from audiossl_tpu_torch.ops.masking import draw_token_mask, make_token_mask
+from audiossl_tpu_torch.ops.melspec import MelConfig, log_melspec
+from audiossl_tpu_torch.training.pretrain import (Branch, OptimizerConfig,
+                                                  PretrainState,
+                                                  init_pretrain_state,
+                                                  make_pretrain_step)
+from audiossl_tpu_torch.transforms.augment import (draw_crop, draw_mixup,
+                                                   draw_resize_crop,
+                                                   mixup_log, random_crop_wav,
+                                                   random_resize_crop,
+                                                   wav_to_f32)
+
+_ARCHS = {"tiny": frame_ast_tiny, "small": frame_ast_small,
+          "base": frame_ast_base}
+
+
+@dataclasses.dataclass(frozen=True)
+class FramePretrainConfig:
+    """The JAX package's ``FramePretrainConfig`` (defaults = the published
+    recipe, reference methods/atstframe/train_base.sh), plus the encoders'
+    ``drop_path_rate`` (the JAX encoders' default, 0.1). Not ported: the
+    data2vec variant (``avg_blocks``), interpolated positions and the int8
+    options."""
+    arch: str = "small"
+    sr: int = 16000
+    anchor_len: float = 10.0
+    symmetric: bool = True
+    aug_tea: bool = True
+    aug_stu: bool = True
+    mix_up: bool = True
+    freq_wrap: bool = True
+    mask_ratio: float = 0.65
+    mask_type: str = "block"
+    mask_len: int = 5
+    min_mask_len: int = 2
+    mixup_ratio: float = 0.4
+    patch_h: int = 64
+    patch_w: int = 4
+    optimizer: OptimizerConfig = OptimizerConfig()
+    mel: MelConfig = MelConfig(stft_precision="default")
+    dtype: str = "float32"
+    # the block kernels: K4/K5 for the student, K2/K3 for the teacher;
+    # False runs the module path for both
+    fused_attention: bool = True
+    drop_path_rate: float = 0.1
+
+    @property
+    def out_frames(self) -> int:
+        return int(self.anchor_len * self.sr) // self.mel.hop_length + 1
+
+    @property
+    def out_samples(self) -> int:
+        return int(self.anchor_len * self.sr)
+
+    @property
+    def num_patches(self) -> int:
+        return (self.mel.n_mels // self.patch_h) * (self.out_frames
+                                                    // self.patch_w)
+
+
+@dataclasses.dataclass
+class StepDraws:
+    """Every random number of one step. ``mix``/``rrc`` hold (teacher view,
+    student view) entries, None where the view is not augmented: mixup
+    (a [B], shift [B]) and freq-warp (h uniforms [B], offset uniforms [B]).
+    ``student_dp``/``teacher_dp`` are keep multipliers [depth, 2, S] (S the
+    branch's batch), None without stochastic depth."""
+    crop: torch.Tensor
+    mix: Tuple[Optional[Tuple[torch.Tensor, torch.Tensor]], ...]
+    rrc: Tuple[Optional[Tuple[torch.Tensor, torch.Tensor]], ...]
+    mask: Dict[str, torch.Tensor]
+    student_dp: Optional[torch.Tensor]
+    teacher_dp: Optional[torch.Tensor]
+
+
+def draw_step(gen: torch.Generator, cfg: FramePretrainConfig, batch: int,
+              depth: int, device) -> StepDraws:
+    """Draw a step's random numbers from ``gen`` on ``device``."""
+    mix, rrc = [], []
+    for enabled in (cfg.aug_tea, cfg.aug_stu):
+        on = enabled and cfg.mix_up
+        mix.append(draw_mixup(gen, batch, cfg.mixup_ratio, device)
+                   if on else None)
+        on = enabled and cfg.freq_wrap
+        rrc.append(draw_resize_crop(gen, batch, device) if on else None)
+    S = 2 * batch if cfg.symmetric else batch
+    dps = [None, None]
+    if cfg.drop_path_rate > 0.0:
+        dps = [drop_path_multipliers(
+            torch.rand(depth, 2, S, generator=gen, device=device),
+            cfg.drop_path_rate) for _ in range(2)]
+    return StepDraws(
+        crop=draw_crop(gen, batch, device), mix=tuple(mix), rrc=tuple(rrc),
+        mask=draw_token_mask(gen, batch, cfg.num_patches, cfg.mask_ratio,
+                             cfg.mask_type, cfg.mask_len, cfg.min_mask_len,
+                             device=device),
+        student_dp=dps[0], teacher_dp=dps[1])
+
+
+def _aug_view(mel, frames, mix, rrc):
+    if mix is not None:
+        mel = mixup_log(mel, *mix, valid_frames=frames)
+    if rrc is not None:
+        # RandomResizeCrop((1, 1.0), time_scale=(1.0, 1.0)): freq warp
+        mel = random_resize_crop(mel, *rrc, freq_scale=(0.6, 1.5),
+                                 valid_frames=frames)
+    return mel
+
+
+def frame_train_views(wav, valid, cfg: FramePretrainConfig,
+                      draws: StepDraws, plain: bool = False):
+    """waveforms [B, L] -> (mel [2B, F, T], frames [2B], mask [2B, Np]):
+    view 1 (teacher) then view 2 (student), from the same crop, sharing
+    the same token mask."""
+    B = wav.shape[0]
+    crop_len = torch.full((B,), cfg.out_samples, device=wav.device,
+                          dtype=torch.long)
+    crops, crop_valid = random_crop_wav(wav, valid, crop_len,
+                                        cfg.out_samples, draws.crop)
+    mel = log_melspec(crops, crop_valid, cfg.mel, plain=plain)
+    frames = crop_valid // cfg.mel.hop_length + 1
+    views = [_aug_view(mel, frames, m, r)
+             for m, r in zip(draws.mix, draws.rrc)]
+    # valid token count per sample = full-height patches along time
+    mask = make_token_mask(draws.mask, cfg.mask_ratio, cfg.mask_type,
+                           cfg.mask_len, cfg.min_mask_len,
+                           valid=frames // cfg.patch_w)
+    return (torch.cat(views, 0), torch.cat([frames, frames], 0),
+            torch.cat([mask, mask], 0))
+
+
+class FrameMethod:
+    """The student and teacher branches of ATST-Frame and its step.
+
+    Parameters are drawn on the CPU from ``seed`` and moved to
+    ``device``; ``plain=True`` runs every kernel's plain version (the
+    reference the kernel path is held against on the card)."""
+
+    def __init__(self, cfg: FramePretrainConfig, device="cpu", seed: int = 0,
+                 plain: bool = False):
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self.plain = plain
+        gen = torch.Generator().manual_seed(seed)
+        dtype = getattr(torch, cfg.dtype)
+        kw = dict(spec_h=cfg.mel.n_mels, spec_w=cfg.out_frames,
+                  patch_h=cfg.patch_h, patch_w=cfg.patch_w, dtype=dtype,
+                  plain=plain)
+        hd, od = (128, 32) if cfg.arch == "tiny" else (4096, 256)
+        enc = _ARCHS[cfg.arch]
+        self.student = Branch(
+            enc(generator=gen, fused_attention=cfg.fused_attention, **kw),
+            predictor=True, hidden_dim=hd, out_dim=od)
+        # the teacher is never differentiated: the inference block kernels
+        # (their stochastic depth keeps the train-mode teacher)
+        self.teacher = Branch(
+            enc(generator=gen, fused_infer=cfg.fused_attention, **kw),
+            predictor=False, hidden_dim=hd, out_dim=od)
+        with torch.no_grad():
+            self.student.head.projector.reset_parameters(gen)
+            self.student.head.predictor.reset_parameters(gen)
+        self.student.to(self.device)
+        self.teacher.to(self.device).requires_grad_(False)
+        self.depth = self.student.encoder.depth
+
+    def init_state(self, seed: int = 0) -> PretrainState:
+        """Teacher copied from the student, zero moments, the step's
+        generator on the device seeded with ``seed``."""
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        return init_pretrain_state(self.student, self.teacher, gen)
+
+    def draw(self, gen: torch.Generator, batch: int) -> StepDraws:
+        return draw_step(gen, self.cfg, batch, self.depth, self.device)
+
+    def forward_loss(self, student, teacher, batch, gen, draws=None):
+        cfg = self.cfg
+        wav = wav_to_f32(torch.as_tensor(batch["wav"], device=self.device))
+        valid = torch.as_tensor(batch["valid"], device=self.device).long()
+        B = wav.shape[0]
+        if draws is None:
+            draws = self.draw(gen, B)
+        mel2, frames2, mask2 = frame_train_views(wav, valid, cfg, draws,
+                                                 self.plain)
+        if cfg.symmetric:
+            s_in, s_len, s_mask = mel2, frames2, mask2
+            t_in, t_len, t_mask = mel2, frames2, mask2
+        else:
+            t_in, t_len, t_mask = mel2[:B], frames2[:B], mask2[:B]
+            s_in, s_len, s_mask = mel2[B:], frames2[B:], mask2[B:]
+        s_out, s_sel = student(s_in, s_len, mask_index=s_mask,
+                               apply_mask=True, dps=draws.student_dp)
+        with torch.no_grad():
+            t_out, _ = teacher(t_in, t_len, mask_index=t_mask,
+                               apply_mask=False, dps=draws.teacher_dp)
+        ls = frame_byol_loss(s_out, t_out, s_sel, symmetric=cfg.symmetric)
+        return ls.loss, {"std_frm_stu": ls.std_student.detach(),
+                         "std_frm_tea": ls.std_teacher.detach()}
+
+    def make_step(self):
+        return make_pretrain_step(self.cfg.optimizer, self.forward_loss,
+                                  self.plain)

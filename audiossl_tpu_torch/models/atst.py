@@ -10,6 +10,15 @@ dict loads with ``load_state_dict``.
 (``ops/block_infer.py``) with the four matmul weights of every block
 held in bf16; ``fused=False`` runs the module path in the weights'
 dtype (f32) with the additive -10000 mask.
+
+The pretraining forward (:meth:`AudioTransformer.forward`) keeps f32
+master weights and computes in ``dtype``: a student
+(``fused_attention=True``) runs each block as the trainable attention and
+MLP kernels K4/K5 (``ops/attn_train.py``, ``ops/mlp_train.py``), a
+no-grad teacher (``fused_infer=True``) as the inference block kernels
+K2/K3 with the weights cast per call; with neither, the module path with
+the -10000 mask and autograd. ``plain=True`` runs the kernels' plain
+versions on any device.
 """
 from __future__ import annotations
 
@@ -20,6 +29,8 @@ from torch import nn
 
 from audiossl_tpu_torch.models.transformer import (
     Block,
+    _layer_norm,
+    _linear,
     length_to_attn_mask,
     length_to_token_mask,
 )
@@ -66,11 +77,19 @@ class AudioTransformer(nn.Module):
                  spec_h: int = 64, spec_w: int = 1001, qkv_bias: bool = False,
                  mlp_ratio: float = 4.0, eps: float = 1e-6,
                  fused: bool = False, device="cpu",
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32,
+                 fused_attention: bool = False, fused_infer: bool = False,
+                 plain: bool = False):
         """Parameters are drawn on the CPU from ``generator`` (seed 0 when
         None) as the reference initializes them, then moved to
-        ``device``."""
+        ``device``. ``dtype``, ``fused_attention``, ``fused_infer`` and
+        ``plain`` configure the pretraining forward (module docstring)."""
         super().__init__()
+        self.dtype = dtype
+        self.fused_attention = fused_attention
+        self.fused_infer = fused_infer
+        self.plain = plain
         self.embed_dim = embed_dim
         self.depth = depth
         self.num_heads = num_heads
@@ -149,6 +168,76 @@ class AudioTransformer(nn.Module):
             if collect_from is not None and i >= collect_from:
                 collected.append(x)
         return x, collected
+
+    # ----------------------------- pretrain path -------------------- #
+    def forward(self, mel: torch.Tensor, length: Optional[torch.Tensor] = None,
+                mask_index: Optional[torch.Tensor] = None,
+                apply_mask: bool = True, dps: Optional[torch.Tensor] = None):
+        """Pretraining forward (frame level): mel [B, F, T], frame counts
+        [B], token mask [B, Np] (bool), dps [depth, 2, B] drop-path keep
+        multipliers or None. With ``apply_mask`` the masked tokens are
+        replaced by ``mask_embed`` (the student). Returns (frames [B, Np,
+        D] in ``dtype``, sel [B, Np] = mask & valid, or the validity when
+        there is no mask)."""
+        dt = self.dtype
+        B, F, T = mel.shape
+        x = _linear(self.patch_embed.patch_embed,
+                    patchify(mel.to(dt), self.patch_h, self.patch_w))
+        Np = x.shape[1]
+        plen = None
+        if length is not None:
+            plen = patch_lengths(length, F - F % self.patch_h, self.patch_h,
+                                 self.patch_w)
+        if mask_index is not None and apply_mask:
+            m = mask_index[:, :, None].to(dt)
+            x = (1.0 - m) * x + m * self.mask_embed.to(dt)
+        x = x + self.pos_embed[:, 1: Np + 1].to(dt)
+        x = self._train_blocks(x, plen, dps)
+        frames = _layer_norm(self.norm_frame, x)
+        if plen is not None:
+            sel = length_to_token_mask(plen, Np)
+        else:
+            sel = torch.ones(B, Np, dtype=torch.bool, device=x.device)
+        if mask_index is not None:
+            sel = mask_index & sel
+        return frames, sel
+
+    def _train_blocks(self, x, plen, dps):
+        B, N, _ = x.shape
+        if self.fused_infer:
+            # imported here: ops.block_infer imports models.transformer
+            from audiossl_tpu_torch.ops.block_infer import encoder_blocks_infer
+
+            return encoder_blocks_infer(self.blocks, x, plen, self.num_heads,
+                                        self.eps, dps=dps, dtype=x.dtype,
+                                        plain=self.plain)[0]
+        if not self.fused_attention:
+            mask = None if plen is None else length_to_attn_mask(plen, N)
+            for i, blk in enumerate(self.blocks):
+                x = blk(x, mask, None if dps is None else (dps[i, 0],
+                                                           dps[i, 1]))
+            return x
+        from audiossl_tpu_torch.ops.attn_train import fused_attn_block
+        from audiossl_tpu_torch.ops.mlp_train import fused_mlp_block
+
+        if plen is None:
+            valid = torch.ones(B, N, device=x.device)
+        else:
+            valid = length_to_token_mask(plen, N).float()
+        ones = torch.ones(B, device=x.device)
+        x = x.contiguous()
+        for i, blk in enumerate(self.blocks):
+            dp1, dp2 = (ones, ones) if dps is None else (dps[i, 0].clone(),
+                                                         dps[i, 1].clone())
+            x = fused_attn_block(
+                x, valid, dp1, blk.norm1.weight, blk.norm1.bias,
+                blk.attn.qkv.weight, blk.attn.qkv.bias, blk.attn.proj.weight,
+                blk.attn.proj.bias, self.num_heads, self.eps, self.plain)
+            x = fused_mlp_block(
+                x, dp2, blk.norm2.weight, blk.norm2.bias, blk.mlp.fc1.weight,
+                blk.mlp.fc1.bias, blk.mlp.fc2.weight, blk.mlp.fc2.bias,
+                self.eps, self.plain)
+        return x
 
     def get_intermediate_layers(self, mel: torch.Tensor,
                                 length: Optional[torch.Tensor] = None,

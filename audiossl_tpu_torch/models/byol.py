@@ -1,0 +1,129 @@
+"""BYOL projector/predictor heads and the frame-level teacher-student loss
+(PyTorch port of ``audiossl_tpu/models/byol.py``).
+
+Head matmuls run in the encoder's compute dtype (bf16 at the training
+step); the masked BatchNorm computes in f32 and returns that dtype; the
+head output, the normalization and the loss are f32. Frame-level losses
+take the whole frame sequence and a boolean selection mask instead of a
+dynamic gather (the same masked math).
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from audiossl_tpu_torch.models.norm import BatchNorm1d
+
+
+def lecun_normal_(w: torch.Tensor, generator: torch.Generator) -> None:
+    """flax's default Dense init: truncated normal (2 std) of variance
+    1 / fan_in after truncation."""
+    std = (1.0 / w.shape[1]) ** 0.5 / 0.87962566103423978
+    nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std,
+                          generator=generator)
+
+
+class MLPHead(nn.Module):
+    """Linear (no bias) -> masked BatchNorm -> ReLU -> Linear (no bias)
+    (reference build_mlp(2, in, hidden, out, last_bn=False))."""
+
+    def __init__(self, in_dim: int, hidden_dim: int = 4096,
+                 out_dim: int = 256, device=None):
+        super().__init__()
+        self.fc0 = nn.Linear(in_dim, hidden_dim, bias=False, device=device)
+        self.bn0 = BatchNorm1d(hidden_dim, device=device)
+        self.fc1 = nn.Linear(hidden_dim, out_dim, bias=False, device=device)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        lecun_normal_(self.fc0.weight, generator)
+        lecun_normal_(self.fc1.weight, generator)
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        x = F.linear(x.to(dtype), self.fc0.weight.to(dtype))
+        x = torch.relu(self.bn0(x, mask))
+        return F.linear(x, self.fc1.weight.to(dtype)).float()
+
+
+class Projector(nn.Module):
+    """The MLP projector and, for the student, the MLP predictor."""
+
+    def __init__(self, embed_dim: int, predictor: bool = True,
+                 hidden_dim: int = 4096, out_dim: int = 256, device=None):
+        super().__init__()
+        self.projector = MLPHead(embed_dim, hidden_dim, out_dim, device)
+        self.predictor = (MLPHead(out_dim, hidden_dim, out_dim, device)
+                          if predictor else None)
+
+    def forward(self, x, mask=None, dtype=torch.float32):
+        x = self.projector(x, mask, dtype)
+        if self.predictor is not None:
+            x = self.predictor(x, mask, dtype)
+        return x
+
+
+def l2_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    """x / max(||x||, eps) over the last axis (torch F.normalize)."""
+    norm = torch.sqrt((x * x).sum(dim=-1, keepdim=True))
+    return x / torch.clamp(norm, min=eps)
+
+
+def feature_std(y: torch.Tensor, mask: Optional[torch.Tensor] = None):
+    """Mean per-dimension std of y's (selected) rows (reference
+    compute_var)."""
+    d = y.shape[-1]
+    y2 = y.reshape(-1, d)
+    if mask is not None:
+        w = mask.reshape(-1, 1).to(y2.dtype)
+        zc = w.sum()
+        zs = (y2 * w).sum(dim=0)
+        zss = ((y2 ** 2) * w).sum(dim=0)
+    else:
+        zc = torch.tensor(float(y2.shape[0]), device=y.device)
+        zs = y2.sum(dim=0)
+        zss = (y2 ** 2).sum(dim=0)
+    var = zss / (zc - 1) - zs ** 2 / (zc * (zc - 1))
+    return torch.sqrt(var + 1e-6).mean()
+
+
+def byol_pair_loss(p, z, mask: Optional[torch.Tensor] = None):
+    """2 - 2 cos(p, z), averaged over the (selected) rows."""
+    cos = (l2_normalize(p) * l2_normalize(z)).sum(dim=-1)
+    if mask is not None:
+        w = mask.to(cos.dtype)
+        return 2.0 - 2.0 * (cos * w).sum() / torch.clamp(w.sum(), min=1.0)
+    return 2.0 - 2.0 * cos.mean()
+
+
+class ByolLossState(NamedTuple):
+    loss: torch.Tensor
+    std_student: torch.Tensor
+    std_teacher: torch.Tensor
+
+
+def frame_byol_loss(student, teacher, mask,
+                    symmetric: bool = True) -> ByolLossState:
+    """Frame-level loss (reference methods/atstframe/byol.py:57-84):
+    student/teacher [2B, T, D] head outputs of both views, mask [2B, T]
+    the selected positions (shared by the views). Symmetric: each
+    student view is held against the other view's teacher output."""
+    std_s = feature_std(l2_normalize(student), mask)
+    std_t = feature_std(l2_normalize(teacher), mask)
+    if not symmetric:
+        return ByolLossState(byol_pair_loss(teacher, student, mask), std_s,
+                             std_t)
+    s_views = student.chunk(2, dim=0)
+    t_views = teacher.chunk(2, dim=0)
+    m_views = mask.chunk(2, dim=0)
+    total, n_terms = 0.0, 0
+    for iq, q in enumerate(t_views):
+        for iv, v in enumerate(s_views):
+            if iq == iv:
+                continue
+            total = total + byol_pair_loss(v, q, m_views[iv])
+            n_terms += 1
+    return ByolLossState(total / n_terms, std_s, std_t)

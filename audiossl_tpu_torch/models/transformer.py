@@ -1,15 +1,21 @@
 """Pre-norm ViT blocks with variable-length attention masking (PyTorch).
 
 Port of ``audiossl_tpu/models/transformer.py`` (reference
-``audiossl/modules/transformer.py``), eval forward only: ``Attention``
-(joint qkv projection, additive -10000 padding mask), ``Mlp`` (exact
-GELU through the A&S erf polynomial) and the pre-norm residual
-``Block``. Parameter names are the reference's torch names, so reference
-state dicts load as they are.
+``audiossl/modules/transformer.py``): ``Attention`` (joint qkv
+projection, additive -10000 padding mask), ``Mlp`` (exact GELU through
+the A&S erf polynomial) and the pre-norm residual ``Block``, whose
+residual branches take per-sample stochastic-depth multipliers in
+training (:func:`drop_path`). Parameter names are the reference's torch
+names, so reference state dicts load as they are. The modules compute in
+the dtype of their input: f32 master weights are cast to it per call,
+and LayerNorm statistics are f32.
 """
 from __future__ import annotations
 
+from typing import Optional, Tuple
+
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 # The reference uses an additive -10000 mask (not -inf); kept for parity.
@@ -46,6 +52,39 @@ def gelu_exact(x: torch.Tensor) -> torch.Tensor:
     return (0.5 * xf * (1.0 + erf_approx(xf * 0.7071067811865476))).to(x.dtype)
 
 
+def drop_path_multipliers(u: torch.Tensor, rate: float) -> torch.Tensor:
+    """Per-sample stochastic-depth keep multipliers from uniforms
+    u [depth, ...]: ``floor(keep + u) / keep`` (0 or 1/keep) with the rate
+    ramped linearly over depth, ``rate * i / (depth - 1)`` for block i
+    (reference modules/transformer.py:56-66; the JAX package's
+    ``pallas_block.encoder_blocks_infer`` draws u of shape [depth, 2, B])."""
+    depth = u.shape[0]
+    rates = torch.tensor([rate * i / max(depth - 1, 1) for i in range(depth)],
+                         dtype=torch.float32, device=u.device)
+    keep = (1.0 - rates).reshape((depth,) + (1,) * (u.ndim - 1))
+    return torch.floor(keep + u) / keep
+
+
+def drop_path(x: torch.Tensor, dp: Optional[torch.Tensor]) -> torch.Tensor:
+    """Per-sample stochastic depth: x [B, ...] times its sample's keep
+    multiplier dp [B] (None: no drop)."""
+    if dp is None:
+        return x
+    return x * dp.to(x.dtype).reshape((-1,) + (1,) * (x.ndim - 1))
+
+
+def _linear(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """The Linear in x's dtype (weights cast per call)."""
+    b = None if lin.bias is None else lin.bias.to(x.dtype)
+    return F.linear(x, lin.weight.to(x.dtype), b)
+
+
+def _layer_norm(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
+    """LayerNorm with f32 statistics, output in x's dtype."""
+    return F.layer_norm(x.float(), ln.normalized_shape, ln.weight.float(),
+                        ln.bias.float(), ln.eps).to(x.dtype)
+
+
 class Attention(nn.Module):
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = False,
                  device=None):
@@ -58,14 +97,14 @@ class Attention(nn.Module):
         B, N, C = x.shape
         H = self.num_heads
         d = C // H
-        qkv = self.qkv(x).reshape(B, N, 3, H, d)
+        qkv = _linear(self.qkv, x).reshape(B, N, 3, H, d)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
         attn = torch.einsum("bnhd,bmhd->bhnm", q, k) * d ** -0.5
         if attn_mask is not None:
             attn = attn + attn_mask
         attn = attn.softmax(dim=-1)
         out = torch.einsum("bhnm,bmhd->bnhd", attn, v).reshape(B, N, C)
-        return self.proj(out)
+        return _linear(self.proj, out)
 
 
 class Mlp(nn.Module):
@@ -75,7 +114,7 @@ class Mlp(nn.Module):
         self.fc2 = nn.Linear(hidden_dim, dim, device=device)
 
     def forward(self, x):
-        return self.fc2(gelu_exact(self.fc1(x)))
+        return _linear(self.fc2, gelu_exact(_linear(self.fc1, x)))
 
 
 class Block(nn.Module):
@@ -87,6 +126,11 @@ class Block(nn.Module):
         self.norm2 = nn.LayerNorm(dim, eps=eps, device=device)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), device=device)
 
-    def forward(self, x, attn_mask=None):
-        x = x + self.attn(self.norm1(x), attn_mask)
-        return x + self.mlp(self.norm2(x))
+    def forward(self, x, attn_mask=None,
+                dp: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+        """dp: the keep multipliers [B] of the attention and the MLP
+        residual branch (training), or None."""
+        dp1, dp2 = (None, None) if dp is None else dp
+        x = x + drop_path(self.attn(_layer_norm(self.norm1, x), attn_mask),
+                          dp1)
+        return x + drop_path(self.mlp(_layer_norm(self.norm2, x)), dp2)

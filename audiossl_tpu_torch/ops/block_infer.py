@@ -175,30 +175,47 @@ def mlp_block_infer(x, norm_w, norm_b, w1, b1, w2, b2, eps: float = 1e-6,
 
 def encoder_blocks_infer(blocks: Sequence[torch.nn.Module], x, lengths,
                          num_heads: int, eps: float = 1e-6,
-                         collect_from: Optional[int] = None):
+                         collect_from: Optional[int] = None,
+                         dps: Optional[torch.Tensor] = None,
+                         dtype: Optional[torch.dtype] = None,
+                         plain: bool = False):
     """Run the pre-LN ``Block`` stack with the block kernels.
 
-    x [B, N, C] tokens, cast to the blocks' weight dtype; lengths [B]
-    valid token counts or None. Unlike the TPU kernels the token count
-    is not padded to a multiple of 128, so a sequence with no valid token
-    attends uniformly over its N keys. Returns (x, outputs of the blocks
-    ``i >= collect_from``)."""
+    x [B, N, C] tokens; lengths [B] valid token counts or None. ``dtype``
+    is the compute dtype (default: the blocks' weight dtype); weights held
+    in another dtype (the EMA teacher's f32 masters) are cast to it on
+    every call, as the Pallas wrappers cast them. ``dps`` [depth, 2, B]
+    are per-sample stochastic-depth keep multipliers of the attention and
+    MLP halves (a train-mode teacher, see
+    ``models.transformer.drop_path_multipliers``). ``plain=True`` runs the
+    kernels' plain versions on any device (each multiplier row is copied,
+    so every kernel input starts 16-byte aligned). Unlike the TPU kernels the
+    token count is not padded to a multiple of 128, so a sequence with no
+    valid token attends uniformly over its N keys. Returns (x, outputs of
+    the blocks ``i >= collect_from``)."""
     B, N, _ = x.shape
-    x = x.to(blocks[0].attn.qkv.weight.dtype).contiguous()
+    dtype = dtype or blocks[0].attn.qkv.weight.dtype
+    x = x.to(dtype).contiguous()
     if lengths is None:
         valid = torch.ones(B, N, device=x.device)
     else:
         valid = (torch.arange(N, device=x.device)[None, :]
                  < lengths[:, None]).float()
+    attn = attn_block_infer_ref if plain else attn_block_infer
+    mlp = mlp_block_infer_ref if plain else mlp_block_infer
+
+    def w(lin):
+        return lin.weight.to(dtype)
+
     collected = []
     for i, blk in enumerate(blocks):
-        x = attn_block_infer(
-            x, valid, blk.norm1.weight, blk.norm1.bias, blk.attn.qkv.weight,
-            blk.attn.qkv.bias, blk.attn.proj.weight, blk.attn.proj.bias,
-            num_heads, eps)
-        x = mlp_block_infer(
-            x, blk.norm2.weight, blk.norm2.bias, blk.mlp.fc1.weight,
-            blk.mlp.fc1.bias, blk.mlp.fc2.weight, blk.mlp.fc2.bias, eps)
+        x = attn(x, valid, blk.norm1.weight, blk.norm1.bias,
+                 w(blk.attn.qkv), blk.attn.qkv.bias, w(blk.attn.proj),
+                 blk.attn.proj.bias, num_heads, eps,
+                 dp=None if dps is None else dps[i, 0].clone())
+        x = mlp(x, blk.norm2.weight, blk.norm2.bias, w(blk.mlp.fc1),
+                blk.mlp.fc1.bias, w(blk.mlp.fc2), blk.mlp.fc2.bias, eps,
+                dp=None if dps is None else dps[i, 1].clone())
         if collect_from is not None and i >= collect_from:
             collected.append(x)
     return x, collected

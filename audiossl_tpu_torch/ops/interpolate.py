@@ -1,0 +1,45 @@
+"""Bicubic row sampling for the freq-warp augmentation (PyTorch port).
+
+Port of the parts of ``audiossl_tpu/ops/interpolate.py`` that the
+pretraining step runs: the Keys cubic convolution weights with A = -0.75
+(torch's choice) and per-sample bicubic sampling along the frequency axis
+at traced coordinates with per-sample edge clamps (the RandomResizeCrop
+box), as separable gathers.
+"""
+from __future__ import annotations
+
+import torch
+
+_A = -0.75  # torch cubic convolution constant
+
+
+def _cubic_weights(t: torch.Tensor) -> torch.Tensor:
+    """Weights [..., 4] for taps at offsets (-1, 0, 1, 2) given the
+    fractional position t in [0, 1). Keys kernel: |x| <= 1 ->
+    (A+2)|x|^3 - (A+3)|x|^2 + 1; 1 < |x| < 2 -> A|x|^3 - 5A|x|^2 + 8A|x| - 4A."""
+    def k01(x):
+        return ((_A + 2.0) * x - (_A + 3.0)) * x * x + 1.0
+
+    def k12(x):
+        return ((_A * x - 5.0 * _A) * x + 8.0 * _A) * x - 4.0 * _A
+
+    return torch.stack([k12(t + 1.0), k01(t), k01(1.0 - t), k12(2.0 - t)],
+                       dim=-1)
+
+
+def sample_bicubic_rows(x: torch.Tensor, ys: torch.Tensor, y_lo: torch.Tensor,
+                        y_hi: torch.Tensor) -> torch.Tensor:
+    """Per-sample bicubic sampling of x [B, H, W] along H at coordinates
+    ys [B, OH], taps clamped to [y_lo, y_hi] per sample -> [B, OH, W]."""
+    B, _, W = x.shape
+    fy = torch.floor(ys)
+    wy = _cubic_weights(ys - fy)  # [B, OH, 4]
+    by = fy.long()
+    lo, hi = y_lo.long()[:, None], y_hi.long()[:, None]
+    out = None
+    for m, off in enumerate((-1, 0, 1, 2)):
+        idx = torch.minimum(torch.maximum(by + off, lo), hi)  # [B, OH]
+        tap = torch.gather(x, 1, idx[:, :, None].expand(B, idx.shape[1], W))
+        contrib = tap * wy[:, :, m][:, :, None]
+        out = contrib if out is None else out + contrib
+    return out

@@ -17,8 +17,12 @@ The pipeline is the one the TPU package runs on its chip:
 4. the per-sample top-dB clamp over valid frames and MinMax
    (:func:`_topdb_minmax`).
 
-The STFT runs in full f32 (the JAX package's ``stft_precision="high"``
-serving setting): TF32 is switched off around its product.
+``MelConfig.stft_precision`` chooses the STFT product's precision, as in
+the JAX package (``ops/melspec.py:59-62``): ``"high"`` (serving) runs it in
+full f32 with TF32 switched off; ``"default"`` (the training mel) lets
+cuBLAS round its f32 operands to TF32 on the card, one tensor-core pass
+(10-bit mantissa; the JAX package's 1-pass bf16 documents ~2e-3 error).
+On the CPU both are full f32.
 """
 from __future__ import annotations
 
@@ -30,7 +34,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from audiossl_tpu_torch.ops.mel_db import stft_to_mel_db
+from audiossl_tpu_torch.ops.mel_db import stft_to_mel_db, stft_to_mel_db_ref
 
 # MinMax constants of the reference recipe (AudioSet train mel statistics).
 MEL_MIN = -79.6482
@@ -50,6 +54,8 @@ class MelConfig:
     amin: float = 1e-10
     mel_min: float = MEL_MIN
     mel_max: float = MEL_MAX
+    # "high"/"highest": full f32 STFT product; "default": TF32 on the card
+    stft_precision: str = "high"
 
     @property
     def n_freqs(self) -> int:
@@ -121,11 +127,11 @@ def _dft_filters(n_fft: int, win_length: int, device) -> torch.Tensor:
 
 
 @contextlib.contextmanager
-def _no_tf32():
-    """Full-f32 products: cuBLAS may otherwise round f32 inputs to TF32
-    (about three decimal digits) when a caller enabled it globally."""
+def _tf32(allow: bool = False):
+    """Products with TF32 allowed or not, whatever a caller set globally:
+    full f32 unless ``allow`` (TF32 keeps about three decimal digits)."""
     prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = allow
     try:
         yield
     finally:
@@ -149,7 +155,9 @@ def stft_conv(wav: torch.Tensor, cfg: MelConfig = MelConfig()) -> torch.Tensor:
     wavp = torch.cat([left, wav, right, wav.new_zeros(B, zeros_len)], 1)
     frames = wavp.unfold(1, cfg.win_length, cfg.hop_length)[:, :T]
     filt = _dft_filters(cfg.n_fft, cfg.win_length, wav.device)
-    with _no_tf32():
+    if cfg.stft_precision not in ("high", "highest", "default"):
+        raise ValueError(f"unknown stft_precision {cfg.stft_precision!r}")
+    with _tf32(cfg.stft_precision == "default"):
         return torch.matmul(filt, frames.transpose(1, 2))  # [B, 2F, T]
 
 
@@ -237,20 +245,22 @@ def _topdb_minmax(db: torch.Tensor, cfg: MelConfig,
 
 def log_melspec(wav: torch.Tensor, length: Optional[torch.Tensor] = None,
                 cfg: MelConfig = MelConfig(),
-                normalize: bool = True) -> torch.Tensor:
+                normalize: bool = True, plain: bool = False) -> torch.Tensor:
     """Waveform [B, L] (+ optional valid sample counts [B]) -> normalized
     log-mel spectrogram [B, n_mels, T], T = 1 + L // hop. Frames past a
-    sample's valid count are garbage that callers mask."""
+    sample's valid count are garbage that callers mask. ``plain=True``
+    takes the mel kernel's plain version on any device."""
     if wav.ndim == 1:
         wav = wav[None]
     fb = mel_filterbank(cfg, wav.device)
-    db = stft_to_mel_db(stft_conv(wav, cfg), fb, amin=cfg.amin)
+    to_db = stft_to_mel_db_ref if plain else stft_to_mel_db
+    db = to_db(stft_conv(wav, cfg), fb, amin=cfg.amin)
     valid = None
     if length is not None:
         length = torch.as_tensor(length, device=wav.device)
         valid = torch.div(length, cfg.hop_length, rounding_mode="floor") + 1
         fix_p, t0 = _boundary_power_fix(wav, length, cfg)
-        with _no_tf32():
+        with _tf32():
             fix_mel = torch.einsum("bkf,fm->bmk", fix_p, fb)
         fix_db = 10.0 * torch.log10(torch.clamp(fix_mel, min=cfg.amin))
         cols = t0[:, None, None] + torch.arange(

@@ -1,0 +1,155 @@
+"""Teacher-student pretraining core: state, optimizer, EMA and the step
+(PyTorch port of ``audiossl_tpu/training/pretrain.py``).
+
+One step: draw the step's random numbers, run the student with autograd
+and the teacher without, back-propagate the loss, then update every
+student leaf with AdamW and the teacher's leaves with the EMA in one pass
+(kernel K7, ``ops/adamw_ema.py``). The order is the JAX step's
+(``pretrain.py:252-291``): lr, wd and the EMA momentum come from the step
+before it is incremented, and Adam's count is incremented before its bias
+corrections. The teacher runs in train mode, so its stochastic depth is
+on and its BatchNorms update their own running statistics; the EMA covers
+the teacher's parameters only (encoder and projector: no predictor, no BN
+statistics).
+
+Optimizer semantics are the reference's: AdamW with betas (0.9, 0.999),
+eps 1e-6, bias correction and decoupled weight decay on parameters with
+two or more dimensions (``wd_mask``), lr/wd/EMA momentum from cosine
+schedules of the step.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Optional
+
+import torch
+from torch import nn
+
+from audiossl_tpu_torch.models.atst import AudioTransformer
+from audiossl_tpu_torch.models.byol import Projector
+from audiossl_tpu_torch.ops.adamw_ema import (adamw_ema, adamw_ema_ref,
+                                              update_scalars)
+from audiossl_tpu_torch.training.schedules import cosine_schedule
+
+
+class Branch(nn.Module):
+    """encoder + projector (+ predictor): the reference MultiCropWrapper
+    over equal-width crops. The teacher's encoder keeps the serving
+    state-dict names under ``encoder.``."""
+
+    def __init__(self, encoder: AudioTransformer, predictor: bool = True,
+                 hidden_dim: int = 4096, out_dim: int = 256):
+        super().__init__()
+        self.encoder = encoder
+        self.head = Projector(encoder.embed_dim, predictor, hidden_dim,
+                              out_dim, device=encoder.pos_embed.device)
+
+    def forward(self, mel, length=None, mask_index=None, apply_mask=True,
+                dps: Optional[torch.Tensor] = None):
+        """-> (head output [B, T, out_dim] f32, selection mask [B, T])."""
+        frames, sel = self.encoder(mel, length, mask_index, apply_mask, dps)
+        return self.head(frames, sel, self.encoder.dtype), sel
+
+
+@dataclasses.dataclass(frozen=True)
+class OptimizerConfig:
+    learning_rate: float = 5e-4
+    warmup_steps: int = 1300
+    max_steps: int = 39010
+    ema: float = 0.99
+    wd_start: float = 0.04
+    wd_end: float = 0.4
+    b1: float = 0.9
+    b2: float = 0.999
+    eps: float = 1e-6
+
+    def lr_schedule(self):
+        return cosine_schedule(self.learning_rate, 1e-6, self.max_steps,
+                               self.warmup_steps)
+
+    def wd_schedule(self):
+        return cosine_schedule(self.wd_start, self.wd_end, self.max_steps, 0)
+
+    def ema_schedule(self):
+        return cosine_schedule(self.ema, 1.0, self.max_steps, 0)
+
+
+@dataclasses.dataclass
+class PretrainState:
+    """The step count, both branches (f32 master parameters), Adam's
+    moments and count per student parameter name, and the generator of
+    every random draw."""
+    step: int
+    student: Branch
+    teacher: Branch
+    mu: Dict[str, torch.Tensor]
+    nu: Dict[str, torch.Tensor]
+    count: int
+    generator: torch.Generator
+
+
+def wd_mask(module: nn.Module) -> Dict[str, bool]:
+    """True where decoupled weight decay applies: parameters with >= 2
+    dimensions (the reference's param groups: not biases, not norms;
+    ``pos_embed`` and ``mask_embed`` decay)."""
+    return {k: p.ndim >= 2 for k, p in module.named_parameters()}
+
+
+@torch.no_grad()
+def copy_into_structure(teacher: nn.Module, student: nn.Module) -> None:
+    """Fill every parameter and buffer of ``teacher`` with the same-named
+    one of ``student`` (the teacher holds no predictor)."""
+    src = student.state_dict()
+    teacher.load_state_dict({k: src[k] for k in teacher.state_dict()})
+
+
+def init_pretrain_state(student: Branch, teacher: Branch,
+                        generator: torch.Generator) -> PretrainState:
+    """Teacher = student restricted to the teacher's modules; zero
+    moments."""
+    copy_into_structure(teacher, student)
+    params = dict(student.named_parameters())
+    return PretrainState(
+        step=0, student=student, teacher=teacher,
+        mu={k: torch.zeros_like(p) for k, p in params.items()},
+        nu={k: torch.zeros_like(p) for k, p in params.items()},
+        count=0, generator=generator)
+
+
+def make_pretrain_step(cfg: OptimizerConfig, forward_loss: Callable,
+                       plain: bool = False):
+    """Build the step ``(state, batch, draws=None) -> metrics``.
+
+    ``forward_loss(student, teacher, batch, generator, draws)`` returns
+    ``(loss, aux)``; ``draws`` (None: drawn from the state's generator)
+    lets a caller pass the random numbers in. The state is updated in
+    place. ``plain=True`` takes K7's plain version on any device."""
+    lr_s, wd_s, ema_s = (cfg.lr_schedule(), cfg.wd_schedule(),
+                         cfg.ema_schedule())
+    update = adamw_ema_ref if plain else adamw_ema
+
+    def step_fn(state: PretrainState, batch, draws=None):
+        lr, wd, m = lr_s(state.step), wd_s(state.step), ema_s(state.step)
+        student, teacher = state.student.train(), state.teacher.train()
+        params = dict(student.named_parameters())
+        for p in params.values():
+            p.grad = None
+        loss, aux = forward_loss(student, teacher, batch, state.generator,
+                                 draws)
+        loss.backward()
+        state.count += 1
+        t_params = dict(teacher.named_parameters())
+        decay = wd_mask(student)
+        names = list(state.mu)
+        ps = [params[k] for k in names]
+        update(ps,
+               [p.grad if p.grad is not None else torch.zeros_like(p)
+                for p in ps],
+               [state.mu[k] for k in names], [state.nu[k] for k in names],
+               [t_params.get(k) for k in names], [decay[k] for k in names],
+               update_scalars(lr, wd, m, state.count, cfg.b1, cfg.b2,
+                              cfg.eps))
+        state.step += 1
+        return {"loss": loss.detach(), "lr": lr, "wd": wd, "ema": m, **aux}
+
+    return step_fn

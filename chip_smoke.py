@@ -1,30 +1,43 @@
 #!/usr/bin/env python3
-"""GPU smoke check of the PyTorch port's serving path (ATST-Frame base).
+"""GPU smoke check of the PyTorch port: the serving path and the
+pretraining step of ATST-Frame base.
 
 Run from the repository root on a machine with one CUDA GPU (Hopper,
 sm_90a) and the CUDA toolkit:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile DIR]
 
 1. prints the card's name and power limit, builds the hand-written CUDA
    kernels from ``audiossl_tpu_torch/csrc`` and prints the build time;
-2. holds each kernel against its plain PyTorch version on the card at the
-   serving shapes (8 clips of 10 s, 250 tokens, width 768), with its
-   error and both times from CUDA events;
-3. writes a seeded random ATST-Frame base encoder as a reference-layout
-   ``.ckpt``, loads it with ``load_model(fused=True)`` and
-   ``load_model(fused=False)``, and drives ``get_scene_embedding`` (8 x
+2. holds each kernel against its plain PyTorch version on the card, with
+   its error and both times from CUDA events: K1-K3 at the serving shapes
+   (8 clips of 10 s, 250 tokens, width 768); the training mel (TF32 STFT)
+   against the f32 one; K4 and K5, forward and every gradient, at the
+   training step's shapes (192 sequences); K7 over the full parameter set
+   of the base student branch;
+3. serving: writes a seeded random ATST-Frame base encoder as a
+   reference-layout ``.ckpt``, loads it with ``load_model(fused=True)``
+   and ``load_model(fused=False)``, and drives ``get_scene_embedding`` (8 x
    10 s, and 1 x 160,320 samples: two chunks, the second with no valid
    token) and ``get_timestamp_embedding`` through the kernels, checking
    shapes, finiteness, launch counts and agreement with the plain f32
    path on the card, and the plain f32 path on the card against the CPU;
-4. times scene embedding (clips/s, B=8) on both paths.
+   times scene embedding (clips/s, B=8) on both paths;
+4. training: one step of ``FrameMethod`` at the ATST-Frame base recipe
+   (``bench.py:358-378``, B=96 clips of 10 s, bf16, seeded weights and
+   waveforms) through the kernels, checking the launch counts of every
+   kernel, a finite loss and a teacher that moved; the same step from the
+   same state and draws through the plain versions (loss and every
+   gradient leaf); clips/s of both paths in turns and peak memory.
+   ``--profile DIR`` also writes a ``torch.profiler`` table and trace of
+   one kernel-path step to DIR.
 
 Any failed check raises and exits non-zero. Without a CUDA device, or
 without the package beside it, it exits non-zero and prints no result.
 The last two lines are a JSON summary of the kernels and the result line
 ``{"ok": true, "device": {...}}``.
 """
+import argparse
 import json
 import os
 import subprocess
@@ -45,6 +58,18 @@ BLOCK_REL_L2 = 1e-2  # bf16 kernel vs bf16 plain: same rounding points,
 COS_MIN = 0.995  # fused bf16 vs plain f32: bf16 weights and residual
 # stream over 12 blocks
 CPU_ATOL = 1e-3  # plain f32 on the card vs the CPU: f32 summation order
+TRAIN_B = 96  # clips per training step (bench.py:384): 2B sequences
+ADAMW_REL = 1e-6  # K7 vs plain: the same f32 operations in the same order
+MEL_TF32_ATOL = 2e-3  # TF32 vs f32 STFT, normalized mel: the JAX package's
+# documented ~2e-3 for its 1-pass bf16 training STFT (TF32 keeps 2 more bits)
+STEP_LOSS_REL = 1e-2  # kernel vs plain step: bf16 at the same rounding
+STEP_GRAD_COS = 0.99  # points, sums in another order, over 12 blocks
+# The final LayerNorm's bias has no gradient in exact arithmetic (the
+# projector's BatchNorm cancels a constant added to its input): both paths
+# hold rounding noise there, whose cosine means nothing; it is held to a
+# small norm instead.
+ZERO_GRAD = "encoder.norm_frame.bias"
+ZERO_GRAD_REL = 1e-2
 
 
 def check(ok, what):
@@ -141,6 +166,133 @@ def kernel_checks(dev):
     return res
 
 
+def train_kernel_checks(dev):
+    """K4 and K5, forward and backward, against their plain versions at the
+    training step's shapes: 2B = 192 sequences of 250 tokens, width 768,
+    bf16, ragged lengths and drop-path multipliers."""
+    from audiossl_tpu_torch.ops import attn_train as at
+    from audiossl_tpu_torch.ops import mlp_train as mt
+
+    rng = np.random.RandomState(SEED + 2)
+    S = 2 * TRAIN_B
+
+    def t(*shape, s=1.0, off=0.0, dtype=torch.float32):
+        a = (rng.randn(*shape) * s + off).astype(np.float32)
+        return torch.from_numpy(a).to(dev, dtype)
+
+    x = t(S, N, C, dtype=torch.bfloat16)
+    ragged = [250, 200, 137, 64, 1, 0]
+    lengths = torch.tensor([ragged[i // 4 % 6] if i % 4 == 3 else N
+                            for i in range(S)], device=dev)
+    valid = (torch.arange(N, device=dev)[None] < lengths[:, None]).float()
+    dp = torch.tensor([(0.0, 1.0, 1 / 0.9)[i % 3] for i in range(S)],
+                      device=dev)
+    w = t(S, N, C)  # cotangent of y
+    halves = {
+        "attn_train": (
+            [t(C, s=0.1, off=1.0), t(C, s=0.1), t(3 * C, C, s=0.03),
+             t(3 * C, s=0.02), t(C, C, s=0.03), t(C, s=0.02)],
+            lambda xx, p, plain: at.fused_attn_block(
+                xx, valid, dp, *p, H, plain=plain),
+            lambda p: at.attn_train_fwd(x, valid, dp, *p, H),
+            lambda p: at.attn_train_fwd_ref(x, valid, dp, *p, H),
+            lambda p, res: at.attn_train_bwd(
+                x, dyb, res[1], res[2], res[3], valid, dp, p[0], p[1], p[2],
+                p[4], H),
+            lambda p, res: at.attn_train_bwd_ref(
+                x, dyb, res[1], res[2], res[3], valid, dp, p[0], p[1], p[2],
+                p[4], H)),
+        "mlp_train": (
+            [t(C, s=0.1, off=1.0), t(C, s=0.1), t(HID, C, s=0.03),
+             t(HID, s=0.02), t(C, HID, s=0.03), t(C, s=0.02)],
+            lambda xx, p, plain: mt.fused_mlp_block(xx, dp, *p, plain=plain),
+            lambda p: mt.mlp_train_fwd(x, dp, *p),
+            lambda p: mt.mlp_train_fwd_ref(x, dp, *p),
+            lambda p, res: mt.mlp_train_bwd(
+                x, dyb, res[1], dp, p[0], p[1], p[2], p[4]),
+            lambda p, res: mt.mlp_train_bwd_ref(
+                x, dyb, res[1], dp, p[0], p[1], p[2], p[4])),
+    }
+    dyb = w.to(torch.bfloat16)
+    res = {}
+    for name, (params, block, fwd, fwd_ref, bwd, bwd_ref) in halves.items():
+        outs = {}
+        for plain in (False, True):
+            xx = x.clone().requires_grad_()
+            ps = [p.clone().requires_grad_() for p in params]
+            y = block(xx, ps, plain)
+            (y.float() * w).sum().backward()
+            outs[plain] = (y.detach(), [xx.grad] + [p.grad for p in ps])
+            del y, xx, ps
+        (yk, gk), (yp, gp) = outs[False], outs[True]
+        ry = rel_l2(yk, yp)
+        rg = [rel_l2(a, b) for a, b in zip(gk, gp)]
+        err_y = float((yk.float() - yp.float()).abs().max())
+        err_dx = float((gk[0].float() - gp[0].float()).abs().max())
+        print(f"{name} {tuple(x.shape)} bf16: y rel_l2 {ry}, max_abs_err "
+              f"{err_y}; gradient rel_l2 (dx, dLN w, dLN b, dW_in, db_in, "
+              f"dW_out, db_out) {rg}; dx max_abs_err {err_dx}")
+        check(bool(torch.isfinite(yk.float()).all())
+              and all(bool(torch.isfinite(g).all()) for g in gk),
+              f"{name} output and gradients finite")
+        check(ry <= BLOCK_REL_L2, f"{name} y rel L2 {ry} <= {BLOCK_REL_L2}")
+        check(max(rg) <= BLOCK_REL_L2,
+              f"{name} every gradient rel L2 {max(rg)} <= {BLOCK_REL_L2}")
+        del outs
+        fres = fwd(params)
+        res[f"{name}_fwd"] = dict(
+            max_abs_err=err_y, rel_l2=ry,
+            ms=cuda_ms(lambda: fwd(params), iters=10),
+            plain_ms=cuda_ms(lambda: fwd_ref(params), iters=10))
+        res[f"{name}_bwd"] = dict(
+            max_abs_err=err_dx, rel_l2=max(rg),
+            ms=cuda_ms(lambda: bwd(params, fres), iters=10),
+            plain_ms=cuda_ms(lambda: bwd_ref(params, fres), iters=10))
+        del fres
+        torch.cuda.empty_cache()
+    return res
+
+
+def adamw_ema_check(dev, shapes, teacher_leaves, decay):
+    """K7 against its plain version over leaves of the given shapes (the
+    teacher holds the leaves flagged in ``teacher_leaves``); returns the
+    worst relative error (max |kernel - plain| / max |plain| per state
+    tensor) and both times."""
+    from audiossl_tpu_torch.ops import adamw_ema as ae
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+
+    def state():
+        r = lambda s, sc: torch.randn(s, device=dev, generator=gen) * sc  # noqa: E731
+        p = [r(s, 0.02) for s in shapes]
+        g = [r(s, 1e-3) for s in shapes]
+        mu = [r(s, 1e-4) for s in shapes]
+        nu = [r(s, 1e-6).abs() for s in shapes]
+        tt = [r(s, 0.02) if keep else None
+              for s, keep in zip(shapes, teacher_leaves)]
+        return p, g, mu, nu, tt
+
+    sc = ae.update_scalars(8e-5, 0.04, 0.9996, 7, 0.9, 0.999, 1e-6)
+    a = state()
+    b = [[None if v is None else v.clone() for v in lst] for lst in a]
+    ae.adamw_ema(*a, decay, sc)
+    ae.adamw_ema_ref(*b, decay, sc)
+    worst = 0.0
+    for la, lb in zip((a[0], a[2], a[3], a[4]), (b[0], b[2], b[3], b[4])):
+        for u, v in zip(la, lb):
+            if u is not None:
+                worst = max(worst, float((u - v).abs().max()
+                                         / v.abs().max().clamp_min(1e-30)))
+    n = sum(int(np.prod(s)) for s in shapes)
+    print(f"K7 adamw_ema over {len(shapes)} leaves, {n} elements "
+          f"({sum(teacher_leaves)} with a teacher copy): max rel error {worst}")
+    check(worst <= ADAMW_REL, f"K7 max rel error {worst} <= {ADAMW_REL}")
+    return dict(max_abs_err=worst,
+                ms=cuda_ms(lambda: ae.adamw_ema(*a, decay, sc), iters=10),
+                plain_ms=cuda_ms(lambda: ae.adamw_ema_ref(*b, decay, sc),
+                                 iters=10))
+
+
 def main_path(dev, workdir):
     """The public embedding API at ATST-Frame base width, through the
     kernels; returns the launch counts of that run."""
@@ -226,11 +378,180 @@ def main_path(dev, workdir):
     return launches
 
 
+def train_mel_check(dev):
+    """The training mel (``stft_precision="default"``: TF32 STFT on the
+    card) against the f32 serving mel on the same crops."""
+    from audiossl_tpu_torch.ops.melspec import MelConfig, log_melspec
+
+    rng = np.random.RandomState(SEED + 5)
+    wav = torch.from_numpy((rng.randn(TRAIN_B, SAMPLES) * 0.1).astype(
+        np.float32)).to(dev)
+    valid = torch.full((TRAIN_B,), SAMPLES, device=dev)
+    valid[1::3] = SAMPLES * 3 // 4  # some crops shorter than the anchor
+    got = log_melspec(wav, valid, MelConfig(stft_precision="default"))
+    want = log_melspec(wav, valid, MelConfig())
+    err = (got - want).abs()
+    print(f"training mel (TF32 STFT) vs f32 mel {tuple(got.shape)}: max abs "
+          f"{float(err.max())}, mean abs {float(err.mean())}")
+    check(float(err.max()) <= MEL_TF32_ATOL,
+          f"TF32 training mel within {MEL_TF32_ATOL} of the f32 mel")
+
+
+def base_recipe():
+    """ATST-Frame base as ``bench.py:358-378`` times it."""
+    from audiossl_tpu_torch.methods.atstframe.method import FramePretrainConfig
+    from audiossl_tpu_torch.training.pretrain import OptimizerConfig
+
+    return FramePretrainConfig(
+        arch="base", anchor_len=10.0, mask_type="block", mask_ratio=0.65,
+        mask_len=5, aug_tea=False, aug_stu=True, dtype="bfloat16",
+        optimizer=OptimizerConfig(learning_rate=8e-5, warmup_steps=19900,
+                                  max_steps=398000, ema=0.9996))
+
+
+def student_leaves(dev):
+    """Shapes of the base student branch's parameters, whether the teacher
+    holds each, and whether each decays (K7's main-path leaves)."""
+    from audiossl_tpu_torch.methods.atstframe.method import FrameMethod
+
+    m = FrameMethod(base_recipe(), device="meta")
+    t_names = {k for k, _ in m.teacher.named_parameters()}
+    leaves = list(m.student.named_parameters())
+    return ([tuple(p.shape) for _, p in leaves],
+            [k in t_names for k, _ in leaves], [p.ndim >= 2 for _, p in leaves])
+
+
+def train_path(dev, profile_dir=None):
+    """The pretraining step at ATST-Frame base, B=96, through the kernels,
+    and the same step through the plain versions; returns the kernel
+    path's launch counts."""
+    from audiossl_tpu_torch.kernels import build as kb
+    from audiossl_tpu_torch.methods.atstframe.method import FrameMethod
+
+    cfg = base_recipe()
+    rng = np.random.RandomState(SEED + 4)
+    wav = torch.from_numpy((rng.randn(TRAIN_B, cfg.out_samples) * 0.1).astype(
+        np.float32)).to(dev)
+    batch = {"wav": wav, "valid": torch.full((TRAIN_B,), cfg.out_samples,
+                                             device=dev)}
+    runs = {}
+    for plain in (False, True):
+        method = FrameMethod(cfg, device=dev, seed=SEED, plain=plain)
+        state = method.init_state(seed=SEED)
+        # start at the end of warmup, so the step moves the parameters at
+        # the recipe's peak lr (at step 0 the warmup lr is 0)
+        state.step = cfg.optimizer.warmup_steps
+        runs[plain] = (method, state, method.make_step())
+    method, state, step = runs[False]
+    draws = method.draw(torch.Generator(device=dev).manual_seed(SEED), TRAIN_B)
+    t_name = f"encoder.blocks.{method.depth - 1}.mlp.fc2.weight"
+    t_before = dict(state.teacher.named_parameters())[t_name].detach().clone()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kb.reset_launches()
+    out = step(state, batch, draws)
+    torch.cuda.synchronize()
+    launches = dict(kb.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    loss = float(out["loss"])
+    print(f"training step ({cfg.arch}, B={TRAIN_B}, {cfg.dtype}) launches: "
+          f"{launches}")
+    print(f"training step loss {loss}, std_frm_stu "
+          f"{float(out['std_frm_stu'])}, std_frm_tea "
+          f"{float(out['std_frm_tea'])}, lr {out['lr']}, wd {out['wd']}, "
+          f"ema {out['ema']}; peak device memory {peak} GiB")
+    depth = method.depth
+    for name in ("attn_train_fwd", "attn_train_bwd", "mlp_train_fwd",
+                 "mlp_train_bwd", "attn_block", "mlp_block"):
+        check(launches[name] == depth,
+              f"{name}: {launches[name]} launches in the step == {depth}")
+    check(launches["mel_db"] >= 1 and launches["adamw_ema"] >= 1,
+          "mel and AdamW + EMA kernels launched in the step")
+    check(np.isfinite(loss), f"training loss {loss} finite")
+    t_after = dict(state.teacher.named_parameters())[t_name].detach()
+    moved = float((t_after - t_before).abs().max())
+    check(moved > 0.0, f"the teacher moved ({t_name} max change {moved})")
+
+    pmethod, pstate, pstep = runs[True]
+    pout = pstep(pstate, batch, draws)
+    ploss = float(pout["loss"])
+    rel = abs(loss - ploss) / abs(ploss)
+    cos, norms = {}, {}
+    pparams = dict(pstate.student.named_parameters())
+    for k, p in state.student.named_parameters():
+        g, pg = p.grad.double().flatten(), pparams[k].grad.double().flatten()
+        norms[k] = max(float(g.norm()), float(pg.norm()))
+        if k != ZERO_GRAD:
+            cos[k] = float(torch.nn.functional.cosine_similarity(g, pg, dim=0))
+    worst = min(cos, key=cos.get)
+    print(f"plain-path step loss {ploss}: rel diff {rel}; gradient cosine "
+          f"min {cos[worst]} ({worst}), median "
+          f"{float(np.median(list(cos.values())))} over {len(cos)} leaves; "
+          f"{ZERO_GRAD} gradient norm {norms[ZERO_GRAD]} (largest leaf "
+          f"{max(norms.values())})")
+    check(rel <= STEP_LOSS_REL, f"step loss rel diff {rel} <= {STEP_LOSS_REL}")
+    check(cos[worst] >= STEP_GRAD_COS,
+          f"every gradient leaf cosine >= {STEP_GRAD_COS}")
+    check(norms[ZERO_GRAD] <= ZERO_GRAD_REL * max(norms.values()),
+          f"{ZERO_GRAD} gradient (zero in exact arithmetic) <= "
+          f"{ZERO_GRAD_REL} of the largest leaf's on both paths")
+
+    # clips/s in turns: plain, kernels, kernels, plain (1 warm-up + 3 steps)
+    rates = {"plain": [], "kernels": []}
+    for label in ("plain", "kernels", "kernels", "plain"):
+        _, st, fn = runs[label == "plain"]
+        fn(st, batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            fn(st, batch)
+        torch.cuda.synchronize()
+        rates[label].append(3 * TRAIN_B / (time.perf_counter() - t0))
+    print(json.dumps({"train_clips_per_s_B96": rates,
+                      "train_peak_gib_kernels": peak}))
+    if profile_dir:
+        profile_step(step, state, batch, profile_dir)
+    return launches
+
+
+def profile_step(step, state, batch, out_dir):
+    """One kernel-path step under torch.profiler: a table of device time
+    by kernel and a chrome trace in out_dir."""
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(out_dir, exist_ok=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    table = prof.key_averages().table(sort_by="cuda_time_total",
+                                      row_limit=60)
+    with open(os.path.join(out_dir, "train_step_profile.txt"), "w") as f:
+        f.write(f"wall {wall * 1e3} ms\n{table}\n")
+    prof.export_chrome_trace(os.path.join(out_dir, "train_step_trace.json"))
+    print(f"profile of one training step ({wall * 1e3} ms wall) written "
+          f"to {out_dir}")
+
+
 def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--profile", metavar="DIR",
+                    help="write a profile of one training step to DIR")
+    args = ap.parse_args()
+    t_start = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    if not os.path.isdir(os.path.join(root, "audiossl_tpu_torch", "csrc")):
+        print("chip_smoke: the audiossl_tpu_torch package is not beside "
+              "this script; nothing was run", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, root)
     from audiossl_tpu_torch.kernels import build as kb
 
     smi = subprocess.run(
@@ -249,21 +570,37 @@ def main():
     print(f"kernel build + load: {time.perf_counter() - t0:.1f} s")
 
     res = kernel_checks(dev)
+    train_mel_check(dev)
+    res.update(train_kernel_checks(dev))
+    res["adamw_ema"] = adamw_ema_check(dev, *student_leaves(dev))
     with tempfile.TemporaryDirectory() as workdir:
-        launches = main_path(dev, workdir)
+        serving = main_path(dev, workdir)
+    torch.cuda.empty_cache()
+    training = train_path(dev, args.profile)
 
     sources = {
-        "mel_db": ("audiossl_tpu_torch/csrc/mel_db.cu",
-                   "audiossl_tpu/ops/pallas_mel.py:39"),
-        "attn_block": ("audiossl_tpu_torch/csrc/attn_block.cu",
-                       "audiossl_tpu/ops/pallas_block.py:282"),
-        "mlp_block": ("audiossl_tpu_torch/csrc/mlp_block.cu",
-                      "audiossl_tpu/ops/pallas_block.py:360"),
+        "mel_db": ("mel_db.cu", "audiossl_tpu/ops/pallas_mel.py:39"),
+        "attn_block": ("attn_block.cu", "audiossl_tpu/ops/pallas_block.py:282"),
+        "mlp_block": ("mlp_block.cu", "audiossl_tpu/ops/pallas_block.py:360"),
+        "attn_train_fwd": ("attn_train.cu",
+                           "audiossl_tpu/ops/pallas_attn.py:304"),
+        "attn_train_bwd": ("attn_train.cu",
+                           "audiossl_tpu/ops/pallas_attn.py:396"),
+        "mlp_train_fwd": ("mlp_train.cu", "audiossl_tpu/ops/pallas_mlp.py:277"),
+        "mlp_train_bwd": ("mlp_train.cu", "audiossl_tpu/ops/pallas_mlp.py:350"),
+        "adamw_ema": ("adamw_ema.cu", "audiossl_tpu/ops/pallas_opt.py:150"),
     }
-    print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name], **res[name]}
-        for name, (src, rep) in sources.items()]}))
+    kernels = []
+    for name, (src, rep) in sources.items():
+        by_path = {"serving": serving.get(name, 0), "training": training[name]}
+        check(sum(by_path.values()) > 0, f"{name} launched on a main path")
+        kernels.append({"name": name, "route": "cuda",
+                        "source": f"audiossl_tpu_torch/csrc/{src}",
+                        "replaces": rep, "launches": sum(by_path.values()),
+                        "launches_by_path": by_path, **res[name]})
+    print(f"chip_smoke: all checks passed in "
+          f"{time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -9,7 +9,8 @@ import pytest
 import torch
 
 from audiossl_tpu_torch.kernels import build as kb
-from audiossl_tpu_torch.ops import block_infer, mel_db
+from audiossl_tpu_torch.ops import (adamw_ema, attn_train, block_infer,
+                                    mel_db, mlp_train)
 
 FAKE_NVCC = """#!/bin/sh
 # stand-in for nvcc: write the -o target, or fail when asked to
@@ -37,7 +38,7 @@ def test_build_compiles_every_source_and_links_once(fake_nvcc):
     digest = lib.name[len("libaudiossl_kernels_"):-len(".so")]
     log = (fake_nvcc / f"{digest}.log").read_text()
     n_sources = len(list(kb.CSRC.glob("*.cu")))
-    assert n_sources == 3
+    assert n_sources == 6
     assert log.count("Used 32 registers") == n_sources + 1  # + the link
     assert kb.build() == lib  # an existing library is not rebuilt
     # objects were built in a temporary directory that is gone
@@ -68,7 +69,10 @@ def test_missing_nvcc_raises(tmp_path, monkeypatch):
         kb.build()
 
 
-@pytest.mark.parametrize("which", ["mel_db", "attn_block", "mlp_block"])
+@pytest.mark.parametrize("which", ["mel_db", "attn_block", "mlp_block",
+                                   "attn_train_fwd", "attn_train_bwd",
+                                   "mlp_train_fwd", "mlp_train_bwd",
+                                   "adamw_ema"])
 def test_wrappers_raise_for_a_tensor_off_the_cpu_and_cuda(which):
     """A tensor that is not on the CPU never takes the plain version: it
     reaches the kernel path, which refuses a non-CUDA device."""
@@ -87,8 +91,31 @@ def test_wrappers_raise_for_a_tensor_off_the_cpu_and_cuda(which):
             block_infer.attn_block_infer(
                 t(2, 8, C, dtype=bf), t(2, 8), t(C), t(C),
                 t(3 * C, C, dtype=bf), None, t(C, C, dtype=bf), t(C), 2)
-        else:
+        elif which == "mlp_block":
             block_infer.mlp_block_infer(
                 t(2, 8, C, dtype=bf), t(C), t(C), t(4 * C, C, dtype=bf),
                 t(4 * C), t(C, 4 * C, dtype=bf), t(C))
+        elif which == "attn_train_fwd":
+            attn_train.attn_train_fwd(
+                t(2, 8, C, dtype=bf), t(2, 8), t(2), t(C), t(C),
+                t(3 * C, C), None, t(C, C), t(C), 2)
+        elif which == "attn_train_bwd":
+            attn_train.attn_train_bwd(
+                t(2, 8, C, dtype=bf), t(2, 8, C, dtype=bf),
+                t(2, 8, 3 * C, dtype=bf), t(2, 8, C, dtype=bf), t(2, 8, 2),
+                t(2, 8), t(2), t(C), t(C), t(3 * C, C), t(C, C), 2)
+        elif which == "mlp_train_fwd":
+            mlp_train.mlp_train_fwd(
+                t(2, 8, C, dtype=bf), t(2), t(C), t(C), t(4 * C, C),
+                t(4 * C), t(C, 4 * C), t(C))
+        elif which == "mlp_train_bwd":
+            mlp_train.mlp_train_bwd(
+                t(2, 8, C, dtype=bf), t(2, 8, C, dtype=bf),
+                t(2, 8, 4 * C, dtype=bf), t(2), t(C), t(C), t(4 * C, C),
+                t(C, 4 * C))
+        else:
+            adamw_ema.adamw_ema(
+                [t(C, C)], [t(C, C)], [t(C, C)], [t(C, C)], [None], [True],
+                adamw_ema.update_scalars(1e-3, 0.04, 0.99, 1, 0.9, 0.999,
+                                         1e-6))
     assert kb.LAUNCHES[which] == 0

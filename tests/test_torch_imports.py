@@ -19,6 +19,8 @@ def test_port_imports_without_jax():
         "    sys.modules[m] = None\n"
         "import audiossl_tpu_torch, audiossl_tpu_torch.embedding\n"
         "import audiossl_tpu_torch.ops, audiossl_tpu_torch.models\n"
+        "import audiossl_tpu_torch.methods.atstframe.method\n"
+        "import audiossl_tpu_torch.compat.checkpoint\n"
         "from audiossl_tpu_torch import load_model, get_scene_embedding\n"
         "bad = [m for m in sys.modules if m.split('.')[0] == 'audiossl_tpu']\n"
         "assert not bad, bad\n"
@@ -46,4 +48,5 @@ def test_wrappers_on_cpu_launch_nothing():
                                torch.rand(5, 3, generator=g))
     assert y.shape == (B, N, C) and db.shape == (B, 3, 7)
     assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(db).all())
-    assert kb.LAUNCHES == {"mel_db": 0, "attn_block": 0, "mlp_block": 0}
+    assert set(kb.LAUNCHES) >= {"mel_db", "attn_block", "mlp_block"}
+    assert not any(kb.LAUNCHES.values()), kb.LAUNCHES

@@ -93,3 +93,21 @@ def test_filterbank_and_dft_filters_match_jax():
         np.asarray(jmel.mel_filterbank(jmel.MelConfig())))
     np.testing.assert_array_equal(tmel._dft_filters_np(1024, 1024),
                                   jmel._dft_filters_np(1024, 1024))
+
+
+def test_training_stft_precision_matches_jax():
+    """The training mel (``stft_precision="default"``; the JAX package's
+    hop-decomposed framed product, the port's TF32 product on a card) is
+    the f32 mel on the CPU in both; an unknown precision raises."""
+    wav = _wav(2, 16000, seed=3)
+    lengths = (16000, 12345)
+    wav[1, lengths[1]:] = 0.0
+    want = np.asarray(jmel.log_melspec(
+        jnp.asarray(wav), jnp.asarray(lengths, jnp.int32),
+        jmel.MelConfig(stft_precision="default"), use_pallas=False))
+    got = tmel.log_melspec(torch.from_numpy(wav), torch.tensor(lengths),
+                           tmel.MelConfig(stft_precision="default")).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-4)
+    with pytest.raises(ValueError, match="stft_precision"):
+        tmel.stft_conv(torch.from_numpy(wav),
+                       tmel.MelConfig(stft_precision="bf16"))
