@@ -53,20 +53,24 @@ def _norm(p, prefix, out):
 
 
 def state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
-    """Frame ``AudioTransformer`` flax params -> the port's state dict.
+    """Frame or clip ``AudioTransformer`` flax params -> the port's state
+    dict.
 
     Dense kernels are transposed to torch's ``[out, in]``; a qkv Dense
     without bias (``qkv_bias=False``) gives no ``qkv.bias`` key, as in
-    the reference. Raises on param groups a frame encoder does not hold,
-    so nothing is dropped unnoticed."""
+    the reference. A clip encoder (one with a ``cls_token``) keeps it and
+    its final norm is ``norm`` (the reference AST's name); a frame
+    encoder's is ``norm_frame``. Raises on param groups neither encoder
+    holds, so nothing is dropped unnoticed."""
     out: Dict[str, torch.Tensor] = {}
+    clip = "cls_token" in params
     for name, p in params.items():
         if name == "patch_proj":
             _dense(p, "patch_embed.patch_embed", out)
-        elif name in ("pos_embed", "mask_embed"):
+        elif name in ("pos_embed", "mask_embed", "cls_token"):
             out[name] = _t(p)
         elif name == "norm":
-            _norm(p, "norm_frame", out)
+            _norm(p, "norm" if clip else "norm_frame", out)
         elif name.startswith("blocks_"):
             b = "blocks." + name[len("blocks_"):]
             _norm(p["norm1"], b + ".norm1", out)
@@ -77,7 +81,7 @@ def state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
             _dense(p["mlp"]["fc2"], b + ".mlp.fc2", out)
         else:
             raise KeyError(f"param group {name!r} has no place in the "
-                           "frame encoder")
+                           "port's encoder")
     return out
 
 
@@ -100,7 +104,7 @@ def _head_from_flax(p: Mapping, stats: Mapping, prefix: str, out) -> None:
 def branch_state_from_flax(params: Mapping,
                            batch_stats: Mapping = None
                            ) -> Dict[str, torch.Tensor]:
-    """A JAX ``Branch`` (frame encoder + projector [+ predictor]) param
+    """A JAX ``Branch`` (encoder + projector [+ predictor]) param
     tree and its ``batch_stats`` -> the port's ``Branch`` state dict:
     ``encoder.*`` under the serving names, ``head.projector.*`` and
     ``head.predictor.*``. With ``batch_stats`` None only the parameters
@@ -125,8 +129,9 @@ def opt_state_from_flax(opt_state) -> Tuple[Dict[str, torch.Tensor],
 
 def pretrain_state_from_flax(state, method, generator: torch.Generator):
     """The JAX package's ``PretrainState`` -> the port's, loaded into the
-    branches of ``method`` (a ``FrameMethod``); ``generator`` becomes the
-    state's generator (JAX keys do not carry over)."""
+    branches of ``method`` (a ``FrameMethod`` or a ``ClipMethod``);
+    ``generator`` becomes the state's generator (JAX keys do not carry
+    over)."""
     from audiossl_tpu_torch.training.pretrain import PretrainState
 
     dev = method.device

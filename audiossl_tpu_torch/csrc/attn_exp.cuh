@@ -1,16 +1,18 @@
-// Exp-only softmax attention over the packed [M, 3C] bf16 qkv buffer, shared
-// by the inference (attn_block.cu, K2) and training (attn_train.cu, K4)
-// attention halves.
+// Exp-only softmax attention over the packed [M, 3C] qkv buffer, shared by
+// the inference (attn_block.cu, K2) and training (attn_train.cu, K4)
+// attention halves and the standalone MHA (mha.cu, K6). Templated on the
+// element type T of qkv and o: bf16 (K2, K4, K6) or f32 (K6).
 //
 // Per (clip, head, 64-query tile): s = q.k * scale over 32-key tiles,
-// e = bf16(exp(s)) -- no max subtraction, so partial sums over key tiles
-// simply add --, o = sum e v / (sum e valid_v + 1e-30), bf16. The TPU
-// kernel's masking: invalid keys are zeroed in k (e = 1) and dropped from
-// the sums by valid_v, which the wrapper sets to all ones for a sequence
-// with no valid key (uniform attention). Rounding points: e and o are bf16,
-// the denominator sums the same rounded e. With r != nullptr the reciprocal
-// denominators 1 / (den + 1e-30) are written to r [M, H] (f32), the residual
-// the training backward reads.
+// e = T(exp(s)) -- no max subtraction, so partial sums over key tiles
+// simply add --, o = sum e v / (sum e valid_v + 1e-30), T. The TPU
+// kernels' masking: invalid keys are zeroed in k (e = 1) and dropped from
+// the sums by valid_v. K2/K4's wrappers set valid_v to all ones for a
+// sequence with no valid key (uniform attention); K6 passes valid_v =
+// valid_k, so such a sequence gets den = 0 and o = 0. Rounding points: e and
+// o are T, the denominator sums the same rounded e. With r != nullptr the
+// reciprocal denominators 1 / (den + 1e-30) are written to r [M, H] (f32),
+// the residual the backward reads.
 #pragma once
 
 #include <cstdint>
@@ -23,30 +25,31 @@ constexpr int QT = 64;         // queries per block
 constexpr int KT = 32;         // keys per inner tile
 constexpr int ATHREADS = 256;  // 4 threads per query row
 
-template <int D>
+template <typename T, int D>
 static __global__ void __launch_bounds__(ATHREADS)
-    attn_exp_kernel(const bf16* __restrict__ qkv,
+    attn_exp_kernel(const T* __restrict__ qkv,
                     const float* __restrict__ valid_k,
                     const float* __restrict__ valid_v,
-                    bf16* __restrict__ o, float* __restrict__ r_out, int N,
+                    T* __restrict__ o, float* __restrict__ r_out, int N,
                     int C, int H, float scale) {
-  constexpr int LD = D + 8;  // bf16 row pitch (16-byte multiple)
-  constexpr int CH = D / 8;  // 16-byte chunks per row
-  __shared__ __align__(16) bf16 Qs[QT][LD];
-  __shared__ __align__(16) bf16 Ks[KT][LD];
-  __shared__ __align__(16) bf16 Vs[KT][LD];
+  using E = elem<T>;
+  constexpr int LD = D + E::PER16;  // row pitch (16-byte multiple)
+  constexpr int CH = D / E::PER16;  // 16-byte chunks per row
+  __shared__ __align__(16) T Qs[QT][LD];
+  __shared__ __align__(16) T Ks[KT][LD];
+  __shared__ __align__(16) T Vs[KT][LD];
   __shared__ float Es[QT][KT + 1];
   __shared__ float Vv[KT];
 
   const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * QT;
   const int tid = threadIdx.x, r = tid >> 2, sub = tid & 3;
   const size_t pitch = 3 * (size_t)C;
-  const bf16* base = qkv + (size_t)b * N * pitch;
+  const T* base = qkv + (size_t)b * N * pitch;
   const float* vk = valid_k + (size_t)b * N;
   const float* vv = valid_v + (size_t)b * N;
 
   for (int c = tid; c < QT * CH; c += ATHREADS) {
-    int row = c / CH, dc = (c % CH) * 8, n = q0 + row;
+    int row = c / CH, dc = (c % CH) * E::PER16, n = q0 + row;
     uint4 v = make_uint4(0, 0, 0, 0);
     if (n < N)
       v = *reinterpret_cast<const uint4*>(base + n * pitch + h * D + dc);
@@ -61,11 +64,11 @@ static __global__ void __launch_bounds__(ATHREADS)
   for (int k0 = 0; k0 < N; k0 += KT) {
     __syncthreads();  // Qs written / previous tile consumed
     for (int c = tid; c < KT * CH; c += ATHREADS) {
-      int j = c / CH, dc = (c % CH) * 8, n = k0 + j;
+      int j = c / CH, dc = (c % CH) * E::PER16, n = k0 + j;
       float mk = n < N ? vk[n] : 0.0f;
       float mv = n < N ? vv[n] : 0.0f;
-      __align__(16) bf16 kv[8];
-      __align__(16) bf16 vvv[8];
+      __align__(16) T kv[E::PER16];
+      __align__(16) T vvv[E::PER16];
       if (n < N) {
         *reinterpret_cast<uint4*>(kv) =
             *reinterpret_cast<const uint4*>(base + n * pitch + C + h * D + dc);
@@ -73,11 +76,11 @@ static __global__ void __launch_bounds__(ATHREADS)
             base + n * pitch + 2 * C + h * D + dc);
       }
 #pragma unroll
-      for (int e = 0; e < 8; ++e) {  // kz = k * valid_k, v * valid_v
-        float kf = n < N ? __bfloat162float(kv[e]) : 0.0f;
-        float vf = n < N ? __bfloat162float(vvv[e]) : 0.0f;
-        Ks[j][dc + e] = __float2bfloat16(kf * mk);
-        Vs[j][dc + e] = __float2bfloat16(vf * mv);
+      for (int e = 0; e < E::PER16; ++e) {  // kz = k * valid_k, v * valid_v
+        float kf = n < N ? E::to_f(kv[e]) : 0.0f;
+        float vf = n < N ? E::to_f(vvv[e]) : 0.0f;
+        Ks[j][dc + e] = E::from_f(kf * mk);
+        Vs[j][dc + e] = E::from_f(vf * mv);
       }
       if (dc == 0) Vv[j] = mv;
     }
@@ -90,14 +93,12 @@ static __global__ void __launch_bounds__(ATHREADS)
       float s = 0.0f;
 #pragma unroll 8
       for (int d = 0; d < D; d += 2) {
-        float2 q = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(&Qs[r][d]));
-        float2 k = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(&Ks[j][d]));
+        float2 q = E::ld2(&Qs[r][d]);
+        float2 k = E::ld2(&Ks[j][d]);
         s = fmaf(q.x, k.x, s);
         s = fmaf(q.y, k.y, s);
       }
-      Es[r][j] = __bfloat162float(__float2bfloat16(expf(s * scale)));
+      Es[r][j] = round_to<T>(expf(s * scale));
     }
     __syncthreads();
 
@@ -108,8 +109,7 @@ static __global__ void __launch_bounds__(ATHREADS)
       den = fmaf(e, Vv[j], den);
 #pragma unroll
       for (int i = 0; i < D / 8; ++i) {
-        float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
-            &Vs[j][2 * sub + 8 * i]));
+        float2 v = E::ld2(&Vs[j][2 * sub + 8 * i]);
         acc[2 * i] = fmaf(e, v.x, acc[2 * i]);
         acc[2 * i + 1] = fmaf(e, v.y, acc[2 * i + 1]);
       }
@@ -120,33 +120,38 @@ static __global__ void __launch_bounds__(ATHREADS)
   if (n >= N) return;
   const float rden = 1.0f / (den + 1e-30f);
   if (r_out != nullptr && sub == 0) r_out[((size_t)b * N + n) * H + h] = rden;
-  bf16* orow = o + ((size_t)b * N + n) * C + h * D;
+  T* orow = o + ((size_t)b * N + n) * C + h * D;
 #pragma unroll
   for (int i = 0; i < D / 8; ++i)
-    *reinterpret_cast<__nv_bfloat162*>(&orow[2 * sub + 8 * i]) =
-        __floats2bfloat162_rn(acc[2 * i] * rden, acc[2 * i + 1] * rden);
+    E::st2(&orow[2 * sub + 8 * i], acc[2 * i] * rden, acc[2 * i + 1] * rden);
 }
 
-template <int D>
-static cudaError_t attn_exp_d(const bf16* qkv, const float* valid_k,
-                       const float* valid_v, bf16* o, float* r, int B, int N,
-                       int C, int H, float scale, cudaStream_t s) {
+template <typename T, int D>
+static cudaError_t attn_exp_d(const T* qkv, const float* valid_k,
+                              const float* valid_v, T* o, float* r, int B,
+                              int N, int C, int H, float scale,
+                              cudaStream_t s) {
   dim3 grid((N + QT - 1) / QT, H, B);
-  attn_exp_kernel<D><<<grid, ATHREADS, 0, s>>>(qkv, valid_k, valid_v, o, r, N,
-                                                C, H, scale);
+  attn_exp_kernel<T, D><<<grid, ATHREADS, 0, s>>>(qkv, valid_k, valid_v, o, r,
+                                                  N, C, H, scale);
   return cudaGetLastError();
 }
 
-// Dispatch on the head dimension C / H (32, 64 or 128).
-static inline cudaError_t attn_exp(const bf16* qkv, const float* valid_k,
-                                   const float* valid_v, bf16* o, float* r,
+// Dispatch on the head dimension C / H: 32, 64 or (bf16 only, the static
+// shared-memory tiles of f32 would exceed 48 KB) 128.
+template <typename T>
+static inline cudaError_t attn_exp(const T* qkv, const float* valid_k,
+                                   const float* valid_v, T* o, float* r,
                                    int B, int N, int C, int H, float scale,
                                    cudaStream_t s) {
   if (H <= 0 || C % H) return cudaErrorInvalidValue;
   switch (C / H) {
-    case 32: return attn_exp_d<32>(qkv, valid_k, valid_v, o, r, B, N, C, H, scale, s);
-    case 64: return attn_exp_d<64>(qkv, valid_k, valid_v, o, r, B, N, C, H, scale, s);
-    case 128: return attn_exp_d<128>(qkv, valid_k, valid_v, o, r, B, N, C, H, scale, s);
+    case 32: return attn_exp_d<T, 32>(qkv, valid_k, valid_v, o, r, B, N, C, H, scale, s);
+    case 64: return attn_exp_d<T, 64>(qkv, valid_k, valid_v, o, r, B, N, C, H, scale, s);
+    case 128:
+      if constexpr (sizeof(T) == 2)
+        return attn_exp_d<T, 128>(qkv, valid_k, valid_v, o, r, B, N, C, H, scale, s);
+      return cudaErrorInvalidValue;
     default: return cudaErrorInvalidValue;
   }
 }

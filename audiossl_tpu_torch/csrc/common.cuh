@@ -25,6 +25,49 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+// Element types of the kernels templated on their storage type (bf16 or
+// f32): 16-byte chunks of PER16 elements, conversion to and from f32 (f32
+// sums, rounding to the element type where the TPU kernels round), and pair
+// loads and stores.
+template <typename T>
+struct elem;
+
+template <>
+struct elem<bf16> {
+  static constexpr int PER16 = 8;
+  static __device__ __forceinline__ float to_f(bf16 v) {
+    return __bfloat162float(v);
+  }
+  static __device__ __forceinline__ bf16 from_f(float v) {
+    return __float2bfloat16(v);
+  }
+  static __device__ __forceinline__ float2 ld2(const bf16* p) {
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+  }
+  static __device__ __forceinline__ void st2(bf16* p, float a, float b) {
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+  }
+};
+
+template <>
+struct elem<float> {
+  static constexpr int PER16 = 4;
+  static __device__ __forceinline__ float to_f(float v) { return v; }
+  static __device__ __forceinline__ float from_f(float v) { return v; }
+  static __device__ __forceinline__ float2 ld2(const float* p) {
+    return *reinterpret_cast<const float2*>(p);
+  }
+  static __device__ __forceinline__ void st2(float* p, float a, float b) {
+    *reinterpret_cast<float2*>(p) = make_float2(a, b);
+  }
+};
+
+// v rounded to T and back (the identity for f32)
+template <typename T>
+__device__ __forceinline__ float round_to(float v) {
+  return elem<T>::to_f(elem<T>::from_f(v));
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);

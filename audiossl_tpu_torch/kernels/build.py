@@ -31,7 +31,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 LAUNCHES = {"mel_db": 0, "attn_block": 0, "mlp_block": 0,
             "attn_train_fwd": 0, "attn_train_bwd": 0,
-            "mlp_train_fwd": 0, "mlp_train_bwd": 0, "adamw_ema": 0}
+            "mlp_train_fwd": 0, "mlp_train_bwd": 0, "adamw_ema": 0,
+            "mha_fwd": 0, "mha_bwd": 0, "ln_pg_bwd": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -62,7 +63,16 @@ _SIGNATURES = {
     # table, n_leaves, n_chunks, lr, wd, m, 1-m, rc1, rc2, b1, 1-b1, b2,
     # 1-b2, eps
     "adamw_ema_launch": [_I, _P, _I, _L] + [_F] * 11 + [_P],
+    # qkv, valid, out, r, dtype, B, N, C, H, scale
+    "mha_fwd_launch": [_I] + [_P] * 4 + [_I] * 5 + [_F, _P],
+    # qkv, valid, out, r, d_out, dqkv, dor, nd, dtype, B, N, C, H, scale
+    "mha_bwd_launch": [_I] + [_P] * 8 + [_I] * 5 + [_F, _P],
+    # x, dy, scale, dx, dscale, dbias, dtype, R, C, eps
+    "ln_pg_bwd_launch": [_I] + [_P] * 6 + [_I] * 3 + [_F, _P],
 }
+
+# the element-type codes of the kernels templated on it
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def reset_launches() -> None:

@@ -66,8 +66,9 @@ class FramePretrainConfig:
     optimizer: OptimizerConfig = OptimizerConfig()
     mel: MelConfig = MelConfig(stft_precision="default")
     dtype: str = "float32"
-    # the block kernels: K4/K5 for the student, K2/K3 for the teacher;
-    # False runs the module path for both
+    # the kernels: in bf16 K4/K5 for the student and K2/K3 for the
+    # teacher, in f32 K6 and LayerNormPG (K8) for both; False runs the
+    # module path for both
     fused_attention: bool = True
     drop_path_rate: float = 0.1
 
@@ -178,8 +179,8 @@ class FrameMethod:
         self.student = Branch(
             enc(generator=gen, fused_attention=cfg.fused_attention, **kw),
             predictor=True, hidden_dim=hd, out_dim=od)
-        # the teacher is never differentiated: the inference block kernels
-        # (their stochastic depth keeps the train-mode teacher)
+        # the teacher is never differentiated: in bf16 the inference block
+        # kernels (their stochastic depth keeps the train-mode teacher)
         self.teacher = Branch(
             enc(generator=gen, fused_infer=cfg.fused_attention, **kw),
             predictor=False, hidden_dim=hd, out_dim=od)

@@ -1,10 +1,14 @@
-"""The ATST-Frame audio transformer encoder (PyTorch port).
+"""The ATST audio transformer encoders (PyTorch port).
 
-Port of the frame-level configuration of ``audiossl_tpu/models/atst.py``
-(reference ``audiossl/methods/atstframe/audio_transformer.py`` FrameAST):
-no CLS token, no prompt tokens, no block averaging, "cut" position
-embeddings. Parameter names are the reference's, so a reference state
-dict loads with ``load_state_dict``.
+Port of ``audiossl_tpu/models/atst.py`` in two configurations: the
+frame-level one (``use_cls=False``, reference
+``audiossl/methods/atstframe/audio_transformer.py`` FrameAST: no CLS
+token, final norm ``norm_frame``) and the clip-level one (``use_cls=True``,
+reference ``audiossl/models/atst/audio_transformer.py`` AST: a CLS token
+before the patches, final norm ``norm``, the pretraining forward returns
+the normed CLS token). No prompt tokens, no block averaging, "cut"
+position embeddings. Parameter names are the reference's, so a reference
+state dict loads with ``load_state_dict``.
 
 ``fused=True`` runs the blocks through the inference block kernels
 (``ops/block_infer.py``) with the four matmul weights of every block
@@ -12,13 +16,25 @@ held in bf16; ``fused=False`` runs the module path in the weights'
 dtype (f32) with the additive -10000 mask.
 
 The pretraining forward (:meth:`AudioTransformer.forward`) keeps f32
-master weights and computes in ``dtype``: a student
-(``fused_attention=True``) runs each block as the trainable attention and
-MLP kernels K4/K5 (``ops/attn_train.py``, ``ops/mlp_train.py``), a
-no-grad teacher (``fused_infer=True``) as the inference block kernels
-K2/K3 with the weights cast per call; with neither, the module path with
-the -10000 mask and autograd. ``plain=True`` runs the kernels' plain
-versions on any device.
+master weights and computes in ``dtype``, and picks the blocks' route by
+the flags and the dtype, as the JAX encoder does (``run_blocks``):
+
+* bf16 with ``fused_infer`` (a no-grad teacher), or with
+  ``fused_attention`` outside training: the inference block kernels K2/K3
+  (``ops/block_infer.py``), the weights cast per call;
+* bf16 with ``fused_attention`` in training (the student): the trainable
+  attention and MLP kernels K4/K5 (``ops/attn_train.py``,
+  ``ops/mlp_train.py``);
+* any other dtype with either flag: ``Block(fused_attention=True)``, whose
+  attention is the standalone MHA kernel K6 and whose norms are
+  ``LayerNormPG`` (K8 backward);
+* neither flag: the module path with the -10000 mask and autograd.
+
+With either flag the final norm is ``LayerNormPG`` in any dtype, as JAX
+picks it by the flag alone (there the teacher carries both flags).
+
+The block kernels need bf16; K6 takes f32 as well. ``plain=True`` runs the
+kernels' plain versions on any device.
 """
 from __future__ import annotations
 
@@ -29,8 +45,9 @@ from torch import nn
 
 from audiossl_tpu_torch.models.transformer import (
     Block,
-    _layer_norm,
+    LayerNormPG,
     _linear,
+    _norm,
     length_to_attn_mask,
     length_to_token_mask,
 )
@@ -80,13 +97,15 @@ class AudioTransformer(nn.Module):
                  generator: Optional[torch.Generator] = None,
                  dtype: torch.dtype = torch.float32,
                  fused_attention: bool = False, fused_infer: bool = False,
-                 plain: bool = False):
+                 plain: bool = False, use_cls: bool = False):
         """Parameters are drawn on the CPU from ``generator`` (seed 0 when
         None) as the reference initializes them, then moved to
         ``device``. ``dtype``, ``fused_attention``, ``fused_infer`` and
-        ``plain`` configure the pretraining forward (module docstring)."""
+        ``plain`` configure the pretraining forward (module docstring);
+        ``use_cls`` makes the clip-level encoder."""
         super().__init__()
         self.dtype = dtype
+        self.use_cls = use_cls
         self.fused_attention = fused_attention
         self.fused_infer = fused_infer
         self.plain = plain
@@ -104,10 +123,27 @@ class AudioTransformer(nn.Module):
                                                   device=meta))
         self.mask_embed = nn.Parameter(torch.empty(1, 1, embed_dim,
                                                    device=meta))
+        if use_cls:
+            self.cls_token = nn.Parameter(torch.empty(1, 1, embed_dim,
+                                                      device=meta))
+        # the pretraining forward's route for the blocks (module docstring)
+        if not (fused_attention or fused_infer):
+            self._route = "module"
+        elif dtype == torch.bfloat16:
+            self._route = "block_kernels"
+        else:
+            self._route = "k6"
         self.blocks = nn.ModuleList(
-            Block(embed_dim, num_heads, mlp_ratio, qkv_bias, eps, meta)
+            Block(embed_dim, num_heads, mlp_ratio, qkv_bias, eps, meta,
+                  fused_attention=self._route == "k6", plain=plain)
             for _ in range(depth))
-        self.norm_frame = nn.LayerNorm(embed_dim, eps=eps, device=meta)
+        norm = (nn.LayerNorm(embed_dim, eps=eps, device=meta)
+                if self._route == "module"
+                else LayerNormPG(embed_dim, eps, meta, plain))
+        # the reference names: AST's final norm is ``norm``, FrameAST's
+        # ``norm_frame``
+        self._norm_name = "norm" if use_cls else "norm_frame"
+        self.add_module(self._norm_name, norm)
         # built on the meta device, so nothing draws from the global RNG
         self.to_empty(device="cpu")
         self.reset_parameters(generator)
@@ -129,6 +165,8 @@ class AudioTransformer(nn.Module):
             nn.init.trunc_normal_(p, std=0.02, a=-0.04, b=0.04, generator=gen)
 
         tn(self.pos_embed)
+        if self.use_cls:
+            tn(self.cls_token)
         tn(self.mask_embed)
         for m in self.modules():
             if isinstance(m, nn.Linear):
@@ -138,6 +176,17 @@ class AudioTransformer(nn.Module):
             elif isinstance(m, nn.LayerNorm):
                 m.weight.fill_(1.0)
                 m.bias.zero_()
+
+    @property
+    def final_norm(self) -> nn.LayerNorm:
+        return getattr(self, self._norm_name)
+
+    def _attn_lengths(self, plen):
+        """Valid token counts of the blocks' input: the patches, and the CLS
+        token of a clip encoder."""
+        if plen is None or not self.use_cls:
+            return plen
+        return plen + 1
 
     def prepare_tokens(self, mel: torch.Tensor,
                        length: Optional[torch.Tensor] = None):
@@ -173,12 +222,13 @@ class AudioTransformer(nn.Module):
     def forward(self, mel: torch.Tensor, length: Optional[torch.Tensor] = None,
                 mask_index: Optional[torch.Tensor] = None,
                 apply_mask: bool = True, dps: Optional[torch.Tensor] = None):
-        """Pretraining forward (frame level): mel [B, F, T], frame counts
-        [B], token mask [B, Np] (bool), dps [depth, 2, B] drop-path keep
-        multipliers or None. With ``apply_mask`` the masked tokens are
-        replaced by ``mask_embed`` (the student). Returns (frames [B, Np,
+        """Pretraining forward: mel [B, F, T], frame counts [B], token mask
+        [B, Np] (bool), dps [depth, 2, B] drop-path keep multipliers or
+        None. With ``apply_mask`` the masked tokens are replaced by
+        ``mask_embed`` (the student). Frame level: returns (frames [B, Np,
         D] in ``dtype``, sel [B, Np] = mask & valid, or the validity when
-        there is no mask)."""
+        there is no mask). Clip level: returns the final norm of the CLS
+        token [B, D] in ``dtype`` (reference AST.forward)."""
         dt = self.dtype
         B, F, T = mel.shape
         x = _linear(self.patch_embed.patch_embed,
@@ -191,9 +241,15 @@ class AudioTransformer(nn.Module):
         if mask_index is not None and apply_mask:
             m = mask_index[:, :, None].to(dt)
             x = (1.0 - m) * x + m * self.mask_embed.to(dt)
-        x = x + self.pos_embed[:, 1: Np + 1].to(dt)
-        x = self._train_blocks(x, plen, dps)
-        frames = _layer_norm(self.norm_frame, x)
+        if self.use_cls:
+            cls = self.cls_token.to(dt).expand(B, 1, self.embed_dim)
+            x = torch.cat([cls, x], dim=1) + self.pos_embed[:, :Np + 1].to(dt)
+        else:
+            x = x + self.pos_embed[:, 1: Np + 1].to(dt)
+        x = self._train_blocks(x, self._attn_lengths(plen), dps)
+        if self.use_cls:
+            return _norm(self.final_norm, x)[:, 0]
+        frames = _norm(self.final_norm, x)
         if plen is not None:
             sel = length_to_token_mask(plen, Np)
         else:
@@ -202,17 +258,22 @@ class AudioTransformer(nn.Module):
             sel = mask_index & sel
         return frames, sel
 
-    def _train_blocks(self, x, plen, dps):
+    def _train_blocks(self, x, lengths, dps):
+        """The blocks of the pretraining forward by the route of the module
+        docstring; lengths [B] are the valid token counts or None."""
         B, N, _ = x.shape
-        if self.fused_infer:
+        if self._route == "block_kernels" and (
+                self.fused_infer or not self.training):
             # imported here: ops.block_infer imports models.transformer
             from audiossl_tpu_torch.ops.block_infer import encoder_blocks_infer
 
-            return encoder_blocks_infer(self.blocks, x, plen, self.num_heads,
-                                        self.eps, dps=dps, dtype=x.dtype,
-                                        plain=self.plain)[0]
-        if not self.fused_attention:
-            mask = None if plen is None else length_to_attn_mask(plen, N)
+            return encoder_blocks_infer(self.blocks, x, lengths,
+                                        self.num_heads, self.eps, dps=dps,
+                                        dtype=x.dtype, plain=self.plain)[0]
+        if self._route != "block_kernels":
+            # module path; Block(fused_attention=True) on the K6/K8 route
+            mask = (None if lengths is None
+                    else length_to_attn_mask(lengths, N))
             for i, blk in enumerate(self.blocks):
                 x = blk(x, mask, None if dps is None else (dps[i, 0],
                                                            dps[i, 1]))
@@ -220,10 +281,10 @@ class AudioTransformer(nn.Module):
         from audiossl_tpu_torch.ops.attn_train import fused_attn_block
         from audiossl_tpu_torch.ops.mlp_train import fused_mlp_block
 
-        if plen is None:
+        if lengths is None:
             valid = torch.ones(B, N, device=x.device)
         else:
-            valid = length_to_token_mask(plen, N).float()
+            valid = length_to_token_mask(lengths, N).float()
         ones = torch.ones(B, device=x.device)
         x = x.contiguous()
         for i, blk in enumerate(self.blocks):
@@ -251,7 +312,7 @@ class AudioTransformer(nn.Module):
         _, collected = self.run_blocks(x, plen, collect_from=self.depth - n)
         outs = []
         for h in collected:
-            norm_h = self.norm_frame(h.float())
+            norm_h = self.final_norm(h.float())
             if not scene:
                 outs.append(norm_h)
             elif plen is None:
@@ -263,14 +324,32 @@ class AudioTransformer(nn.Module):
         return torch.cat(outs, dim=-1)
 
 
+def _arch(embed_dim, depth, num_heads, use_cls, **kw):
+    return AudioTransformer(embed_dim=embed_dim, depth=depth,
+                            num_heads=num_heads, use_cls=use_cls, **kw)
+
+
+def ast_tiny(**kw):
+    """Tiny clip tier for CPU tests (not in the reference)."""
+    return _arch(64, 2, 2, True, **kw)
+
+
+def ast_small(**kw):
+    return _arch(384, 12, 6, True, **kw)
+
+
+def ast_base(**kw):
+    return _arch(768, 12, 12, True, **kw)
+
+
 def frame_ast_tiny(**kw):
     """Tiny tier for CPU tests (not in the reference)."""
-    return AudioTransformer(embed_dim=64, depth=2, num_heads=2, **kw)
+    return _arch(64, 2, 2, False, **kw)
 
 
 def frame_ast_small(**kw):
-    return AudioTransformer(embed_dim=384, depth=12, num_heads=6, **kw)
+    return _arch(384, 12, 6, False, **kw)
 
 
 def frame_ast_base(**kw):
-    return AudioTransformer(embed_dim=768, depth=12, num_heads=12, **kw)
+    return _arch(768, 12, 12, False, **kw)

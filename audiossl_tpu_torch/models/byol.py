@@ -1,5 +1,5 @@
-"""BYOL projector/predictor heads and the frame-level teacher-student loss
-(PyTorch port of ``audiossl_tpu/models/byol.py``).
+"""BYOL projector/predictor heads and the clip- and frame-level
+teacher-student losses (PyTorch port of ``audiossl_tpu/models/byol.py``).
 
 Head matmuls run in the encoder's compute dtype (bf16 at the training
 step); the masked BatchNorm computes in f32 and returns that dtype; the
@@ -103,6 +103,25 @@ class ByolLossState(NamedTuple):
     loss: torch.Tensor
     std_student: torch.Tensor
     std_teacher: torch.Tensor
+
+
+def clip_byol_loss(student, teacher, ncrops: int = 2) -> ByolLossState:
+    """Clip-level cross-view loss (reference models/atst/byol.py:57-78):
+    student [ncrops * B, D] predictor outputs and teacher [2B, D] projector
+    outputs, both stacked view-major; the pairs with iq == iv are
+    skipped."""
+    std_s = feature_std(l2_normalize(student))
+    std_t = feature_std(l2_normalize(teacher))
+    s_views = student.chunk(ncrops, dim=0)
+    t_views = teacher.chunk(2, dim=0)
+    total, n_terms = 0.0, 0
+    for iq, q in enumerate(t_views):
+        for iv, v in enumerate(s_views):
+            if iq == iv:
+                continue
+            total = total + byol_pair_loss(q, v)
+            n_terms += 1
+    return ByolLossState(total / n_terms, std_s, std_t)
 
 
 def frame_byol_loss(student, teacher, mask,

@@ -29,6 +29,8 @@ import torch
 
 from audiossl_tpu_torch.kernels import build as kb
 from audiossl_tpu_torch.ops.block_infer import _ln, _value_validity
+from audiossl_tpu_torch.ops.mha import (exp_attention_bwd_ref,
+                                        exp_attention_ref)
 
 
 def _ln_stats(xf, eps):
@@ -54,25 +56,18 @@ def ln_backward_ref(dh, xhat, rstd, ls, dyf):
 def attn_train_fwd_ref(x, valid, dp, ls, lb, w_qkv, b_qkv, w_proj, b_proj,
                        num_heads: int, eps: float = 1e-6):
     """Plain version of :func:`attn_train_fwd`."""
-    B, N, C = x.shape
     cdt = x.dtype
     H = num_heads
-    d = C // H
+    d = x.shape[-1] // H
     validf = valid.float()
-    vv = _value_validity(validf)
     xf = x.float()
     h = _ln(xf, ls, lb, eps).to(cdt).float()
     qkv = h @ w_qkv.to(cdt).float().t()
     if b_qkv is not None:
         qkv = qkv + b_qkv.float()
     qkv = qkv.to(cdt)
-    q, k, v = qkv.float().reshape(B, N, 3, H, d).unbind(2)  # [B, N, H, d]
-    kz = k * validf[:, :, None, None]
-    s = torch.einsum("bnhd,bmhd->bhnm", q, kz) * d ** -0.5
-    e = torch.exp(s).to(cdt).float()  # exp-only softmax numerator
-    o = torch.einsum("bhnm,bmhd->bnhd", e, v * vv[:, :, None, None])
-    r = 1.0 / (torch.einsum("bhnm,bm->bnh", e, vv) + 1e-30)
-    o = (o * r[..., None]).to(cdt).reshape(B, N, C)
+    o, r = exp_attention_ref(qkv, validf, _value_validity(validf), H,
+                             d ** -0.5)
     y = o.float() @ w_proj.to(cdt).float().t() + b_proj.float()
     out = (xf + y * dp.float()[:, None, None]).to(x.dtype)
     return out, qkv, o, r
@@ -83,12 +78,8 @@ def attn_train_bwd_ref(x, dy, qkv, o, r, valid, dp, ls, lb, w_qkv, w_proj,
     """Plain version of :func:`attn_train_bwd`: the backward math of
     ``pallas_attn._bwd_impl`` written out, rounding to the compute dtype
     where it rounds (not autograd of the forward)."""
-    B, N, C = x.shape
     cdt = x.dtype
     H = num_heads
-    d = C // H
-    scale = d ** -0.5
-    vk = valid.float()[:, :, None, None]  # [B, N, 1, 1]
     xf = x.float()
     xhat, rstd = _ln_stats(xf, eps)
     h = (xhat * ls.float() + lb.float()).to(cdt).float()
@@ -97,26 +88,9 @@ def attn_train_bwd_ref(x, dy, qkv, o, r, valid, dp, ls, lb, w_qkv, w_proj,
     dyb = (dyf * dp.float()[:, None, None]).to(cdt).float()
     dw_proj = torch.einsum("bnc,bnk->ck", dyb, o.float())
     db_proj = dyb.sum(dim=(0, 1))
-    do = (dyb @ w_proj.to(cdt).float()).reshape(B, N, H, d)
-
-    q, k, v = qkv.float().reshape(B, N, 3, H, d).unbind(2)
-    kz = k * vk
-    vz = v * vk
-    og = o.float().reshape(B, N, H, d)
-    rr = r.float()[..., None]  # [B, N, H, 1]
-    e = torch.exp(torch.einsum("bnhd,bmhd->bhnm", q, kz) * scale)
-    e = e.to(cdt).float()
-    delta = (do * og).to(cdt).float().sum(dim=-1, keepdim=True)
-    dor = (do * rr).to(cdt).float()
-    nd = (-delta * rr).to(cdt).float()  # [B, N, H, 1]
-    dpd = (torch.einsum("bnhd,bmhd->bhnm", dor, vz)
-           + nd.squeeze(-1).permute(0, 2, 1)[..., None])
-    t = (e * dpd).to(cdt).float()
-    dq = torch.einsum("bhnm,bmhd->bnhd", t, kz) * scale
-    dk = torch.einsum("bhnm,bnhd->bmhd", t, q) * scale
-    dv = torch.einsum("bhnm,bnhd->bmhd", e, dor)
-    dqkv = torch.stack([dq.to(cdt), (dk * vk).to(cdt), (dv * vk).to(cdt)],
-                       dim=2).reshape(B, N, 3 * C).float()
+    do = dyb @ w_proj.to(cdt).float()
+    dqkv = exp_attention_bwd_ref(qkv, o, r, do, valid, H,
+                                 (x.shape[-1] // H) ** -0.5).float()
 
     dw_qkv = torch.einsum("bnj,bnk->jk", dqkv, h)
     db_qkv = dqkv.sum(dim=(0, 1))

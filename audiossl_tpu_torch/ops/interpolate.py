@@ -1,10 +1,10 @@
-"""Bicubic row sampling for the freq-warp augmentation (PyTorch port).
+"""Bicubic sampling for the RandomResizeCrop augmentation (PyTorch port).
 
 Port of the parts of ``audiossl_tpu/ops/interpolate.py`` that the
-pretraining step runs: the Keys cubic convolution weights with A = -0.75
-(torch's choice) and per-sample bicubic sampling along the frequency axis
-at traced coordinates with per-sample edge clamps (the RandomResizeCrop
-box), as separable gathers.
+pretraining steps run: the Keys cubic convolution weights with A = -0.75
+(torch's choice) and per-sample bicubic sampling at traced coordinates with
+per-sample edge clamps (the crop box), as separable gathers: along the
+frequency axis only (the freq warp), or along time and then frequency.
 """
 from __future__ import annotations
 
@@ -43,3 +43,26 @@ def sample_bicubic_rows(x: torch.Tensor, ys: torch.Tensor, y_lo: torch.Tensor,
         contrib = tap * wy[:, :, m][:, :, None]
         out = contrib if out is None else out + contrib
     return out
+
+
+def sample_bicubic_2d(canvas: torch.Tensor, ys: torch.Tensor,
+                      xs: torch.Tensor, y_lo: torch.Tensor,
+                      y_hi: torch.Tensor, x_lo: torch.Tensor,
+                      x_hi: torch.Tensor) -> torch.Tensor:
+    """Per-sample bicubic sampling of canvas [B, H, W] at coordinates ys
+    [B, OH] and xs [B, OW], taps clamped per sample to [y_lo, y_hi] and
+    [x_lo, x_hi] (inclusive, the crop box) -> [B, OH, OW]. Separable: along
+    W first, then along H, as the JAX function."""
+    B, H, _ = canvas.shape
+    OW = xs.shape[1]
+    fx = torch.floor(xs)
+    wx = _cubic_weights(xs - fx)  # [B, OW, 4]
+    bx = fx.long()
+    lo, hi = x_lo.long()[:, None], x_hi.long()[:, None]
+    acc = None
+    for m, off in enumerate((-1, 0, 1, 2)):
+        idx = torch.minimum(torch.maximum(bx + off, lo), hi)  # [B, OW]
+        tap = torch.gather(canvas, 2, idx[:, None, :].expand(B, H, OW))
+        contrib = tap * wx[:, None, :, m]
+        acc = contrib if acc is None else acc + contrib
+    return sample_bicubic_rows(acc, ys, y_lo, y_hi)

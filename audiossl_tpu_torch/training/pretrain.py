@@ -46,8 +46,13 @@ class Branch(nn.Module):
 
     def forward(self, mel, length=None, mask_index=None, apply_mask=True,
                 dps: Optional[torch.Tensor] = None):
-        """-> (head output [B, T, out_dim] f32, selection mask [B, T])."""
-        frames, sel = self.encoder(mel, length, mask_index, apply_mask, dps)
+        """Frame encoder: -> (head output [B, T, out_dim] f32, selection
+        mask [B, T]). Clip encoder: -> head output of the CLS embeddings
+        [B, out_dim] f32."""
+        out = self.encoder(mel, length, mask_index, apply_mask, dps)
+        if self.encoder.use_cls:
+            return self.head(out, None, self.encoder.dtype)
+        frames, sel = out
         return self.head(frames, sel, self.encoder.dtype), sel
 
 

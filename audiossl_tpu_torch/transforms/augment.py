@@ -1,9 +1,11 @@
 """On-device augmentation of the pretraining step (PyTorch port).
 
 Port of the parts of ``audiossl_tpu/transforms/augment.py`` that the
-ATST-Frame step runs: waveform dequantization, the batched random crop,
-BYOL-A log-mixup-exp with an in-batch partner, and RandomResizeCrop in its
-pure freq-warp form. Every augmentation is split in two:
+ATST-Frame and ATST-Clip steps run: waveform dequantization, random crop
+lengths, the batched random crop, BYOL-A log-mixup-exp with an in-batch
+partner, and RandomResizeCrop (its pure freq-warp form for ATST-Frame, the
+general virtual-canvas form for ATST-Clip). Every augmentation is split in
+two:
 
 * a *draw* function makes its random numbers on the device from a
   ``torch.Generator`` (uniforms in [0, 1), partner shifts);
@@ -23,7 +25,8 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from audiossl_tpu_torch.ops.interpolate import sample_bicubic_rows
+from audiossl_tpu_torch.ops.interpolate import (sample_bicubic_2d,
+                                                sample_bicubic_rows)
 
 _EPS32 = float(torch.finfo(torch.float32).eps)
 
@@ -42,6 +45,25 @@ def wav_to_f32(wav: torch.Tensor) -> torch.Tensor:
     if wav.dtype == torch.int16:
         return wav.float() * (1.0 / 32768.0)
     return wav.float()
+
+
+def _uniform(u: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """Uniforms u in [0, 1) mapped to [lo, hi) as ``jax.random.uniform``
+    maps its own: ``max(lo, u * (hi - lo) + lo)`` in f32."""
+    lo, hi = _f32(lo), _f32(hi)
+    return torch.clamp(u * _f32(hi - lo) + lo, min=lo)
+
+
+def sample_crop_lengths(u: Optional[torch.Tensor], batch: int, min_s: float,
+                        max_s: float, sr: int = 16000,
+                        device=None) -> torch.Tensor:
+    """Per-sample crop lengths in samples [B], uniform in [min_s, max_s]
+    seconds from the uniforms u [B] (not read when min_s == max_s: every
+    crop is ``int(min_s * sr)`` long)."""
+    if min_s == max_s:
+        return torch.full((batch,), int(min_s * sr), dtype=torch.long,
+                          device=device)
+    return (_uniform(u, min_s, max_s) * float(sr)).long()
 
 
 def draw_crop(gen: torch.Generator, batch: int, device) -> torch.Tensor:
@@ -100,43 +122,68 @@ def mixup_log(spec: torch.Tensor, a: torch.Tensor, shift: torch.Tensor,
     return mixed
 
 
-def draw_resize_crop(gen: torch.Generator, batch: int, device):
-    """(box height uniforms [B], box offset uniforms [B]) for the freq warp:
-    the time box of :func:`random_resize_crop` is the identity."""
-    h_u = torch.rand(batch, generator=gen, device=device)
-    iy_u = torch.rand(batch, generator=gen, device=device)
-    return h_u, iy_u
+def draw_resize_crop(gen: torch.Generator, batch: int, device,
+                     time: bool = False):
+    """(box height uniforms [B], box row uniforms [B]) for the freq warp,
+    whose time box is the identity; with ``time`` also (box width
+    uniforms [B], box column uniforms [B]) for the general form."""
+    n = 4 if time else 2
+    return tuple(torch.rand(batch, generator=gen, device=device)
+                 for _ in range(n))
 
 
 def random_resize_crop(spec: torch.Tensor, h_u: torch.Tensor,
-                       iy_u: torch.Tensor,
+                       iy_u: torch.Tensor, w_u: Optional[torch.Tensor] = None,
+                       ix_u: Optional[torch.Tensor] = None,
                        virtual_crop_scale: Sequence[float] = (1.0, 1.0),
                        freq_scale: Sequence[float] = (0.6, 1.5),
                        time_scale: Sequence[float] = (1.0, 1.0),
                        valid_frames: Optional[torch.Tensor] = None):
-    """The BYOL-A RandomResizeCrop in its pure freq-warp form (virtual
-    canvas (1, 1), time scale (1, 1), the ATST-Frame recipe): per sample a
-    box of height h = U(freq_scale) * F at row iy is bicubic-resized back
-    to F rows (align_corners=True, taps clamped to the box); frames past
-    the valid width are zero. Other canvas or time scales are not ported
-    (they raise)."""
-    if tuple(virtual_crop_scale) != (1.0, 1.0) or tuple(time_scale) != (1.0,
-                                                                        1.0):
-        raise NotImplementedError("only the freq-warp form (canvas and time "
-                                  "scale (1, 1)) is ported")
+    """The BYOL-A RandomResizeCrop, batched (JAX ``random_resize_crop``).
+
+    Per sample: the [F, T] spectrogram is placed on a zero canvas of
+    (F * vc_f, T * vc_t), centred in the sample's virtual width
+    ``CWv = max(int(W * vc_t), W)`` (W = its valid width); a box of height
+    h = U(freq_scale) * F at row iy and width w = U(time_scale) * W at
+    column ix < CWv - w + 1 is bicubic-resized back to (F, W)
+    (align_corners=True, taps clamped to the box); frames past W are zero.
+    The draws are the uniforms h_u, iy_u, w_u, ix_u [B]. With canvas and
+    time scale (1, 1) (the ATST-Frame freq warp) the time mapping is the
+    identity: only rows are sampled and w_u, ix_u are not read."""
     B, F, T = spec.shape
     dev = spec.device
-    CH = F
+    CH = int(F * virtual_crop_scale[0])
+    CW = int(T * virtual_crop_scale[1])
+    time_identity = (tuple(virtual_crop_scale) == (1.0, 1.0)
+                     and tuple(time_scale) == (1.0, 1.0))
     if valid_frames is None:
         W = torch.full((B,), T, device=dev, dtype=torch.long)
     else:
         W = torch.clamp(valid_frames.long(), 1, T)
-    lo, hi = _f32(freq_scale[0]), _f32(freq_scale[1])
-    hf = torch.clamp(h_u * _f32(hi - lo) + lo, min=lo)  # U(lo, hi), f32
+    hf = _uniform(h_u, *freq_scale)
     h = torch.clamp((hf * float(F)).int(), 1, CH)
     iy = (iy_u * (CH - h + 1).float()).int()
     jF = torch.arange(F, device=dev, dtype=torch.float32)[None, :]
     ys = iy[:, None].float() + jF * ((h.float() - 1.0) / max(F - 1, 1))[:, None]
-    out = sample_bicubic_rows(spec, ys, iy, iy + h - 1)
+    if time_identity:
+        out = sample_bicubic_rows(spec, ys, iy, iy + h - 1)
+    else:
+        if w_u is None or ix_u is None:
+            raise ValueError("random_resize_crop: a time box needs w_u and "
+                             "ix_u")
+        # the virtual canvas extent and centred placement, per sample
+        CWv = torch.maximum((W.float() * virtual_crop_scale[1]).long(), W)
+        x0 = torch.clamp((CWv - W) // 2, 0, CW - T)
+        y0 = (CH - F) // 2
+        cols = (x0[:, None] + torch.arange(T, device=dev))[:, None, :]
+        rows = spec.new_zeros(B, F, CW).scatter(2, cols.expand(B, F, T), spec)
+        canvas = torch.nn.functional.pad(rows, (0, 0, y0, CH - F - y0))
+        wf = _uniform(w_u, *time_scale)
+        w = torch.minimum(torch.clamp((wf * W.float()).long(), min=1), CWv)
+        ix = (ix_u * (CWv - w + 1).float()).long()
+        jT = torch.arange(T, device=dev, dtype=torch.float32)[None, :]
+        xs = ix[:, None].float() + jT * (
+            (w.float() - 1.0) / torch.clamp(W.float() - 1.0, min=1.0))[:, None]
+        out = sample_bicubic_2d(canvas, ys, xs, iy, iy + h - 1, ix, ix + w - 1)
     pos = torch.arange(T, device=dev)[None, None, :]
     return torch.where(pos < W[:, None, None], out, 0.0)

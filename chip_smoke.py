@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""GPU smoke check of the PyTorch port: the serving path and the
-pretraining step of ATST-Frame base.
+"""GPU smoke check of the PyTorch port: the serving path of ATST-Frame
+base and the pretraining steps of ATST-Frame base and ATST-Clip small.
 
 Run from the repository root on a machine with one CUDA GPU (Hopper,
 sm_90a) and the CUDA toolkit:
@@ -13,8 +13,15 @@ sm_90a) and the CUDA toolkit:
    its error and both times from CUDA events: K1-K3 at the serving shapes
    (8 clips of 10 s, 250 tokens, width 768); the training mel (TF32 STFT)
    against the f32 one; K4 and K5, forward and every gradient, at the
-   training step's shapes (192 sequences); K7 over the full parameter set
-   of the base student branch;
+   ATST-Frame base step's shapes (192 sequences of 250 tokens, width 768);
+   K2-K5 at the ATST-Clip small step's (192 sequences of 151 tokens,
+   width 384, 6 heads; errors only); K6, forward and backward, in
+   f32 at the ATST-Clip small step's shape (192 sequences of 151 tokens,
+   width 384, 6 heads) and at the ATST-Frame base one ([192, 250, 768],
+   12 heads), and in bf16 at [192, 250, 768], with a sequence that has no
+   valid key; K8 in f32 and bf16 at [192 * 151, 384] and
+   [192 * 250, 768]; K7 over the full parameter set of the ATST-Frame
+   base student branch;
 3. serving: writes a seeded random ATST-Frame base encoder as a
    reference-layout ``.ckpt``, loads it with ``load_model(fused=True)``
    and ``load_model(fused=False)``, and drives ``get_scene_embedding`` (8 x
@@ -23,14 +30,25 @@ sm_90a) and the CUDA toolkit:
    shapes, finiteness, launch counts and agreement with the plain f32
    path on the card, and the plain f32 path on the card against the CPU;
    times scene embedding (clips/s, B=8) on both paths;
-4. training: one step of ``FrameMethod`` at the ATST-Frame base recipe
-   (``bench.py:358-378``, B=96 clips of 10 s, bf16, seeded weights and
-   waveforms) through the kernels, checking the launch counts of every
-   kernel, a finite loss and a teacher that moved; the same step from the
-   same state and draws through the plain versions (loss and every
-   gradient leaf); clips/s of both paths in turns and peak memory.
-   ``--profile DIR`` also writes a ``torch.profiler`` table and trace of
-   one kernel-path step to DIR.
+4. ATST-Frame training: one step of ``FrameMethod`` at the ATST-Frame base
+   recipe (``bench.py:358-378``, B=96 clips of 10 s, bf16, seeded weights
+   and waveforms) through the kernels K1-K5, K7 and K8, checking the launch
+   counts of every kernel, a finite loss and a teacher that moved; the
+   same step from the same state and draws through the plain versions
+   (loss and every gradient leaf); clips/s of both paths in turns and peak
+   memory;
+5. ATST-Clip training, f32: the same for one step of ``ClipMethod`` at the
+   ATST-Clip small recipe (``bench.py:119-129``, B=96 clips of 10 s, two
+   6 s crops each) at its default dtype f32, through K1, K6, K8 and K7;
+6. ATST-Clip training, bf16: the same for the recipe in bf16 (K1-K5, K8
+   for the final norm, K7; the CLS token on the block kernels), with both
+   paths' gradients held to the same step in f32 (bf16 rounding dominates
+   this step's gradient, so the kernels are held to the plain version's
+   distance from it);
+7. ATST-Frame training, f32: the same for ``FramePretrainConfig(arch=
+   "base")`` at its default dtype f32 (K1, K6, K8, K7).
+``--profile DIR`` also writes a ``torch.profiler`` table and trace of one
+kernel-path step of phases 4, 5 and 7 to DIR.
 
 Any failed check raises and exits non-zero. Without a CUDA device, or
 without the package beside it, it exits non-zero and prints no result.
@@ -62,13 +80,25 @@ TRAIN_B = 96  # clips per training step (bench.py:384): 2B sequences
 ADAMW_REL = 1e-6  # K7 vs plain: the same f32 operations in the same order
 MEL_TF32_ATOL = 2e-3  # TF32 vs f32 STFT, normalized mel: the JAX package's
 # documented ~2e-3 for its 1-pass bf16 training STFT (TF32 keeps 2 more bits)
+CLIP_N, CLIP_C, CLIP_H = 151, 384, 6  # ATST-Clip small, 6 s crops: 150
+# patches and the CLS token, width 384, 6 heads of 64
+MHA_F32_REL = 1e-4  # f32 kernel vs f32 plain (K6, K8): f32 FMA sums in
+# another order
 STEP_LOSS_REL = 1e-2  # kernel vs plain step: bf16 at the same rounding
 STEP_GRAD_COS = 0.99  # points, sums in another order, over 12 blocks
+F32_STEP_LOSS_REL = 1e-4  # the same in f32: f32 sums in another order
+F32_STEP_GRAD_COS = 0.999
+# The bf16 ATST-Clip step's gradient is dominated by bf16 rounding: its
+# plain version and its kernels each reach a median leaf cosine of ~0.98
+# against the f32 step, and ~0.97-0.98 against each other. So there the
+# kernels are held to add nothing beyond the plain version's rounding:
+# against the same step in f32 (plain versions), their median leaf cosine
+# within 0.005 of the plain bf16 step's and their lowest within 0.02.
+REF_MEDIAN_MARGIN, REF_MIN_MARGIN = 0.005, 0.02
 # The final LayerNorm's bias has no gradient in exact arithmetic (the
 # projector's BatchNorm cancels a constant added to its input): both paths
 # hold rounding noise there, whose cosine means nothing; it is held to a
 # small norm instead.
-ZERO_GRAD = "encoder.norm_frame.bias"
 ZERO_GRAD_REL = 1e-2
 
 
@@ -106,7 +136,6 @@ def row_cos(a, b):
 
 def kernel_checks(dev):
     """K1, K2, K3 against their plain versions at the serving shapes."""
-    from audiossl_tpu_torch.ops import block_infer as bi
     from audiossl_tpu_torch.ops.mel_db import stft_to_mel_db, stft_to_mel_db_ref
     from audiossl_tpu_torch.ops.melspec import MelConfig, mel_filterbank, stft_conv
 
@@ -131,18 +160,28 @@ def kernel_checks(dev):
         a = (rng.randn(*shape) * s + off).astype(np.float32)
         return torch.from_numpy(a).to(dev, dtype)
 
-    bf = torch.bfloat16
-    x = t(B, N, C, dtype=bf)
+    x = t(B, N, C, dtype=torch.bfloat16)
     lengths = torch.tensor([250, 200, 137, 64, 1, 0, 250, 99], device=dev)
     valid = (torch.arange(N, device=dev)[None] < lengths[:, None]).float()
     dp = torch.tensor([1, 0, 1 / 0.9, 1, 1, 1 / 0.9, 0, 1], device=dev,
                       dtype=torch.float32)
-    attn_args = (x, valid, t(C, s=0.1, off=1.0), t(C, s=0.1),
-                 t(3 * C, C, s=0.05, dtype=bf), t(3 * C, s=0.02),
-                 t(C, C, s=0.05, dtype=bf), t(C, s=0.02), H)
-    mlp_args = (x, t(C, s=0.1, off=1.0), t(C, s=0.1),
-                t(HID, C, s=0.05, dtype=bf), t(HID, s=0.02),
-                t(C, HID, s=0.05, dtype=bf), t(C, s=0.02))
+    res.update(infer_block_checks(t, x, valid, dp, H, HID))
+    return res
+
+
+def infer_block_checks(t, x, valid, dp, h, hid, timed=True):
+    """K2 and K3 against their plain versions on x [S, n, c] bf16 with
+    weights drawn by ``t``; with ``timed``, both times as well."""
+    from audiossl_tpu_torch.ops import block_infer as bi
+
+    bf, c = torch.bfloat16, x.shape[-1]
+    attn_args = (x, valid, t(c, s=0.1, off=1.0), t(c, s=0.1),
+                 t(3 * c, c, s=0.05, dtype=bf), t(3 * c, s=0.02),
+                 t(c, c, s=0.05, dtype=bf), t(c, s=0.02), h)
+    mlp_args = (x, t(c, s=0.1, off=1.0), t(c, s=0.1),
+                t(hid, c, s=0.05, dtype=bf), t(hid, s=0.02),
+                t(c, hid, s=0.05, dtype=bf), t(c, s=0.02))
+    res = {}
     for name, fn, ref, args in (
             ("attn_block", bi.attn_block_infer, bi.attn_block_infer_ref,
              attn_args),
@@ -160,16 +199,18 @@ def kernel_checks(dev):
         check(r <= BLOCK_REL_L2, f"{name} rel L2 {r} <= {BLOCK_REL_L2}")
         check(rb <= BLOCK_REL_L2,
               f"{name} residual-branch rel L2 {rb} <= {BLOCK_REL_L2}")
-        res[name] = dict(max_abs_err=err,
-                         ms=cuda_ms(lambda: fn(*args, dp=dp)),
-                         plain_ms=cuda_ms(lambda: ref(*args, dp=dp)))
+        res[name] = dict(max_abs_err=err, rel_l2=r)
+        if timed:
+            res[name].update(ms=cuda_ms(lambda: fn(*args, dp=dp)),
+                             plain_ms=cuda_ms(lambda: ref(*args, dp=dp)))
     return res
 
 
-def train_kernel_checks(dev):
-    """K4 and K5, forward and backward, against their plain versions at the
-    training step's shapes: 2B = 192 sequences of 250 tokens, width 768,
-    bf16, ragged lengths and drop-path multipliers."""
+def train_kernel_checks(dev, n=N, c=C, h=H, hid=HID, timed=True):
+    """K4 and K5, forward and backward, against their plain versions at a
+    training step's shapes: 2B = 192 sequences of n tokens (ATST-Frame
+    base: 250, width 768, 12 heads), bf16, ragged lengths and drop-path
+    multipliers; with ``timed``, both times as well."""
     from audiossl_tpu_torch.ops import attn_train as at
     from audiossl_tpu_torch.ops import mlp_train as mt
 
@@ -180,31 +221,31 @@ def train_kernel_checks(dev):
         a = (rng.randn(*shape) * s + off).astype(np.float32)
         return torch.from_numpy(a).to(dev, dtype)
 
-    x = t(S, N, C, dtype=torch.bfloat16)
-    ragged = [250, 200, 137, 64, 1, 0]
-    lengths = torch.tensor([ragged[i // 4 % 6] if i % 4 == 3 else N
+    x = t(S, n, c, dtype=torch.bfloat16)
+    ragged = [min(v, n) for v in (250, 200, 137, 64, 1, 0)]
+    lengths = torch.tensor([ragged[i // 4 % 6] if i % 4 == 3 else n
                             for i in range(S)], device=dev)
-    valid = (torch.arange(N, device=dev)[None] < lengths[:, None]).float()
+    valid = (torch.arange(n, device=dev)[None] < lengths[:, None]).float()
     dp = torch.tensor([(0.0, 1.0, 1 / 0.9)[i % 3] for i in range(S)],
                       device=dev)
-    w = t(S, N, C)  # cotangent of y
+    w = t(S, n, c)  # cotangent of y
     halves = {
         "attn_train": (
-            [t(C, s=0.1, off=1.0), t(C, s=0.1), t(3 * C, C, s=0.03),
-             t(3 * C, s=0.02), t(C, C, s=0.03), t(C, s=0.02)],
+            [t(c, s=0.1, off=1.0), t(c, s=0.1), t(3 * c, c, s=0.03),
+             t(3 * c, s=0.02), t(c, c, s=0.03), t(c, s=0.02)],
             lambda xx, p, plain: at.fused_attn_block(
-                xx, valid, dp, *p, H, plain=plain),
-            lambda p: at.attn_train_fwd(x, valid, dp, *p, H),
-            lambda p: at.attn_train_fwd_ref(x, valid, dp, *p, H),
+                xx, valid, dp, *p, h, plain=plain),
+            lambda p: at.attn_train_fwd(x, valid, dp, *p, h),
+            lambda p: at.attn_train_fwd_ref(x, valid, dp, *p, h),
             lambda p, res: at.attn_train_bwd(
                 x, dyb, res[1], res[2], res[3], valid, dp, p[0], p[1], p[2],
-                p[4], H),
+                p[4], h),
             lambda p, res: at.attn_train_bwd_ref(
                 x, dyb, res[1], res[2], res[3], valid, dp, p[0], p[1], p[2],
-                p[4], H)),
+                p[4], h)),
         "mlp_train": (
-            [t(C, s=0.1, off=1.0), t(C, s=0.1), t(HID, C, s=0.03),
-             t(HID, s=0.02), t(C, HID, s=0.03), t(C, s=0.02)],
+            [t(c, s=0.1, off=1.0), t(c, s=0.1), t(hid, c, s=0.03),
+             t(hid, s=0.02), t(c, hid, s=0.03), t(c, s=0.02)],
             lambda xx, p, plain: mt.fused_mlp_block(xx, dp, *p, plain=plain),
             lambda p: mt.mlp_train_fwd(x, dp, *p),
             lambda p: mt.mlp_train_fwd_ref(x, dp, *p),
@@ -239,18 +280,150 @@ def train_kernel_checks(dev):
         check(max(rg) <= BLOCK_REL_L2,
               f"{name} every gradient rel L2 {max(rg)} <= {BLOCK_REL_L2}")
         del outs
-        fres = fwd(params)
-        res[f"{name}_fwd"] = dict(
-            max_abs_err=err_y, rel_l2=ry,
-            ms=cuda_ms(lambda: fwd(params), iters=10),
-            plain_ms=cuda_ms(lambda: fwd_ref(params), iters=10))
-        res[f"{name}_bwd"] = dict(
-            max_abs_err=err_dx, rel_l2=max(rg),
-            ms=cuda_ms(lambda: bwd(params, fres), iters=10),
-            plain_ms=cuda_ms(lambda: bwd_ref(params, fres), iters=10))
-        del fres
+        res[f"{name}_fwd"] = dict(max_abs_err=err_y, rel_l2=ry)
+        res[f"{name}_bwd"] = dict(max_abs_err=err_dx, rel_l2=max(rg))
+        if timed:
+            fres = fwd(params)
+            res[f"{name}_fwd"].update(
+                ms=cuda_ms(lambda: fwd(params), iters=10),
+                plain_ms=cuda_ms(lambda: fwd_ref(params), iters=10))
+            res[f"{name}_bwd"].update(
+                ms=cuda_ms(lambda: bwd(params, fres), iters=10),
+                plain_ms=cuda_ms(lambda: bwd_ref(params, fres), iters=10))
+            del fres
         torch.cuda.empty_cache()
     return res
+
+
+def clip_block_checks(dev):
+    """K2-K5 against their plain versions at the ATST-Clip small step's
+    shapes: 192 sequences of 151 tokens (the CLS token and 150 patches),
+    width 384, 6 heads, hidden 1536, bf16."""
+    rng = np.random.RandomState(SEED + 11)
+    S = 2 * TRAIN_B
+
+    def t(*shape, s=1.0, off=0.0, dtype=torch.float32):
+        a = (rng.randn(*shape) * s + off).astype(np.float32)
+        return torch.from_numpy(a).to(dev, dtype)
+
+    x = t(S, CLIP_N, CLIP_C, dtype=torch.bfloat16)
+    ragged = [CLIP_N, 126, 77, 1]
+    lengths = torch.tensor([ragged[i // 4 % 4] if i % 4 == 1 else CLIP_N
+                            for i in range(S)], device=dev)
+    valid = (torch.arange(CLIP_N, device=dev)[None]
+             < lengths[:, None]).float()
+    dp = torch.tensor([(1.0, 0.0, 1 / 0.9)[i % 3] for i in range(S)],
+                      device=dev)
+    res = infer_block_checks(t, x, valid, dp, CLIP_H, 4 * CLIP_C,
+                             timed=False)
+    res.update(train_kernel_checks(dev, CLIP_N, CLIP_C, CLIP_H, 4 * CLIP_C,
+                                   timed=False))
+    return res
+
+
+def mha_kernel_checks(dev):
+    """K6 forward and backward against its plain version at the shapes of
+    the training steps: f32 at ATST-Clip small's ([192, 151, 3 * 384], 6
+    heads) and ATST-Frame base's ([192, 250, 3 * 768], 12 heads), bf16 at
+    the latter; some sequences short and one with no valid key, whose
+    output and gradient must be 0. The backward of both versions reads the
+    plain forward's out and r. The first case is the one the summary line
+    reports at its top level."""
+    from audiossl_tpu_torch.ops import mha
+
+    rng = np.random.RandomState(SEED + 6)
+    S = 2 * TRAIN_B
+    res = {}
+    for label, dtype, n, c, h, tol in (
+            ("f32", torch.float32, CLIP_N, CLIP_C, CLIP_H, MHA_F32_REL),
+            ("f32_frame", torch.float32, N, C, H, MHA_F32_REL),
+            ("bf16", torch.bfloat16, N, C, H, BLOCK_REL_L2)):
+        name = f"K6 mha {label}"
+        qkv = torch.from_numpy(rng.randn(S, n, 3 * c).astype(
+            np.float32)).to(dev, dtype)
+        g = torch.from_numpy(rng.randn(S, n, c).astype(np.float32)).to(
+            dev, dtype)
+        ragged = [n - 1, 100, 17, 1]
+        lengths = torch.tensor([ragged[i // 4 % 4] if i % 4 == 1 else n
+                                for i in range(S)], device=dev)
+        lengths[5] = 0  # a sequence with no valid key
+        valid = (torch.arange(n, device=dev)[None] < lengths[:, None]).float()
+        scale = (c // h) ** -0.5
+        out, r = mha.mha_fwd(qkv, valid, h, scale)
+        out_p, r_p = mha.mha_fwd_ref(qkv, valid, h, scale)
+        dq = mha.mha_bwd(qkv, valid, out_p, r_p, g, h, scale)
+        dq_p = mha.mha_bwd_ref(qkv, valid, out_p, r_p, g, h, scale)
+        live = lengths > 0
+        errs = {"out": rel_l2(out, out_p), "r": rel_l2(r[live], r_p[live]),
+                "dqkv": rel_l2(dq, dq_p)}
+        err_o = float((out.float() - out_p.float()).abs().max())
+        print(f"{name} {tuple(qkv.shape)} H={h}: rel_l2 {errs}, out "
+              f"max_abs_err {err_o}, dqkv max_abs_err "
+              f"{float((dq.float() - dq_p.float()).abs().max())}")
+        check(bool(torch.isfinite(out.float()).all())
+              and bool(torch.isfinite(dq.float()).all()),
+              f"{name} output and gradient finite")
+        check(max(errs.values()) <= tol,
+              f"{name} rel L2 {max(errs.values())} <= {tol}")
+        check(not bool(out[5].any()) and not bool(dq[5].any()),
+              f"{name} output and gradient 0 for the sequence with no "
+              "valid key")
+        res[label] = dict(
+            fwd=dict(max_abs_err=err_o, rel_l2=max(errs["out"], errs["r"]),
+                     ms=cuda_ms(lambda: mha.mha_fwd(qkv, valid, h, scale),
+                                iters=10),
+                     plain_ms=cuda_ms(
+                         lambda: mha.mha_fwd_ref(qkv, valid, h, scale),
+                         iters=10)),
+            bwd=dict(max_abs_err=float((dq.float() - dq_p.float()).abs().max()),
+                     rel_l2=errs["dqkv"],
+                     ms=cuda_ms(lambda: mha.mha_bwd(qkv, valid, out_p, r_p, g,
+                                                    h, scale), iters=10),
+                     plain_ms=cuda_ms(lambda: mha.mha_bwd_ref(
+                         qkv, valid, out_p, r_p, g, h, scale), iters=10)))
+        del qkv, g, out, r, out_p, r_p, dq, dq_p
+        torch.cuda.empty_cache()
+    main = res.pop("f32")
+    return {f"mha_{d}": dict(main[d], **{k: v[d] for k, v in res.items()})
+            for d in ("fwd", "bwd")}
+
+
+def ln_kernel_checks(dev):
+    """K8 against its plain version in f32 and bf16 at the rows of the
+    ATST-Clip small step ([192 * 151, 384]) and of the ATST-Frame base step
+    ([192 * 250, 768]). The first case is the one the summary line reports
+    at its top level."""
+    from audiossl_tpu_torch.ops import layer_norm as ln
+
+    rng = np.random.RandomState(SEED + 7)
+    S = 2 * TRAIN_B
+    res = {}
+    for label, dtype, rows, c, tol in (
+            ("f32", torch.float32, S * CLIP_N, CLIP_C, MHA_F32_REL),
+            ("f32_frame", torch.float32, S * N, C, MHA_F32_REL),
+            ("bf16_clip", torch.bfloat16, S * CLIP_N, CLIP_C, BLOCK_REL_L2),
+            ("bf16", torch.bfloat16, S * N, C, BLOCK_REL_L2)):
+        x = torch.from_numpy((rng.randn(rows, c) * 2.0 + 0.3).astype(
+            np.float32)).to(dev, dtype)
+        g = torch.from_numpy(rng.randn(rows, c).astype(np.float32)).to(
+            dev, dtype)
+        sc = torch.from_numpy((rng.rand(c) + 0.5).astype(np.float32)).to(dev)
+        got = ln.ln_bwd(x, g, sc, 1e-6)
+        want = ln.ln_bwd_ref(x, g, sc, 1e-6)
+        errs = [rel_l2(a, b) for a, b in zip(got, want)]
+        err = float((got[0].float() - want[0].float()).abs().max())
+        print(f"K8 ln_pg_bwd [{rows}, {c}] {label}: rel_l2 (dx, "
+              f"dscale, dbias) {errs}, dx max_abs_err {err}")
+        check(all(bool(torch.isfinite(t.float()).all()) for t in got),
+              "K8 gradients finite")
+        check(max(errs) <= tol, f"K8 rel L2 {max(errs)} <= {tol}")
+        res[label] = dict(
+            max_abs_err=err, rel_l2=max(errs),
+            ms=cuda_ms(lambda: ln.ln_bwd(x, g, sc, 1e-6), iters=10),
+            plain_ms=cuda_ms(lambda: ln.ln_bwd_ref(x, g, sc, 1e-6),
+                             iters=10))
+        del x, g, got, want
+    return {"ln_pg_bwd": dict(res.pop("f32"), **res)}
 
 
 def adamw_ema_check(dev, shapes, teacher_leaves, decay):
@@ -409,6 +582,18 @@ def base_recipe():
                                   max_steps=398000, ema=0.9996))
 
 
+def clip_recipe(dtype):
+    """ATST-Clip small as ``bench.py:119-129`` times it (two independent 6 s
+    crops of each 10 s clip, mixup and RandomResizeCrop on both views)."""
+    from audiossl_tpu_torch.methods.atst.method import ClipPretrainConfig
+    from audiossl_tpu_torch.training.pretrain import OptimizerConfig
+
+    return ClipPretrainConfig(
+        arch="small", anchor_len=(6.0, 6.0), positive_len=(6.0, 6.0),
+        optimizer=OptimizerConfig(learning_rate=5e-4, warmup_steps=1300,
+                                  max_steps=39100, ema=0.99), dtype=dtype)
+
+
 def student_leaves(dev):
     """Shapes of the base student branch's parameters, whether the teacher
     holds each, and whether each decays (K7's main-path leaves)."""
@@ -421,101 +606,232 @@ def student_leaves(dev):
             [k in t_names for k, _ in leaves], [p.ndim >= 2 for _, p in leaves])
 
 
-def train_path(dev, profile_dir=None):
-    """The pretraining step at ATST-Frame base, B=96, through the kernels,
-    and the same step through the plain versions; returns the kernel
-    path's launch counts."""
-    from audiossl_tpu_torch.kernels import build as kb
-    from audiossl_tpu_torch.methods.atstframe.method import FrameMethod
-
-    cfg = base_recipe()
-    rng = np.random.RandomState(SEED + 4)
-    wav = torch.from_numpy((rng.randn(TRAIN_B, cfg.out_samples) * 0.1).astype(
+def wav_batch(dev, samples, seed, short=None):
+    """B=96 clips of seeded noise; with ``short``, every fourth clip holds
+    only that many valid samples."""
+    rng = np.random.RandomState(seed)
+    wav = torch.from_numpy((rng.randn(TRAIN_B, samples) * 0.1).astype(
         np.float32)).to(dev)
-    batch = {"wav": wav, "valid": torch.full((TRAIN_B,), cfg.out_samples,
-                                             device=dev)}
-    runs = {}
-    for plain in (False, True):
-        method = FrameMethod(cfg, device=dev, seed=SEED, plain=plain)
-        state = method.init_state(seed=SEED)
-        # start at the end of warmup, so the step moves the parameters at
-        # the recipe's peak lr (at step 0 the warmup lr is 0)
-        state.step = cfg.optimizer.warmup_steps
-        runs[plain] = (method, state, method.make_step())
-    method, state, step = runs[False]
-    draws = method.draw(torch.Generator(device=dev).manual_seed(SEED), TRAIN_B)
-    t_name = f"encoder.blocks.{method.depth - 1}.mlp.fc2.weight"
-    t_before = dict(state.teacher.named_parameters())[t_name].detach().clone()
+    valid = torch.full((TRAIN_B,), samples, device=dev)
+    if short is not None:
+        valid[1::4] = short
+        wav[1::4, short:] = 0.0
+    return {"wav": wav, "valid": valid}
+
+
+def counted_step(step, state, batch, draws=None):
+    """One step with the launch counts set to 0 just before it and read
+    just after; returns (metrics, launches)."""
+    from audiossl_tpu_torch.kernels import build as kb
 
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     kb.reset_launches()
     out = step(state, batch, draws)
     torch.cuda.synchronize()
-    launches = dict(kb.LAUNCHES)
+    return out, dict(kb.LAUNCHES)
+
+
+def check_launches(label, launches, want):
+    """Every kernel launched exactly as often as ``want`` says (0 where it
+    says nothing)."""
+    print(f"{label} launches: {launches}")
+    for name, count in launches.items():
+        n = want.get(name, 0)
+        check(count == n, f"{label}: {name} launched {count} times == {n}")
+
+
+def leaf_cos(a, b, skip):
+    """Per-leaf cosine of the student gradients of states ``a`` and ``b``
+    (leaves in ``skip`` left out), the leaves neither holds a gradient for,
+    and each leaf's larger gradient norm."""
+    cos, norms, unused = {}, {}, []
+    bparams = dict(b.student.named_parameters())
+    for k, p in a.student.named_parameters():
+        if p.grad is None and bparams[k].grad is None:
+            unused.append(k)  # a clip encoder's mask_embed
+            continue
+        g, pg = p.grad.double().flatten(), bparams[k].grad.double().flatten()
+        norms[k] = max(float(g.norm()), float(pg.norm()))
+        if k not in skip:
+            cos[k] = float(torch.nn.functional.cosine_similarity(g, pg, dim=0))
+    return cos, unused, norms
+
+
+def step_path(dev, label, make_method, batch, want, loss_rel, grad_cos,
+              profile_dir=None, make_ref=None):
+    """One step of ``make_method(plain=False)`` through the kernels (launch
+    counts, finite loss, a teacher that moved), the same step from the same
+    state and draws through every plain version (``make_method(True)``),
+    and clips/s of both paths in turns; returns the kernel path's
+    launches. Both states start at the end of warmup, so the step moves
+    the parameters at the recipe's peak lr (at step 0 the warmup lr is
+    0). The gradients of the two paths are held to a leaf cosine of
+    ``grad_cos``; with ``make_ref`` (a method that runs the step in f32
+    through the plain versions) each path is held to that step instead,
+    the kernels within ``REF_*_MARGIN`` of the plain version."""
+    runs = {}
+    for plain in (False, True):
+        method = make_method(plain)
+        state = method.init_state(seed=SEED)
+        state.step = method.cfg.optimizer.warmup_steps
+        runs[plain] = (method, state, method.make_step())
+    method, state, step = runs[False]
+    cfg = method.cfg
+    draws = method.draw(torch.Generator(device=dev).manual_seed(SEED),
+                        TRAIN_B)
+    t_name = f"encoder.blocks.{method.depth - 1}.mlp.fc2.weight"
+    t_before = dict(state.teacher.named_parameters())[t_name].detach().clone()
+
+    torch.cuda.reset_peak_memory_stats()
+    out, launches = counted_step(step, state, batch, draws)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     loss = float(out["loss"])
-    print(f"training step ({cfg.arch}, B={TRAIN_B}, {cfg.dtype}) launches: "
-          f"{launches}")
-    print(f"training step loss {loss}, std_frm_stu "
-          f"{float(out['std_frm_stu'])}, std_frm_tea "
-          f"{float(out['std_frm_tea'])}, lr {out['lr']}, wd {out['wd']}, "
-          f"ema {out['ema']}; peak device memory {peak} GiB")
-    depth = method.depth
-    for name in ("attn_train_fwd", "attn_train_bwd", "mlp_train_fwd",
-                 "mlp_train_bwd", "attn_block", "mlp_block"):
-        check(launches[name] == depth,
-              f"{name}: {launches[name]} launches in the step == {depth}")
-    check(launches["mel_db"] >= 1 and launches["adamw_ema"] >= 1,
-          "mel and AdamW + EMA kernels launched in the step")
-    check(np.isfinite(loss), f"training loss {loss} finite")
+    print(f"{label} step ({cfg.arch}, B={TRAIN_B}, {cfg.dtype}): "
+          + ", ".join(f"{k} {float(v)}" for k, v in out.items())
+          + f"; peak device memory {peak} GiB")
+    check_launches(f"{label} step", launches, want)
+    check(np.isfinite(loss), f"{label} loss {loss} finite")
     t_after = dict(state.teacher.named_parameters())[t_name].detach()
     moved = float((t_after - t_before).abs().max())
-    check(moved > 0.0, f"the teacher moved ({t_name} max change {moved})")
+    check(moved > 0.0, f"{label}: the teacher moved ({t_name} max change "
+          f"{moved})")
 
     pmethod, pstate, pstep = runs[True]
     pout = pstep(pstate, batch, draws)
     ploss = float(pout["loss"])
     rel = abs(loss - ploss) / abs(ploss)
-    cos, norms = {}, {}
-    pparams = dict(pstate.student.named_parameters())
-    for k, p in state.student.named_parameters():
-        g, pg = p.grad.double().flatten(), pparams[k].grad.double().flatten()
-        norms[k] = max(float(g.norm()), float(pg.norm()))
-        if k != ZERO_GRAD:
-            cos[k] = float(torch.nn.functional.cosine_similarity(g, pg, dim=0))
+    zero_grad = f"encoder.{method.student.encoder._norm_name}.bias"
+    cos, unused, norms = leaf_cos(state, pstate, {zero_grad})
     worst = min(cos, key=cos.get)
-    print(f"plain-path step loss {ploss}: rel diff {rel}; gradient cosine "
-          f"min {cos[worst]} ({worst}), median "
-          f"{float(np.median(list(cos.values())))} over {len(cos)} leaves; "
-          f"{ZERO_GRAD} gradient norm {norms[ZERO_GRAD]} (largest leaf "
-          f"{max(norms.values())})")
-    check(rel <= STEP_LOSS_REL, f"step loss rel diff {rel} <= {STEP_LOSS_REL}")
-    check(cos[worst] >= STEP_GRAD_COS,
-          f"every gradient leaf cosine >= {STEP_GRAD_COS}")
-    check(norms[ZERO_GRAD] <= ZERO_GRAD_REL * max(norms.values()),
-          f"{ZERO_GRAD} gradient (zero in exact arithmetic) <= "
+    print(f"{label} plain-path step loss {ploss}: rel diff {rel}; gradient "
+          f"cosine min {cos[worst]} ({worst}), median "
+          f"{float(np.median(list(cos.values())))} over {len(cos)} leaves "
+          f"(no gradient on either path: {unused}); {zero_grad} gradient "
+          f"norm {norms[zero_grad]} (largest leaf {max(norms.values())})")
+    check(rel <= loss_rel, f"{label} step loss rel diff {rel} <= {loss_rel}")
+    if make_ref is None:
+        check(cos[worst] >= grad_cos,
+              f"{label}: every gradient leaf cosine >= {grad_cos}")
+    else:
+        rmethod = make_ref()
+        rstate = rmethod.init_state(seed=SEED)
+        rstate.step = rmethod.cfg.optimizer.warmup_steps
+        rloss = float(rmethod.make_step()(rstate, batch, draws)["loss"])
+        stats = {}
+        for name, st, lo in (("kernel", state, loss), ("plain", pstate, ploss)):
+            c = leaf_cos(st, rstate, {zero_grad})[0]
+            low = sorted(c, key=c.get)[:3]
+            stats[name] = (float(np.median(list(c.values()))), c[low[0]])
+            print(f"{label} {name} path vs the f32 plain step (loss {rloss}):"
+                  f" loss rel diff {abs(lo - rloss) / abs(rloss)}; gradient "
+                  f"cosine median {stats[name][0]}, lowest "
+                  f"{[(k, c[k]) for k in low]}")
+        (km, kmin), (pm, pmin) = stats["kernel"], stats["plain"]
+        check(km >= pm - REF_MEDIAN_MARGIN,
+              f"{label}: median leaf cosine to the f32 step {km} >= the "
+              f"plain path's {pm} - {REF_MEDIAN_MARGIN}")
+        check(kmin >= pmin - REF_MIN_MARGIN,
+              f"{label}: lowest leaf cosine to the f32 step {kmin} >= the "
+              f"plain path's {pmin} - {REF_MIN_MARGIN}")
+        del rmethod, rstate
+    check(norms[zero_grad] <= ZERO_GRAD_REL * max(norms.values()),
+          f"{label}: {zero_grad} gradient (zero in exact arithmetic) <= "
           f"{ZERO_GRAD_REL} of the largest leaf's on both paths")
 
     # clips/s in turns: plain, kernels, kernels, plain (1 warm-up + 3 steps)
     rates = {"plain": [], "kernels": []}
-    for label in ("plain", "kernels", "kernels", "plain"):
-        _, st, fn = runs[label == "plain"]
+    for which in ("plain", "kernels", "kernels", "plain"):
+        _, st, fn = runs[which == "plain"]
         fn(st, batch)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(3):
             fn(st, batch)
         torch.cuda.synchronize()
-        rates[label].append(3 * TRAIN_B / (time.perf_counter() - t0))
-    print(json.dumps({"train_clips_per_s_B96": rates,
-                      "train_peak_gib_kernels": peak}))
+        rates[which].append(3 * TRAIN_B / (time.perf_counter() - t0))
+    print(json.dumps({f"{label}_clips_per_s_B96": rates,
+                      f"{label}_peak_gib_kernels": peak}))
     if profile_dir:
-        profile_step(step, state, batch, profile_dir)
+        profile_step(step, state, batch, profile_dir, label)
     return launches
 
 
-def profile_step(step, state, batch, out_dir):
+def frame_bf16_path(dev, profile_dir=None):
+    """The ATST-Frame base step at B=96 through K1-K5, K7 and K8 (the
+    student's final norm)."""
+    from audiossl_tpu_torch.methods.atstframe.method import FrameMethod
+
+    cfg = base_recipe()
+    want = {k: 12 for k in ("attn_train_fwd", "attn_train_bwd",
+                            "mlp_train_fwd", "mlp_train_bwd", "attn_block",
+                            "mlp_block")}
+    want.update(mel_db=1, adamw_ema=1, ln_pg_bwd=1)
+    return step_path(
+        dev, "frame_bf16",
+        lambda plain: FrameMethod(cfg, device=dev, seed=SEED, plain=plain),
+        wav_batch(dev, cfg.out_samples, SEED + 4), want, STEP_LOSS_REL,
+        STEP_GRAD_COS, profile_dir)
+
+
+def clip_f32_path(dev, profile_dir=None):
+    """The ATST-Clip small step at B=96, f32, through K1, K6, K8 and K7:
+    per step K6 forward in the 12 student and 12 teacher blocks, its
+    backward in the student's 12, K8 for the student's 24 block norms and
+    its final norm, one mel per view. Every fourth clip holds 5 s of
+    audio, so its crops are shorter than 6 s and carry padding."""
+    from audiossl_tpu_torch.methods.atst.method import ClipMethod
+
+    cfg = clip_recipe("float32")
+    return step_path(
+        dev, "clip_f32",
+        lambda plain: ClipMethod(cfg, device=dev, seed=SEED, plain=plain),
+        wav_batch(dev, SAMPLES, SEED + 8, short=80000),
+        dict(mha_fwd=24, mha_bwd=12, ln_pg_bwd=25, mel_db=2, adamw_ema=1),
+        F32_STEP_LOSS_REL, F32_STEP_GRAD_COS, profile_dir)
+
+
+def clip_bf16_path(dev):
+    """The ATST-Clip small step at B=96 in bf16 (the CLI's recipe): K4/K5
+    for the student and K2/K3 for the teacher over N = 151 tokens with the
+    CLS token, K8 for the student's final norm; its gradients held to the
+    f32 step's as closely as the plain version's are (``REF_*_MARGIN``)."""
+    from audiossl_tpu_torch.methods.atst.method import ClipMethod
+
+    cfg, ref_cfg = clip_recipe("bfloat16"), clip_recipe("float32")
+    want = {k: 12 for k in ("attn_train_fwd", "attn_train_bwd",
+                            "mlp_train_fwd", "mlp_train_bwd", "attn_block",
+                            "mlp_block")}
+    want.update(mel_db=2, adamw_ema=1, ln_pg_bwd=1)
+    return step_path(
+        dev, "clip_bf16",
+        lambda plain: ClipMethod(cfg, device=dev, seed=SEED, plain=plain),
+        wav_batch(dev, SAMPLES, SEED + 9, short=80000), want, STEP_LOSS_REL,
+        None,
+        make_ref=lambda: ClipMethod(ref_cfg, device=dev, seed=SEED,
+                                    plain=True))
+
+
+def frame_f32_path(dev, profile_dir=None):
+    """The ATST-Frame base step at B=96 at the config's default dtype f32
+    (the route that raised before the f32 encoders took K6 and
+    LayerNormPG): K6 forward in the 12 student and 12 teacher blocks,
+    backward in the student's 12, K8 for the student's 24 block norms and
+    its final norm."""
+    from audiossl_tpu_torch.methods.atstframe.method import (
+        FrameMethod, FramePretrainConfig)
+
+    cfg = FramePretrainConfig(arch="base")
+    check(cfg.dtype == "float32", "the ATST-Frame config's default dtype is "
+          "float32")
+    return step_path(
+        dev, "frame_f32",
+        lambda plain: FrameMethod(cfg, device=dev, seed=SEED, plain=plain),
+        wav_batch(dev, cfg.out_samples, SEED + 10),
+        dict(mha_fwd=24, mha_bwd=12, ln_pg_bwd=25, mel_db=1, adamw_ema=1),
+        F32_STEP_LOSS_REL, F32_STEP_GRAD_COS, profile_dir)
+
+
+def profile_step(step, state, batch, out_dir, label):
     """One kernel-path step under torch.profiler: a table of device time
     by kernel and a chrome trace in out_dir."""
     from torch.profiler import ProfilerActivity, profile
@@ -530,17 +846,20 @@ def profile_step(step, state, batch, out_dir):
         wall = time.perf_counter() - t0
     table = prof.key_averages().table(sort_by="cuda_time_total",
                                       row_limit=60)
-    with open(os.path.join(out_dir, "train_step_profile.txt"), "w") as f:
+    with open(os.path.join(out_dir, f"{label}_step_profile.txt"), "w") as f:
         f.write(f"wall {wall * 1e3} ms\n{table}\n")
-    prof.export_chrome_trace(os.path.join(out_dir, "train_step_trace.json"))
-    print(f"profile of one training step ({wall * 1e3} ms wall) written "
+    prof.export_chrome_trace(os.path.join(out_dir,
+                                          f"{label}_step_trace.json"))
+    print(f"profile of one {label} step ({wall * 1e3} ms wall) written "
           f"to {out_dir}")
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="DIR",
-                    help="write a profile of one training step to DIR")
+                    help="write a profile of one ATST-Frame bf16, one "
+                         "ATST-Clip f32 and one ATST-Frame f32 training step "
+                         "to DIR")
     args = ap.parse_args()
     t_start = time.perf_counter()
     root = os.path.dirname(os.path.abspath(__file__))
@@ -572,11 +891,20 @@ def main():
     res = kernel_checks(dev)
     train_mel_check(dev)
     res.update(train_kernel_checks(dev))
+    for name, r in clip_block_checks(dev).items():
+        res[name]["clip"] = r
+    res.update(mha_kernel_checks(dev))
+    res.update(ln_kernel_checks(dev))
     res["adamw_ema"] = adamw_ema_check(dev, *student_leaves(dev))
+    paths = {}
     with tempfile.TemporaryDirectory() as workdir:
-        serving = main_path(dev, workdir)
-    torch.cuda.empty_cache()
-    training = train_path(dev, args.profile)
+        paths["serving"] = main_path(dev, workdir)
+    for name, fn in (("frame_bf16", lambda: frame_bf16_path(dev, args.profile)),
+                     ("clip_f32", lambda: clip_f32_path(dev, args.profile)),
+                     ("clip_bf16", lambda: clip_bf16_path(dev)),
+                     ("frame_f32", lambda: frame_f32_path(dev, args.profile))):
+        torch.cuda.empty_cache()
+        paths[name] = fn()
 
     sources = {
         "mel_db": ("mel_db.cu", "audiossl_tpu/ops/pallas_mel.py:39"),
@@ -589,10 +917,13 @@ def main():
         "mlp_train_fwd": ("mlp_train.cu", "audiossl_tpu/ops/pallas_mlp.py:277"),
         "mlp_train_bwd": ("mlp_train.cu", "audiossl_tpu/ops/pallas_mlp.py:350"),
         "adamw_ema": ("adamw_ema.cu", "audiossl_tpu/ops/pallas_opt.py:150"),
+        "mha_fwd": ("mha.cu", "audiossl_tpu/ops/pallas_mha.py:212"),
+        "mha_bwd": ("mha.cu", "audiossl_tpu/ops/pallas_mha.py:261"),
+        "ln_pg_bwd": ("ln_pg.cu", "audiossl_tpu/ops/pallas_ln.py:95"),
     }
     kernels = []
     for name, (src, rep) in sources.items():
-        by_path = {"serving": serving.get(name, 0), "training": training[name]}
+        by_path = {p: launches.get(name, 0) for p, launches in paths.items()}
         check(sum(by_path.values()) > 0, f"{name} launched on a main path")
         kernels.append({"name": name, "route": "cuda",
                         "source": f"audiossl_tpu_torch/csrc/{src}",

@@ -10,7 +10,7 @@ import torch
 
 from audiossl_tpu_torch.kernels import build as kb
 from audiossl_tpu_torch.ops import (adamw_ema, attn_train, block_infer,
-                                    mel_db, mlp_train)
+                                    layer_norm, mel_db, mha, mlp_train)
 
 FAKE_NVCC = """#!/bin/sh
 # stand-in for nvcc: write the -o target, or fail when asked to
@@ -38,7 +38,7 @@ def test_build_compiles_every_source_and_links_once(fake_nvcc):
     digest = lib.name[len("libaudiossl_kernels_"):-len(".so")]
     log = (fake_nvcc / f"{digest}.log").read_text()
     n_sources = len(list(kb.CSRC.glob("*.cu")))
-    assert n_sources == 6
+    assert n_sources == 8
     assert log.count("Used 32 registers") == n_sources + 1  # + the link
     assert kb.build() == lib  # an existing library is not rebuilt
     # objects were built in a temporary directory that is gone
@@ -72,7 +72,8 @@ def test_missing_nvcc_raises(tmp_path, monkeypatch):
 @pytest.mark.parametrize("which", ["mel_db", "attn_block", "mlp_block",
                                    "attn_train_fwd", "attn_train_bwd",
                                    "mlp_train_fwd", "mlp_train_bwd",
-                                   "adamw_ema"])
+                                   "adamw_ema", "mha_fwd", "mha_bwd",
+                                   "ln_pg_bwd"])
 def test_wrappers_raise_for_a_tensor_off_the_cpu_and_cuda(which):
     """A tensor that is not on the CPU never takes the plain version: it
     reaches the kernel path, which refuses a non-CUDA device."""
@@ -113,6 +114,13 @@ def test_wrappers_raise_for_a_tensor_off_the_cpu_and_cuda(which):
                 t(2, 8, C, dtype=bf), t(2, 8, C, dtype=bf),
                 t(2, 8, 4 * C, dtype=bf), t(2), t(C), t(C), t(4 * C, C),
                 t(C, 4 * C))
+        elif which == "mha_fwd":
+            mha.mha_fwd(t(2, 8, 3 * C), t(2, 8), 2, 0.125)
+        elif which == "mha_bwd":
+            mha.mha_bwd(t(2, 8, 3 * C), t(2, 8), t(2, 8, C), t(2, 8, 2),
+                        t(2, 8, C), 2, 0.125)
+        elif which == "ln_pg_bwd":
+            layer_norm.ln_bwd(t(16, C), t(16, C), t(C), 1e-6)
         else:
             adamw_ema.adamw_ema(
                 [t(C, C)], [t(C, C)], [t(C, C)], [t(C, C)], [None], [True],

@@ -20,6 +20,8 @@ def test_port_imports_without_jax():
         "import audiossl_tpu_torch, audiossl_tpu_torch.embedding\n"
         "import audiossl_tpu_torch.ops, audiossl_tpu_torch.models\n"
         "import audiossl_tpu_torch.methods.atstframe.method\n"
+        "import audiossl_tpu_torch.methods.atst.method\n"
+        "import audiossl_tpu_torch.ops.mha, audiossl_tpu_torch.ops.layer_norm\n"
         "import audiossl_tpu_torch.compat.checkpoint\n"
         "from audiossl_tpu_torch import load_model, get_scene_embedding\n"
         "bad = [m for m in sys.modules if m.split('.')[0] == 'audiossl_tpu']\n"

@@ -36,7 +36,12 @@ from audiossl_tpu_torch.models.transformer import (  # noqa: E402
     Block,
     drop_path_multipliers,
 )
+from audiossl_tpu_torch.methods.atst import method as tcm  # noqa: E402
+from audiossl_tpu_torch.ops import attn_train as tat  # noqa: E402
 from audiossl_tpu_torch.ops import block_infer as tbi  # noqa: E402
+from audiossl_tpu_torch.ops import layer_norm as tln  # noqa: E402
+from audiossl_tpu_torch.ops import mha as tmha  # noqa: E402
+from audiossl_tpu_torch.ops import mlp_train as tmt  # noqa: E402
 from audiossl_tpu_torch.training import pretrain as tpt  # noqa: E402
 
 B, L = 4, 20000
@@ -353,15 +358,13 @@ def test_trained_teacher_loads_into_load_model(tmp_path):
     assert bool(torch.isfinite(emb).all())
 
 
-def test_module_path_step_matches_block_kernel_path():
-    """``fused_attention=False`` runs both encoders on the module path
-    (additive -10000 mask, autograd, stochastic depth on the residual
-    branches); from the same state and draws, drop-path included, it
-    computes the step of the block-kernel path (plain versions on the
-    CPU) in f32."""
+def _module_vs_kernel_step(dtype):
+    """One frame-tiny step, drop-path included, on the module path and on
+    the kernel route of ``dtype`` (plain versions on the CPU), from the
+    same state and draws: (loss, gradients, teacher state) of each."""
     def run(fused):
         cfg = tm.FramePretrainConfig(arch="tiny", anchor_len=1.0,
-                                     fused_attention=fused,
+                                     fused_attention=fused, dtype=dtype,
                                      optimizer=tpt.OptimizerConfig(**OPT))
         method = tm.FrameMethod(cfg, seed=11)
         state = method.init_state(seed=0)
@@ -375,8 +378,17 @@ def test_module_path_step_matches_block_kernel_path():
                  for k, p in state.student.named_parameters()}
         return float(out["loss"]), grads, state.teacher.state_dict()
 
-    loss_k, grads_k, teacher_k = run(True)
-    loss_m, grads_m, teacher_m = run(False)
+    return run(True), run(False)
+
+
+def test_module_path_step_matches_block_kernel_path():
+    """``fused_attention=False`` runs both encoders on the module path
+    (additive -10000 mask, ``nn.LayerNorm``, autograd, stochastic depth on
+    the residual branches); from the same state and draws, drop-path
+    included, it computes the step of the f32 kernel route (K6 and
+    LayerNormPG, plain versions on the CPU) in f32."""
+    (loss_k, grads_k, teacher_k), (loss_m, grads_m, teacher_m) = \
+        _module_vs_kernel_step("float32")
     assert loss_m == pytest.approx(loss_k, rel=1e-5)
     for k, g in grads_k.items():
         if k != ZERO_GRAD:
@@ -384,3 +396,77 @@ def test_module_path_step_matches_block_kernel_path():
     for k, v in teacher_k.items():
         if "running" in k:
             assert _rel(teacher_m[k].numpy(), v.numpy()) < 1e-4, k
+
+
+def test_module_path_step_matches_block_kernel_path_bf16():
+    """The bf16 twin: the kernel route is then K4/K5 for the student and
+    K2/K3 for the teacher (plain versions on the CPU). Both paths round to
+    bf16, at different points (the module path after every operation), so
+    they are held to the loss within 1e-2 relative, every gradient leaf to
+    cosine >= 0.98 and the BatchNorm statistics within 1e-2: at width 64
+    and 25 tokens the rounding weighs more than at base width, where the
+    card holds the kernel step to its plain step at 0.99."""
+    (loss_k, grads_k, teacher_k), (loss_m, grads_m, teacher_m) = \
+        _module_vs_kernel_step("bfloat16")
+    assert loss_m == pytest.approx(loss_k, rel=1e-2)
+    for k, g in grads_k.items():
+        if k != ZERO_GRAD:
+            cos = torch.nn.functional.cosine_similarity(
+                grads_m[k].double().flatten(), g.double().flatten(), dim=0)
+            assert float(cos) >= 0.98, (k, float(cos))
+    for k, v in teacher_k.items():
+        if "running" in k:
+            assert _rel(teacher_m[k].numpy(), v.numpy()) < 1e-2, k
+
+
+# the kernel entry points of the pretraining encoders, by module
+_ENTRY_POINTS = {
+    "mha_fwd": (tmha, "mha_fwd"), "mha_bwd": (tmha, "mha_bwd"),
+    "ln_bwd": (tln, "ln_bwd"),
+    "attn_train_fwd": (tat, "attn_train_fwd"),
+    "attn_train_bwd": (tat, "attn_train_bwd"),
+    "mlp_train_fwd": (tmt, "mlp_train_fwd"),
+    "mlp_train_bwd": (tmt, "mlp_train_bwd"),
+    "attn_block": (tbi, "attn_block_infer"),
+    "mlp_block": (tbi, "mlp_block_infer")}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("which", ["frame", "clip"])
+def test_step_routes_blocks_by_dtype(monkeypatch, which, dtype):
+    """The route of the JAX encoders (``models/atst.py:219-272``): in f32
+    both encoders' blocks take the standalone MHA (K6) and LayerNormPG (K8
+    for the student's backward: two norms per block and the final norm),
+    never the bf16-only block kernels K4/K5/K2/K3; in bf16 the student
+    takes K4/K5 and the teacher K2/K3, and the final norm stays LayerNormPG
+    (``models/atst.py:141`` picks it by the flag alone). Counted at the
+    kernel entry points, which take their plain versions on the CPU."""
+    calls = dict.fromkeys(_ENTRY_POINTS, 0)
+    for name, (mod, attr) in _ENTRY_POINTS.items():
+        def counted(*a, _fn=getattr(mod, attr), _name=name, **kw):
+            calls[_name] += 1
+            return _fn(*a, **kw)
+        monkeypatch.setattr(mod, attr, counted)
+    opt = tpt.OptimizerConfig(**OPT)
+    if which == "frame":
+        method = tm.FrameMethod(tm.FramePretrainConfig(
+            arch="tiny", anchor_len=1.0, dtype=dtype, optimizer=opt))
+    else:
+        method = tcm.ClipMethod(tcm.ClipPretrainConfig(
+            arch="tiny", anchor_len=(1.0, 1.0), positive_len=(1.0, 1.0),
+            dtype=dtype, optimizer=opt))
+    state = method.init_state(seed=0)
+    wav = torch.from_numpy((np.random.RandomState(14).randn(B, L)
+                            * 0.1).astype(np.float32))
+    out = method.make_step()(state, {"wav": wav,
+                                     "valid": torch.from_numpy(VALID)})
+    assert np.isfinite(float(out["loss"]))
+    d = method.depth
+    if dtype == "float32":
+        want = dict(mha_fwd=2 * d, mha_bwd=d, ln_bwd=2 * d + 1)
+    else:
+        want = {k: d for k in ("attn_train_fwd", "attn_train_bwd",
+                               "mlp_train_fwd", "mlp_train_bwd",
+                               "attn_block", "mlp_block")}
+        want["ln_bwd"] = 1
+    assert calls == {k: want.get(k, 0) for k in calls}, calls
