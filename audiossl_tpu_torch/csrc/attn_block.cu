@@ -28,9 +28,26 @@
 // qkv, e and o are bf16, the denominator sums the same rounded e.
 // q/k/v never leave the [M, 3C] bf16 buffer; the score tile lives in shared
 // memory only. Keeping qkv and o on chip, wgmma and TMA are later work.
+//
+// Kernel K2q, attn_block_q8_launch: K2 with the qkv and proj products in
+// int8 (the TPU kernel _attn_kernel_q8, pallas_block.py:179, via :326):
+// int8 weight codes with per-output-channel scales (quantized by the caller,
+// once per call, as the JAX package does at the XLA level) against per-row
+// activation codes made on the card. Five launches:
+//  (a) LN1 in f32 -> int8 codes hq and row scales hr, from the unrounded
+//      f32 LN output                                          (quant_q8.cuh)
+//  (b) qkv = bf16(deq(hq W_qkv^T) + b_qkv)   int8 WMMA GEMM    (gemm_s8.cuh)
+//  (c) the same exp-only attention, with o left in f32 (unrounded)
+//  (d) o -> int8 codes oq and row scales                      (quant_q8.cuh)
+//  (e) out = bf16(x + dp * (deq(oq W_proj^T) + b_proj))
+// deq(acc) = f32(acc) * r[row] * s[col]. At ATST-Frame base the int8
+// products are the same 9.4 GFLOP at twice the bf16 tensor-core peak; the
+// row quantizations add ~4 bytes moved per activation element.
 #include "attn_exp.cuh"
 #include "common.cuh"
 #include "gemm_bf16.cuh"
+#include "gemm_s8.cuh"
+#include "quant_q8.cuh"
 
 extern "C" int attn_block_launch(int device, const void* x,
                                  const float* valid_k, const float* valid_v,
@@ -58,6 +75,33 @@ extern "C" int attn_block_launch(int device, const void* x,
     return e;
   return gemm::gemm_bf16_tn(
       ob, static_cast<const bf16*>(w_proj), M, C, C,
+      gemm::EpiBiasResidual{static_cast<bf16*>(out), xb, b_proj, dp, C, N},
+      s);
+}
+
+extern "C" int attn_block_q8_launch(
+    int device, const void* x, const float* valid_k, const float* valid_v,
+    const float* dp, const float* ln_w, const float* ln_b, const void* wq_qkv,
+    const float* s_qkv, const float* b_qkv, const void* wq_proj,
+    const float* s_proj, const float* b_proj, void* out, void* hq, float* hr,
+    void* qkv, float* o, void* oq, float* orow, int B, int N, int C, int H,
+    float scale, float eps, void* stream) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return e;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int M = B * N;
+  const bf16* xb = static_cast<const bf16*>(x);
+  bf16* qkvb = static_cast<bf16*>(qkv);
+  if ((e = q8::ln_q8(xb, ln_w, ln_b, hq, hr, M, C, eps, s))) return e;
+  if ((e = gemm::gemm_s8<true>(hq, wq_qkv, hr, s_qkv, M, 3 * C, C,
+                               gemm::EpiBias{qkvb, b_qkv, 3 * C}, s)))
+    return e;
+  if ((e = attn::attn_exp(qkvb, valid_k, valid_v, o, nullptr, B, N, C, H,
+                          scale, s)))
+    return e;
+  if ((e = q8::rows_q8(o, nullptr, 1, M, C, oq, orow, s))) return e;
+  return gemm::gemm_s8<true>(
+      oq, wq_proj, orow, s_proj, M, C, C,
       gemm::EpiBiasResidual{static_cast<bf16*>(out), xb, b_proj, dp, C, N},
       s);
 }

@@ -12,7 +12,8 @@
 // valid_k, so such a sequence gets den = 0 and o = 0. Rounding points: e and
 // o are T, the denominator sums the same rounded e. With r != nullptr the
 // reciprocal denominators 1 / (den + 1e-30) are written to r [M, H] (f32),
-// the residual the backward reads.
+// the residual the backward reads. The output type TO is T, except for K2q
+// (attn_block.cu), which quantizes the unrounded f32 o: bf16 qkv, f32 o.
 #pragma once
 
 #include <cstdint>
@@ -25,12 +26,12 @@ constexpr int QT = 64;         // queries per block
 constexpr int KT = 32;         // keys per inner tile
 constexpr int ATHREADS = 256;  // 4 threads per query row
 
-template <typename T, int D>
+template <typename T, int D, typename TO>
 static __global__ void __launch_bounds__(ATHREADS)
     attn_exp_kernel(const T* __restrict__ qkv,
                     const float* __restrict__ valid_k,
                     const float* __restrict__ valid_v,
-                    T* __restrict__ o, float* __restrict__ r_out, int N,
+                    TO* __restrict__ o, float* __restrict__ r_out, int N,
                     int C, int H, float scale) {
   using E = elem<T>;
   constexpr int LD = D + E::PER16;  // row pitch (16-byte multiple)
@@ -120,37 +121,37 @@ static __global__ void __launch_bounds__(ATHREADS)
   if (n >= N) return;
   const float rden = 1.0f / (den + 1e-30f);
   if (r_out != nullptr && sub == 0) r_out[((size_t)b * N + n) * H + h] = rden;
-  T* orow = o + ((size_t)b * N + n) * C + h * D;
+  TO* orow = o + ((size_t)b * N + n) * C + h * D;
 #pragma unroll
   for (int i = 0; i < D / 8; ++i)
-    E::st2(&orow[2 * sub + 8 * i], acc[2 * i] * rden, acc[2 * i + 1] * rden);
+    elem<TO>::st2(&orow[2 * sub + 8 * i], acc[2 * i] * rden, acc[2 * i + 1] * rden);
 }
 
-template <typename T, int D>
+template <typename T, int D, typename TO>
 static cudaError_t attn_exp_d(const T* qkv, const float* valid_k,
-                              const float* valid_v, T* o, float* r, int B,
+                              const float* valid_v, TO* o, float* r, int B,
                               int N, int C, int H, float scale,
                               cudaStream_t s) {
   dim3 grid((N + QT - 1) / QT, H, B);
-  attn_exp_kernel<T, D><<<grid, ATHREADS, 0, s>>>(qkv, valid_k, valid_v, o, r,
+  attn_exp_kernel<T, D, TO><<<grid, ATHREADS, 0, s>>>(qkv, valid_k, valid_v, o, r,
                                                   N, C, H, scale);
   return cudaGetLastError();
 }
 
 // Dispatch on the head dimension C / H: 32, 64 or (bf16 only, the static
 // shared-memory tiles of f32 would exceed 48 KB) 128.
-template <typename T>
+template <typename T, typename TO>
 static inline cudaError_t attn_exp(const T* qkv, const float* valid_k,
-                                   const float* valid_v, T* o, float* r,
+                                   const float* valid_v, TO* o, float* r,
                                    int B, int N, int C, int H, float scale,
                                    cudaStream_t s) {
   if (H <= 0 || C % H) return cudaErrorInvalidValue;
   switch (C / H) {
-    case 32: return attn_exp_d<T, 32>(qkv, valid_k, valid_v, o, r, B, N, C, H, scale, s);
-    case 64: return attn_exp_d<T, 64>(qkv, valid_k, valid_v, o, r, B, N, C, H, scale, s);
+    case 32: return attn_exp_d<T, 32, TO>(qkv, valid_k, valid_v, o, r, B, N, C, H, scale, s);
+    case 64: return attn_exp_d<T, 64, TO>(qkv, valid_k, valid_v, o, r, B, N, C, H, scale, s);
     case 128:
       if constexpr (sizeof(T) == 2)
-        return attn_exp_d<T, 128>(qkv, valid_k, valid_v, o, r, B, N, C, H, scale, s);
+        return attn_exp_d<T, 128, TO>(qkv, valid_k, valid_v, o, r, B, N, C, H, scale, s);
       return cudaErrorInvalidValue;
     default: return cudaErrorInvalidValue;
   }

@@ -41,10 +41,26 @@
 // on the SIMT f32 FMA units like K2's forward; the [N, N] score tiles live
 // in shared memory only. wgmma attention, fusing (3) into (4) and keeping
 // the bf16 operands on chip are later work.
+//
+// Kernel K4q, the int8 variants (student_quant, pallas_attn.py:283 with
+// quant): the weights come as int8 codes quantized by the caller once per
+// call (torch ops, as the JAX package's XLA-level quantize_weight_q8).
+// attn_train_fwd_q8_launch follows _fwd_kernel_q8 (:106, via :348): (a)-(d)
+// above with the qkv product from the codes of the f32 LN1 output
+// (quant_q8.cuh ln_q8) and the proj product from the codes of o after its
+// bf16 store, both int8 WMMA GEMMs (gemm_s8.cuh) dequantized per row and
+// channel. attn_train_bwd_q8dx_launch follows _bwd_kernel_q8dx (:252, via
+// :425): (1)-(7) above with the two grad-to-input products in int8 against
+// the codes of the dequantized weights quantized again per input channel
+// (the B_K = false layout): do from the codes of the f32 dy * dp, dh from
+// those of the bf16 dqkv. The attention core and the bf16 weight-gradient
+// products are unchanged.
 #include "attn_bwd.cuh"
 #include "attn_exp.cuh"
 #include "common.cuh"
 #include "gemm_bf16.cuh"
+#include "gemm_s8.cuh"
+#include "quant_q8.cuh"
 #include "train_common.cuh"
 
 extern "C" int attn_train_fwd_launch(
@@ -131,4 +147,95 @@ extern "C" int attn_train_bwd_launch(
   // (7)
   return train::ln_bwd(xb, d_f32, static_cast<const bf16*>(dy), ln_w,
                        static_cast<bf16*>(dx), dls, dlb, M, C, eps, s);
+}
+
+extern "C" int attn_train_fwd_q8_launch(
+    int device, const void* x, const float* valid_k, const float* valid_v,
+    const float* dp, const float* ln_w, const float* ln_b, const void* wq_qkv,
+    const float* s_qkv, const float* b_qkv, const void* wq_proj,
+    const float* s_proj, const float* b_proj, void* out, void* hq, float* hr,
+    void* qkv, void* o, float* r, void* oq, float* orow, int B, int N, int C,
+    int H, float scale, float eps, void* stream) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return e;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int M = B * N;
+  const bf16* xb = static_cast<const bf16*>(x);
+  bf16* qkvb = static_cast<bf16*>(qkv);
+  bf16* ob = static_cast<bf16*>(o);
+  if ((e = q8::ln_q8(xb, ln_w, ln_b, hq, hr, M, C, eps, s))) return e;
+  if ((e = gemm::gemm_s8<true>(hq, wq_qkv, hr, s_qkv, M, 3 * C, C,
+                               gemm::EpiBias{qkvb, b_qkv, 3 * C}, s)))
+    return e;
+  if ((e = attn::attn_exp(qkvb, valid_k, valid_v, ob, r, B, N, C, H, scale,
+                          s)))
+    return e;
+  if ((e = q8::rows_q8(static_cast<const bf16*>(ob), nullptr, 1, M, C, oq,
+                       orow, s)))
+    return e;
+  return gemm::gemm_s8<true>(
+      oq, wq_proj, orow, s_proj, M, C, C,
+      gemm::EpiBiasResidual{static_cast<bf16*>(out), xb, b_proj, dp, C, N},
+      s);
+}
+
+// As attn_train_bwd_launch; wt_qkv [3C, C] / wt_proj [C, C] int8 codes with
+// per-input-channel scales st_qkv / st_proj [C]. Extra scratch: aq int8
+// [M, 3C] and ar f32 [M], the codes and row scales of dy * dp, then of dqkv.
+extern "C" int attn_train_bwd_q8dx_launch(
+    int device, const void* x, const void* dy, const void* qkv, const void* o,
+    const float* r, const float* valid_k, const float* dp, const float* ln_w,
+    const float* ln_b, const void* wt_qkv, const float* st_qkv,
+    const void* wt_proj, const float* st_proj, void* dx, float* dw_qkv,
+    float* db_qkv, float* dw_proj, float* db_proj, float* dls, float* dlb,
+    void* h, void* dyb, void* dor, void* dqkv, float* d_f32, float* nd,
+    void* aq, float* ar, int B, int N, int C, int H, float scale, float eps,
+    void* stream) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return e;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int M = B * N;
+  const bf16* xb = static_cast<const bf16*>(x);
+  const bf16* dyin = static_cast<const bf16*>(dy);
+  const bf16* qkvb = static_cast<const bf16*>(qkv);
+  const bf16* ob = static_cast<const bf16*>(o);
+  bf16* hb = static_cast<bf16*>(h);
+  bf16* dybb = static_cast<bf16*>(dyb);
+  bf16* dorb = static_cast<bf16*>(dor);
+  bf16* dqkvb = static_cast<bf16*>(dqkv);
+  const size_t c4 = sizeof(float) * C;
+  if ((e = cudaMemsetAsync(dw_qkv, 0, 3 * C * c4, s)) ||
+      (e = cudaMemsetAsync(db_qkv, 0, 3 * c4, s)) ||
+      (e = cudaMemsetAsync(dw_proj, 0, C * c4, s)) ||
+      (e = cudaMemsetAsync(db_proj, 0, c4, s)) ||
+      (e = cudaMemsetAsync(dls, 0, c4, s)) ||
+      (e = cudaMemsetAsync(dlb, 0, c4, s)))
+    return e;
+  // (1), (2): dW_proj from the bf16 dyb; do = deq(q8(dy * dp) W_proj)
+  if ((e = train::scale_dy(dyin, dp, N, M, C, dybb, db_proj, true, s)))
+    return e;
+  if ((e = gemm::gemm_bf16_weight_grad(dybb, ob, M, C, C, dw_proj, s)))
+    return e;
+  if ((e = q8::rows_q8(dyin, dp, N, M, C, aq, ar, s))) return e;
+  if ((e = gemm::gemm_s8<false>(aq, wt_proj, ar, st_proj, M, C, C,
+                                gemm::EpiStoreF32{d_f32, C}, s)))
+    return e;
+  // (3)-(5)
+  if ((e = attn::attn_bwd<bf16, float>(d_f32, ob, r, qkvb, valid_k, dorb, nd,
+                                       dqkvb, B, N, C, H, scale, s)))
+    return e;
+  // (6): dW_qkv from the bf16 dqkv; dh = deq(q8(dqkv) W_qkv)
+  if ((e = train::colsum_bf16(dqkvb, M, 3 * C, db_qkv, s))) return e;
+  if ((e = layer_norm_bf16(xb, ln_w, ln_b, hb, M, C, eps, s))) return e;
+  if ((e = gemm::gemm_bf16_weight_grad(dqkvb, hb, M, 3 * C, C, dw_qkv, s)))
+    return e;
+  if ((e = q8::rows_q8(static_cast<const bf16*>(dqkvb), nullptr, 1, M, 3 * C,
+                       aq, ar, s)))
+    return e;
+  if ((e = gemm::gemm_s8<false>(aq, wt_qkv, ar, st_qkv, M, C, 3 * C,
+                                gemm::EpiStoreF32{d_f32, C}, s)))
+    return e;
+  // (7)
+  return train::ln_bwd(xb, d_f32, dyin, ln_w, static_cast<bf16*>(dx), dls,
+                       dlb, M, C, eps, s);
 }

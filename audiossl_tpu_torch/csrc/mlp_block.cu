@@ -20,8 +20,23 @@
 // The TPU kernel rounds the GELU output to bf16 before fc2 as well, so the
 // bf16 intermediate in device memory changes no number; keeping it on chip
 // (fusing fc1 -> fc2 per row tile) is later work.
+//
+// Kernel K3q, mlp_block_q8_launch: K3 with fc1 and fc2 in int8 (the TPU
+// kernel _mlp_kernel_q8, pallas_block.py:223, via :390), weight codes with
+// per-output-channel scales from the caller. Four launches:
+//  (a) LN2 in f32 -> int8 codes and row scales               (quant_q8.cuh)
+//  (b) u = deq(hq W1^T) + b1, f32 [M, Hd]                     (gemm_s8.cuh)
+//  (c) a = gelu(u) in f32, quantized per row with the bound
+//      max(gelu(max_j u), 0.17) from the signed row max of u (quant_q8.cuh)
+//  (d) out = bf16(x + dp * (deq(aq W2^T) + b2))
+// The f32 u (not the TPU kernel's VMEM block) goes through device memory:
+// 4 bytes per hidden element written and read twice, against 18.9 GFLOP of
+// int8 products at ATST-Frame base; fusing (b)-(d) per row tile is later
+// work.
 #include "common.cuh"
 #include "gemm_bf16.cuh"
+#include "gemm_s8.cuh"
+#include "quant_q8.cuh"
 
 extern "C" int mlp_block_launch(int device, const void* x, const float* dp,
                                 const float* ln_w, const float* ln_b,
@@ -42,5 +57,28 @@ extern "C" int mlp_block_launch(int device, const void* x, const float* dp,
     return e;
   return gemm::gemm_bf16_tn(
       ub, static_cast<const bf16*>(w2), M, C, Hd,
+      gemm::EpiBiasResidual{static_cast<bf16*>(out), xb, b2, dp, C, N}, s);
+}
+
+extern "C" int mlp_block_q8_launch(int device, const void* x, const float* dp,
+                                   const float* ln_w, const float* ln_b,
+                                   const void* w1q, const float* s1,
+                                   const float* b1, const void* w2q,
+                                   const float* s2, const float* b2, void* out,
+                                   void* hq, float* hr, float* u, void* aq,
+                                   float* ar, int B, int N, int C, int Hd,
+                                   float eps, void* stream) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return e;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int M = B * N;
+  const bf16* xb = static_cast<const bf16*>(x);
+  if ((e = q8::ln_q8(xb, ln_w, ln_b, hq, hr, M, C, eps, s))) return e;
+  if ((e = gemm::gemm_s8<true>(hq, w1q, hr, s1, M, Hd, C,
+                               gemm::EpiBiasF32{u, b1, Hd}, s)))
+    return e;
+  if ((e = q8::gelu_q8(u, M, Hd, aq, ar, q8::GeluErf{}, s))) return e;
+  return gemm::gemm_s8<true>(
+      aq, w2q, ar, s2, M, C, Hd,
       gemm::EpiBiasResidual{static_cast<bf16*>(out), xb, b2, dp, C, N}, s);
 }

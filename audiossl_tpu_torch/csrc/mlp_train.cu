@@ -31,8 +31,23 @@
 //  (6) LN2 backward from recomputed f32 statistics: dx, dls, dlb
 // Keeping du on chip (the TPU kernel never writes it to memory), wgmma and
 // TMA are later work.
+//
+// Kernel K5q, the int8 variants (student_quant, pallas_mlp.py:255 with
+// quant), weights as int8 codes quantized by the caller once per call.
+// mlp_train_fwd_q8_launch follows _fwd_kernel_q8 (:120, via :313): fc1 from
+// the codes of the f32 LN2 output; u = deq(.) + b1 kept in f32 and saved in
+// bf16; a = gelu(u) in f32 quantized per row with the bound
+// max(gelu(max_j u), 0.17) (quant_q8.cuh gelu_q8); fc2 from those codes.
+// mlp_train_bwd_q8dx_launch follows _bwd_kernel_q8dx (:225, via :376): (1)-(6)
+// above with da and dh in int8 against the codes of the dequantized weights
+// quantized again per input channel (the B_K = false layout): da from the
+// codes of the f32 dy * dp, dh from those of the unrounded f32 du (so du is
+// stored in f32 as well as in bf16 for dW1). The weight-gradient products
+// stay bf16.
 #include "common.cuh"
 #include "gemm_bf16.cuh"
+#include "gemm_s8.cuh"
+#include "quant_q8.cuh"
 #include "train_common.cuh"
 
 namespace {
@@ -97,6 +112,46 @@ __global__ void gelu_from_u_kernel(const bf16* __restrict__ u,
     a[i] = __float2bfloat16(uf * half_cdf(uf, expf(-uf * uf * 0.5f)));
   }
 }
+
+// K5q (b): u = acc + b1 in f32 and saved in bf16
+struct EpiBiasSaveF32 {
+  static constexpr bool kColSum = false;
+  float* uf_out;
+  bf16* u_out;
+  const float* bias;
+  int N;
+  __device__ float operator()(int m, int n, float acc) const {
+    size_t i = (size_t)m * N + n;
+    float u = acc + bias[n];
+    uf_out[i] = u;
+    u_out[i] = __float2bfloat16(u);
+    return 0.0f;
+  }
+};
+
+// K5q's GELU, as (b) of K5: u Phi(u) from exp(-u^2/2)
+struct GeluFromExp {
+  __device__ float operator()(float u) const {
+    return u * half_cdf(u, expf(-u * u * 0.5f));
+  }
+};
+
+// K5q backward (4): EpiGeluGrad that also keeps the f32 du, whose codes
+// feed dh
+struct EpiGeluGradF32 {
+  static constexpr bool kColSum = true;
+  float* colsum;
+  const bf16* u;
+  bf16* du_out;
+  float* duf_out;
+  int N;
+  __device__ float operator()(int m, int n, float acc) const {
+    size_t i = (size_t)m * N + n;
+    float du = EpiGeluGrad{colsum, u, du_out, N}(m, n, acc);
+    duf_out[i] = du;
+    return du;
+  }
+};
 
 }  // namespace
 
@@ -174,4 +229,82 @@ extern "C" int mlp_train_bwd_launch(
   // (6)
   return train::ln_bwd(xb, dh, static_cast<const bf16*>(dy), ln_w,
                        static_cast<bf16*>(dx), dls, dlb, M, C, eps, s);
+}
+
+extern "C" int mlp_train_fwd_q8_launch(
+    int device, const void* x, const float* dp, const float* ln_w,
+    const float* ln_b, const void* w1q, const float* s1, const float* b1,
+    const void* w2q, const float* s2, const float* b2, void* out, void* hq,
+    float* hr, void* u, float* uf, void* aq, float* ar, int B, int N, int C,
+    int Hd, float eps, void* stream) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return e;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int M = B * N;
+  const bf16* xb = static_cast<const bf16*>(x);
+  if ((e = q8::ln_q8(xb, ln_w, ln_b, hq, hr, M, C, eps, s))) return e;
+  if ((e = gemm::gemm_s8<true>(
+           hq, w1q, hr, s1, M, Hd, C,
+           EpiBiasSaveF32{uf, static_cast<bf16*>(u), b1, Hd}, s)))
+    return e;
+  if ((e = q8::gelu_q8(uf, M, Hd, aq, ar, GeluFromExp{}, s))) return e;
+  return gemm::gemm_s8<true>(
+      aq, w2q, ar, s2, M, C, Hd,
+      gemm::EpiBiasResidual{static_cast<bf16*>(out), xb, b2, dp, C, N}, s);
+}
+
+// As mlp_train_bwd_launch; wt1 [Hd, C] / wt2 [C, Hd] int8 codes with
+// per-input-channel scales st1 [C] / st2 [Hd]. Extra scratch: duf [M, Hd]
+// f32; aq int8 [M, Hd] and ar f32 [M], the codes and row scales of dy * dp,
+// then of du.
+extern "C" int mlp_train_bwd_q8dx_launch(
+    int device, const void* x, const void* dy, const void* u, const float* dp,
+    const float* ln_w, const float* ln_b, const void* wt1, const float* st1,
+    const void* wt2, const float* st2, void* dx, float* dw1, float* db1,
+    float* dw2, float* db2, float* dls, float* dlb, void* h, void* dyb,
+    void* a, void* du, float* duf, float* dh, void* aq, float* ar, int B,
+    int N, int C, int Hd, float eps, void* stream) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return e;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int M = B * N;
+  const bf16* xb = static_cast<const bf16*>(x);
+  const bf16* dyin = static_cast<const bf16*>(dy);
+  const bf16* ub = static_cast<const bf16*>(u);
+  bf16* hb = static_cast<bf16*>(h);
+  bf16* dybb = static_cast<bf16*>(dyb);
+  bf16* ab = static_cast<bf16*>(a);
+  bf16* dub = static_cast<bf16*>(du);
+  const size_t c4 = sizeof(float) * C;
+  if ((e = cudaMemsetAsync(dw1, 0, Hd * c4, s)) ||
+      (e = cudaMemsetAsync(db1, 0, sizeof(float) * Hd, s)) ||
+      (e = cudaMemsetAsync(dw2, 0, Hd * c4, s)) ||
+      (e = cudaMemsetAsync(db2, 0, c4, s)) ||
+      (e = cudaMemsetAsync(dls, 0, c4, s)) ||
+      (e = cudaMemsetAsync(dlb, 0, c4, s)))
+    return e;
+  // (1), (2), (3)
+  if ((e = train::scale_dy(dyin, dp, N, M, C, dybb, db2, false, s))) return e;
+  const size_t nu = (size_t)M * Hd;
+  gelu_from_u_kernel<<<(unsigned)std::min<size_t>((nu + 255) / 256, 65535),
+                       256, 0, s>>>(ub, ab, nu);
+  if ((e = cudaGetLastError())) return e;
+  if ((e = gemm::gemm_bf16_weight_grad(dybb, ab, M, C, Hd, dw2, s))) return e;
+  // (4): da = deq(q8(dy * dp) W2), du = da * gelu'(u) in f32 and bf16
+  if ((e = q8::rows_q8(dyin, dp, N, M, C, aq, ar, s))) return e;
+  if ((e = gemm::gemm_s8<false>(aq, wt2, ar, st2, M, Hd, C,
+                                EpiGeluGradF32{db1, ub, dub, duf, Hd}, s)))
+    return e;
+  // (5): dW1 from the bf16 du; dh = deq(q8(du) W1)
+  if ((e = layer_norm_bf16(xb, ln_w, ln_b, hb, M, C, eps, s))) return e;
+  if ((e = gemm::gemm_bf16_weight_grad(dub, hb, M, Hd, C, dw1, s))) return e;
+  if ((e = q8::rows_q8(static_cast<const float*>(duf), nullptr, 1, M, Hd, aq,
+                       ar, s)))
+    return e;
+  if ((e = gemm::gemm_s8<false>(aq, wt1, ar, st1, M, C, Hd,
+                                gemm::EpiStoreF32{dh, C}, s)))
+    return e;
+  // (6)
+  return train::ln_bwd(xb, dh, dyin, ln_w, static_cast<bf16*>(dx), dls, dlb,
+                       M, C, eps, s);
 }

@@ -10,8 +10,10 @@
   concatenated along time with 40 ms timestamps
   -> ([B, T, n_blocks*embed_dim], timestamps_ms [B, T]).
 
-All DSP runs on the model's device; the mel kernel runs in both model
-variants, the block kernels under ``fused=True``.
+All DSP runs on the model's device, the card unless the caller asks for
+another; the mel kernel runs in both model variants, the block kernels
+under ``fused=True``, their int8 variants (K2q, K3q) under
+``quant="int8"``.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ from typing import Optional, Tuple
 import torch
 
 from audiossl_tpu_torch.compat.checkpoint import load_pretrain_checkpoint
+from audiossl_tpu_torch.kernels.build import resolve_device
 from audiossl_tpu_torch.models.atst import (
     AudioTransformer,
     frame_ast_base,
@@ -59,25 +62,32 @@ class EmbeddingModel:
 
 def load_model(ckpt_path: str, arch: Optional[str] = None,
                which: str = "teacher", fused: bool = False,
-               device="cpu", quant: str = "none") -> EmbeddingModel:
+               device="cuda", quant: str = "none") -> EmbeddingModel:
     """Load atstframe_{tiny,small,base} weights from a reference PyTorch
-    Lightning checkpoint (.ckpt) onto ``device``.
+    Lightning checkpoint (.ckpt) onto ``device`` (the card unless the
+    caller asks for the CPU; without a card that raises).
 
     ``arch`` defaults to the checkpoint's ``hyper_parameters["arch"]``,
     else "base". ``fused=True`` holds the block matmul weights in bf16 and
     runs the blocks through the inference block kernels; ``fused=False``
-    is the plain f32 module path."""
-    if quant == "int8":
-        raise NotImplementedError("int8 serving is not ported yet")
-    if quant != "none":
+    is the plain f32 module path. ``quant="int8"`` (with ``fused=True``
+    only, as in JAX) keeps the f32 weights and runs the blocks' products
+    in int8 (K2q, K3q): about 1e-2 relative change of each block's
+    output, for bulk extraction rather than parity evaluation."""
+    device = resolve_device(device)
+    if quant not in ("none", "int8"):
         raise ValueError(f"unknown quant mode {quant!r} "
                          "(supported: 'none', 'int8')")
+    if quant != "none" and not fused:
+        raise ValueError("quant requires fused=True (the quantized "
+                         "products live in the fused block kernels)")
     if not ckpt_path.endswith(".ckpt"):
         raise NotImplementedError("only reference .ckpt files load; orbax "
                                   "directories are not ported yet")
     sd, hparams = load_pretrain_checkpoint(ckpt_path, which=which)
     arch = arch or hparams.get("arch", "base")
-    enc = _ARCHS[arch](spec_w=CHUNK_FRAMES, fused=fused, device=device)
+    enc = _ARCHS[arch](spec_w=CHUNK_FRAMES, fused=fused, device=device,
+                       infer_quant=quant)
     enc.load_state_dict(sd)
     enc.requires_grad_(False)
     return EmbeddingModel(encoder=enc.eval())

@@ -32,7 +32,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LAUNCHES = {"mel_db": 0, "attn_block": 0, "mlp_block": 0,
             "attn_train_fwd": 0, "attn_train_bwd": 0,
             "mlp_train_fwd": 0, "mlp_train_bwd": 0, "adamw_ema": 0,
-            "mha_fwd": 0, "mha_bwd": 0, "ln_pg_bwd": 0}
+            "mha_fwd": 0, "mha_bwd": 0, "ln_pg_bwd": 0,
+            "attn_block_q8": 0, "mlp_block_q8": 0, "attn_train_fwd_q8": 0,
+            "attn_train_bwd_q8dx": 0, "mlp_train_fwd_q8": 0,
+            "mlp_train_bwd_q8dx": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -69,6 +72,26 @@ _SIGNATURES = {
     "mha_bwd_launch": [_I] + [_P] * 8 + [_I] * 5 + [_F, _P],
     # x, dy, scale, dx, dscale, dbias, dtype, R, C, eps
     "ln_pg_bwd_launch": [_I] + [_P] * 6 + [_I] * 3 + [_F, _P],
+    # x, valid_k, valid_v, dp, ln_w, ln_b, wq_qkv, s_qkv, b_qkv, wq_proj,
+    # s_proj, b_proj, out, hq, hr, qkv, o, oq, or; B, N, C, H, scale, eps
+    "attn_block_q8_launch": [_I] + [_P] * 19 + [_I, _I, _I, _I, _F, _F, _P],
+    # x, dp, ln_w, ln_b, w1q, s1, b1, w2q, s2, b2, out, hq, hr, u, aq, ar;
+    # B, N, C, Hd, eps
+    "mlp_block_q8_launch": [_I] + [_P] * 16 + [_I, _I, _I, _I, _F, _P],
+    # as attn_block_q8 with r before oq; B, N, C, H, scale, eps
+    "attn_train_fwd_q8_launch": [_I] + [_P] * 20
+    + [_I, _I, _I, _I, _F, _F, _P],
+    # x, dy, qkv, o, r, valid_k, dp, ln_w, ln_b, wt_qkv, st_qkv, wt_proj,
+    # st_proj, dx, dw_qkv, db_qkv, dw_proj, db_proj, dls, dlb, h, dyb, dor,
+    # dqkv, d_f32, nd, aq, ar; B, N, C, H, scale, eps
+    "attn_train_bwd_q8dx_launch": [_I] + [_P] * 28
+    + [_I, _I, _I, _I, _F, _F, _P],
+    # x, dp, ln_w, ln_b, w1q, s1, b1, w2q, s2, b2, out, hq, hr, u, uf, aq, ar;
+    # B, N, C, Hd, eps
+    "mlp_train_fwd_q8_launch": [_I] + [_P] * 17 + [_I, _I, _I, _I, _F, _P],
+    # x, dy, u, dp, ln_w, ln_b, wt1, st1, wt2, st2, dx, dw1, db1, dw2, db2,
+    # dls, dlb, h, dyb, a, du, duf, dh, aq, ar; B, N, C, Hd, eps
+    "mlp_train_bwd_q8dx_launch": [_I] + [_P] * 25 + [_I, _I, _I, _I, _F, _P],
 }
 
 # the element-type codes of the kernels templated on it
@@ -142,6 +165,18 @@ def library() -> ctypes.CDLL:
     lib.audiossl_cuda_error_string.argtypes = [ctypes.c_int]
     lib.audiossl_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; raises for a CUDA device when
+    PyTorch sees no card (the port's entry points run on the card unless
+    the caller passes ``device="cpu"``)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(device)!r}: no CUDA device is available; pass "
+            "device='cpu' to run the plain PyTorch versions on the CPU")
+    return dev
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:

@@ -22,6 +22,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from audiossl_tpu_torch.kernels.build import resolve_device
 from audiossl_tpu_torch.models.atst import ast_base, ast_small, ast_tiny
 from audiossl_tpu_torch.models.byol import clip_byol_loss
 from audiossl_tpu_torch.models.transformer import drop_path_multipliers
@@ -44,8 +45,7 @@ _ARCHS = {"tiny": ast_tiny, "small": ast_small, "base": ast_base}
 class ClipPretrainConfig:
     """The JAX package's ``ClipPretrainConfig`` (defaults = the published
     recipe, reference methods/atst/train_small.sh), plus the encoders'
-    ``drop_path_rate`` (the JAX encoders' default, 0.1). Not ported: the
-    int8 options."""
+    ``drop_path_rate`` (the JAX encoders' default, 0.1)."""
     arch: str = "small"
     sr: int = 16000
     anchor_len: Tuple[float, float] = (6.0, 6.0)
@@ -61,6 +61,11 @@ class ClipPretrainConfig:
     # module path
     fused_attention: bool = True
     drop_path_rate: float = 0.1
+    # opt-in int8 recipes on the bf16 block-kernel route, as in
+    # FramePretrainConfig: the teacher's products ("int8"), the student's
+    # forward ("int8") and grad-to-input ("int8dx") products
+    teacher_quant: str = "none"
+    student_quant: str = "none"
 
     @property
     def max_len_s(self) -> float:
@@ -161,26 +166,30 @@ class ClipMethod:
     """The student and teacher branches of ATST-Clip and its step.
 
     Parameters are drawn on the CPU from ``seed`` and moved to
-    ``device``; ``plain=True`` runs every kernel's plain version (the
-    reference the kernel path is held against on the card)."""
+    ``device``, the card unless the caller asks for the CPU (without a
+    card that raises); ``plain=True`` runs every kernel's plain version
+    (the reference the kernel path is held against on the card)."""
 
-    def __init__(self, cfg: ClipPretrainConfig, device="cpu", seed: int = 0,
+    def __init__(self, cfg: ClipPretrainConfig, device="cuda", seed: int = 0,
                  plain: bool = False):
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.plain = plain
         gen = torch.Generator().manual_seed(seed)
+        # drawn on the CPU, then moved to the device with the heads
         kw = dict(spec_h=cfg.mel.n_mels, spec_w=cfg.out_frames,
-                  dtype=getattr(torch, cfg.dtype), plain=plain)
+                  dtype=getattr(torch, cfg.dtype), plain=plain, device="cpu")
         hd, od = (128, 32) if cfg.arch == "tiny" else (4096, 256)
         enc = _ARCHS[cfg.arch]
         self.student = Branch(
-            enc(generator=gen, fused_attention=cfg.fused_attention, **kw),
+            enc(generator=gen, fused_attention=cfg.fused_attention,
+                train_quant=cfg.student_quant, **kw),
             predictor=True, hidden_dim=hd, out_dim=od)
         # the teacher is never differentiated: in bf16 the inference block
         # kernels (their stochastic depth keeps the train-mode teacher)
         self.teacher = Branch(
-            enc(generator=gen, fused_infer=cfg.fused_attention, **kw),
+            enc(generator=gen, fused_infer=cfg.fused_attention,
+                infer_quant=cfg.teacher_quant, **kw),
             predictor=False, hidden_dim=hd, out_dim=od)
         with torch.no_grad():
             self.student.head.projector.reset_parameters(gen)

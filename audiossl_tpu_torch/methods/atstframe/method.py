@@ -21,6 +21,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from audiossl_tpu_torch.kernels.build import resolve_device
 from audiossl_tpu_torch.models.atst import (frame_ast_base, frame_ast_small,
                                             frame_ast_tiny)
 from audiossl_tpu_torch.models.byol import frame_byol_loss
@@ -46,8 +47,7 @@ class FramePretrainConfig:
     """The JAX package's ``FramePretrainConfig`` (defaults = the published
     recipe, reference methods/atstframe/train_base.sh), plus the encoders'
     ``drop_path_rate`` (the JAX encoders' default, 0.1). Not ported: the
-    data2vec variant (``avg_blocks``), interpolated positions and the int8
-    options."""
+    data2vec variant (``avg_blocks``) and interpolated positions."""
     arch: str = "small"
     sr: int = 16000
     anchor_len: float = 10.0
@@ -71,6 +71,13 @@ class FramePretrainConfig:
     # module path for both
     fused_attention: bool = True
     drop_path_rate: float = 0.1
+    # opt-in int8 recipes on the bf16 block-kernel route (no effect in
+    # f32): "int8" runs the no-grad teacher's products in int8 (K2q/K3q);
+    # "int8" / "int8dx" the student's forward products (K4q/K5q forward,
+    # the backward on the dequantized weights) / and its grad-to-input
+    # products (K4q/K5q backward)
+    teacher_quant: str = "none"
+    student_quant: str = "none"
 
     @property
     def out_frames(self) -> int:
@@ -161,28 +168,32 @@ class FrameMethod:
     """The student and teacher branches of ATST-Frame and its step.
 
     Parameters are drawn on the CPU from ``seed`` and moved to
-    ``device``; ``plain=True`` runs every kernel's plain version (the
-    reference the kernel path is held against on the card)."""
+    ``device``, the card unless the caller asks for the CPU (without a
+    card that raises); ``plain=True`` runs every kernel's plain version
+    (the reference the kernel path is held against on the card)."""
 
-    def __init__(self, cfg: FramePretrainConfig, device="cpu", seed: int = 0,
+    def __init__(self, cfg: FramePretrainConfig, device="cuda", seed: int = 0,
                  plain: bool = False):
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.plain = plain
         gen = torch.Generator().manual_seed(seed)
         dtype = getattr(torch, cfg.dtype)
+        # drawn on the CPU, then moved to the device with the heads
         kw = dict(spec_h=cfg.mel.n_mels, spec_w=cfg.out_frames,
                   patch_h=cfg.patch_h, patch_w=cfg.patch_w, dtype=dtype,
-                  plain=plain)
+                  plain=plain, device="cpu")
         hd, od = (128, 32) if cfg.arch == "tiny" else (4096, 256)
         enc = _ARCHS[cfg.arch]
         self.student = Branch(
-            enc(generator=gen, fused_attention=cfg.fused_attention, **kw),
+            enc(generator=gen, fused_attention=cfg.fused_attention,
+                train_quant=cfg.student_quant, **kw),
             predictor=True, hidden_dim=hd, out_dim=od)
         # the teacher is never differentiated: in bf16 the inference block
         # kernels (their stochastic depth keeps the train-mode teacher)
         self.teacher = Branch(
-            enc(generator=gen, fused_infer=cfg.fused_attention, **kw),
+            enc(generator=gen, fused_infer=cfg.fused_attention,
+                infer_quant=cfg.teacher_quant, **kw),
             predictor=False, hidden_dim=hd, out_dim=od)
         with torch.no_grad():
             self.student.head.projector.reset_parameters(gen)

@@ -35,6 +35,16 @@ picks it by the flag alone (there the teacher carries both flags).
 
 The block kernels need bf16; K6 takes f32 as well. ``plain=True`` runs the
 kernels' plain versions on any device.
+
+The int8 options act on the block-kernel route only, as in JAX:
+``infer_quant="int8"`` runs the inference block kernels as K2q/K3q (the
+teacher under ``teacher_quant``; serving under ``load_model(quant=
+"int8")``, where ``fused=True`` then keeps the f32 weights the codes are
+made from), ``train_quant`` in {"int8", "int8dx"} the student's K4/K5 as
+K4q/K5q. On the module and K6 routes they change nothing.
+
+The encoder is built on the card (``device="cuda"``) unless the caller
+asks for another device; without a card that raises.
 """
 from __future__ import annotations
 
@@ -43,6 +53,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from audiossl_tpu_torch.kernels.build import resolve_device
 from audiossl_tpu_torch.models.transformer import (
     Block,
     LayerNormPG,
@@ -51,6 +62,7 @@ from audiossl_tpu_torch.models.transformer import (
     length_to_attn_mask,
     length_to_token_mask,
 )
+from audiossl_tpu_torch.ops.quant import check_quant
 
 
 def num_patches(spec_h, spec_w, patch_h, patch_w):
@@ -93,17 +105,21 @@ class AudioTransformer(nn.Module):
                  num_heads: int = 12, patch_h: int = 64, patch_w: int = 4,
                  spec_h: int = 64, spec_w: int = 1001, qkv_bias: bool = False,
                  mlp_ratio: float = 4.0, eps: float = 1e-6,
-                 fused: bool = False, device="cpu",
+                 fused: bool = False, device="cuda",
                  generator: Optional[torch.Generator] = None,
                  dtype: torch.dtype = torch.float32,
                  fused_attention: bool = False, fused_infer: bool = False,
-                 plain: bool = False, use_cls: bool = False):
+                 plain: bool = False, use_cls: bool = False,
+                 infer_quant: str = "none", train_quant: str = "none"):
         """Parameters are drawn on the CPU from ``generator`` (seed 0 when
         None) as the reference initializes them, then moved to
-        ``device``. ``dtype``, ``fused_attention``, ``fused_infer`` and
-        ``plain`` configure the pretraining forward (module docstring);
-        ``use_cls`` makes the clip-level encoder."""
+        ``device``. ``dtype``, ``fused_attention``, ``fused_infer``,
+        ``plain`` and the quant options configure the pretraining forward
+        (module docstring); ``use_cls`` makes the clip-level encoder."""
         super().__init__()
+        device = resolve_device(device)
+        self.infer_quant = check_quant(infer_quant, ("int8",))
+        self.train_quant = check_quant(train_quant)
         self.dtype = dtype
         self.use_cls = use_cls
         self.fused_attention = fused_attention
@@ -147,7 +163,7 @@ class AudioTransformer(nn.Module):
         # built on the meta device, so nothing draws from the global RNG
         self.to_empty(device="cpu")
         self.reset_parameters(generator)
-        if fused:
+        if fused and not self.infer_quant:
             for blk in self.blocks:
                 for lin in (blk.attn.qkv, blk.attn.proj, blk.mlp.fc1,
                             blk.mlp.fc2):
@@ -208,8 +224,12 @@ class AudioTransformer(nn.Module):
             # imported here: ops.block_infer imports models.transformer
             from audiossl_tpu_torch.ops.block_infer import encoder_blocks_infer
 
-            return encoder_blocks_infer(self.blocks, x, plen, self.num_heads,
-                                        self.eps, collect_from)
+            # the int8 codes are made from f32 weights; the activations
+            # stay bf16, as the weights' dtype makes them otherwise
+            return encoder_blocks_infer(
+                self.blocks, x, plen, self.num_heads, self.eps, collect_from,
+                dtype=torch.bfloat16 if self.infer_quant else None,
+                quant=self.infer_quant)
         mask = None if plen is None else length_to_attn_mask(plen, x.shape[1])
         collected = []
         for i, blk in enumerate(self.blocks):
@@ -269,7 +289,8 @@ class AudioTransformer(nn.Module):
 
             return encoder_blocks_infer(self.blocks, x, lengths,
                                         self.num_heads, self.eps, dps=dps,
-                                        dtype=x.dtype, plain=self.plain)[0]
+                                        dtype=x.dtype, plain=self.plain,
+                                        quant=self.infer_quant)[0]
         if self._route != "block_kernels":
             # module path; Block(fused_attention=True) on the K6/K8 route
             mask = (None if lengths is None
@@ -293,11 +314,12 @@ class AudioTransformer(nn.Module):
             x = fused_attn_block(
                 x, valid, dp1, blk.norm1.weight, blk.norm1.bias,
                 blk.attn.qkv.weight, blk.attn.qkv.bias, blk.attn.proj.weight,
-                blk.attn.proj.bias, self.num_heads, self.eps, self.plain)
+                blk.attn.proj.bias, self.num_heads, self.eps, self.plain,
+                self.train_quant)
             x = fused_mlp_block(
                 x, dp2, blk.norm2.weight, blk.norm2.bias, blk.mlp.fc1.weight,
                 blk.mlp.fc1.bias, blk.mlp.fc2.weight, blk.mlp.fc2.bias,
-                self.eps, self.plain)
+                self.eps, self.plain, self.train_quant)
         return x
 
     def get_intermediate_layers(self, mel: torch.Tensor,

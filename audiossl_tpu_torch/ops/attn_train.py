@@ -1,4 +1,4 @@
-"""Trainable attention residual half of a pre-LN block (kernel K4).
+"""Trainable attention residual half of a pre-LN block (kernels K4, K4q).
 
 Port of ``audiossl_tpu/ops/pallas_attn.py:283 fused_attn_block``:
 ``y = x + dp * proj(MHA(qkv(LN1(x))))`` with gradients to x, the LN
@@ -20,6 +20,19 @@ and are cast to the activations' dtype on every call, as the Pallas
 wrappers cast them; gradients are returned in f32. Each wrapper takes its
 plain version (``*_ref``, the same math written out, backward included)
 for a CPU tensor and launches its kernel for a CUDA tensor.
+
+``quant`` (the student under ``student_quant``) follows
+``pallas_attn.py:304-318, 396-408``: ``"int8"`` runs the forward's qkv and
+proj products in int8 (K4q forward, :func:`attn_train_fwd_q8`, from the f32
+LN output and from ``o`` after its bf16 store) and saves the dequantized
+weights ``cdt(q * s)``; its backward is K4's on those weights.
+``"int8dx"`` also runs the backward's grad-to-input products ``do`` and
+``dh`` in int8 against the transposes of those dequantized weights,
+quantized again per input channel (K4q backward,
+:func:`attn_train_bwd_q8dx`); the attention core and the weight-gradient
+products stay the float kernel's. The weight gradient goes to the master
+weight (straight through), rounded to the dequantized weights' dtype as
+the JAX package returns it.
 """
 from __future__ import annotations
 
@@ -31,6 +44,9 @@ from audiossl_tpu_torch.kernels import build as kb
 from audiossl_tpu_torch.ops.block_infer import _ln, _value_validity
 from audiossl_tpu_torch.ops.mha import (exp_attention_bwd_ref,
                                         exp_attention_ref)
+from audiossl_tpu_torch.ops.quant import (check_codes, check_quant,
+                                          dequantize_weight_q8, q8_dot,
+                                          quantize_weight_q8)
 
 
 def _ln_stats(xf, eps):
@@ -53,31 +69,56 @@ def ln_backward_ref(dh, xhat, rstd, ls, dyf):
     return dyf + rstd * (dxh - m1 - xhat * m2), dls, dlb
 
 
+def _fwd(x, valid, dp, ls, lb, dot_qkv, dot_proj, num_heads: int,
+         eps: float):
+    """The forward shared by the float and int8 plain versions
+    (``pallas_attn.py:50 _fwd_body``): ``dot_qkv`` maps the f32 LN output
+    and ``dot_proj`` the stored attention output (as f32) to f32 rows, the
+    qkv bias included, the proj bias not."""
+    cdt = x.dtype
+    validf = valid.float()
+    xf = x.float()
+    qkv = dot_qkv(_ln(xf, ls, lb, eps)).to(cdt)
+    o, r = exp_attention_ref(qkv, validf, _value_validity(validf), num_heads,
+                             (x.shape[-1] // num_heads) ** -0.5)
+    y = dot_proj(o.float())
+    return (xf + y * dp.float()[:, None, None]).to(x.dtype), qkv, o, r
+
+
+def _biased(y, b):
+    return y if b is None else y + b.float()
+
+
 def attn_train_fwd_ref(x, valid, dp, ls, lb, w_qkv, b_qkv, w_proj, b_proj,
                        num_heads: int, eps: float = 1e-6):
     """Plain version of :func:`attn_train_fwd`."""
     cdt = x.dtype
-    H = num_heads
-    d = x.shape[-1] // H
-    validf = valid.float()
-    xf = x.float()
-    h = _ln(xf, ls, lb, eps).to(cdt).float()
-    qkv = h @ w_qkv.to(cdt).float().t()
-    if b_qkv is not None:
-        qkv = qkv + b_qkv.float()
-    qkv = qkv.to(cdt)
-    o, r = exp_attention_ref(qkv, validf, _value_validity(validf), H,
-                             d ** -0.5)
-    y = o.float() @ w_proj.to(cdt).float().t() + b_proj.float()
-    out = (xf + y * dp.float()[:, None, None]).to(x.dtype)
-    return out, qkv, o, r
+    return _fwd(
+        x, valid, dp, ls, lb,
+        lambda h: _biased(h.to(cdt).float() @ w_qkv.to(cdt).float().t(),
+                          b_qkv),
+        lambda o: o @ w_proj.to(cdt).float().t() + b_proj.float(),
+        num_heads, eps)
 
 
-def attn_train_bwd_ref(x, dy, qkv, o, r, valid, dp, ls, lb, w_qkv, w_proj,
-                       num_heads: int, eps: float = 1e-6):
-    """Plain version of :func:`attn_train_bwd`: the backward math of
-    ``pallas_attn._bwd_impl`` written out, rounding to the compute dtype
-    where it rounds (not autograd of the forward)."""
+def attn_train_fwd_q8_ref(x, valid, dp, ls, lb, wq_qkv, s_qkv, b_qkv,
+                          wq_proj, s_proj, b_proj, num_heads: int,
+                          eps: float = 1e-6):
+    """Plain version of :func:`attn_train_fwd_q8` (``pallas_attn.py:106
+    _fwd_kernel_q8``)."""
+    return _fwd(
+        x, valid, dp, ls, lb,
+        lambda h: _biased(q8_dot(h, wq_qkv.t(), s_qkv), b_qkv),
+        lambda o: q8_dot(o, wq_proj.t(), s_proj) + b_proj.float(),
+        num_heads, eps)
+
+
+def _bwd(x, dy, qkv, o, r, valid, dp, ls, lb, dot_do, dot_dh, num_heads: int,
+         eps: float):
+    """The backward math of ``pallas_attn._bwd_impl`` written out, rounding
+    to the compute dtype where it rounds (not autograd of the forward).
+    ``dot_do`` maps the f32 ``dy * dp`` and ``dot_dh`` the rounded dqkv (as
+    f32) to the f32 grad-to-input rows."""
     cdt = x.dtype
     H = num_heads
     xf = x.float()
@@ -85,18 +126,40 @@ def attn_train_bwd_ref(x, dy, qkv, o, r, valid, dp, ls, lb, w_qkv, w_proj,
     h = (xhat * ls.float() + lb.float()).to(cdt).float()
 
     dyf = dy.float()
-    dyb = (dyf * dp.float()[:, None, None]).to(cdt).float()
+    dys = dyf * dp.float()[:, None, None]
+    dyb = dys.to(cdt).float()
     dw_proj = torch.einsum("bnc,bnk->ck", dyb, o.float())
     db_proj = dyb.sum(dim=(0, 1))
-    do = dyb @ w_proj.to(cdt).float()
+    do = dot_do(dys)
     dqkv = exp_attention_bwd_ref(qkv, o, r, do, valid, H,
                                  (x.shape[-1] // H) ** -0.5).float()
 
     dw_qkv = torch.einsum("bnj,bnk->jk", dqkv, h)
     db_qkv = dqkv.sum(dim=(0, 1))
-    dh = dqkv @ w_qkv.to(cdt).float()
+    dh = dot_dh(dqkv)
     dx, dls, dlb = ln_backward_ref(dh, xhat, rstd, ls, dyf)
     return dx.to(x.dtype), dls, dlb, dw_qkv, db_qkv, dw_proj, db_proj
+
+
+def attn_train_bwd_ref(x, dy, qkv, o, r, valid, dp, ls, lb, w_qkv, w_proj,
+                       num_heads: int, eps: float = 1e-6):
+    """Plain version of :func:`attn_train_bwd`."""
+    cdt = x.dtype
+    return _bwd(x, dy, qkv, o, r, valid, dp, ls, lb,
+                lambda g: g.to(cdt).float() @ w_proj.to(cdt).float(),
+                lambda g: g @ w_qkv.to(cdt).float(), num_heads, eps)
+
+
+def attn_train_bwd_q8dx_ref(x, dy, qkv, o, r, valid, dp, ls, lb, wt_qkv,
+                            st_qkv, wt_proj, st_proj, num_heads: int,
+                            eps: float = 1e-6):
+    """Plain version of :func:`attn_train_bwd_q8dx` (``pallas_attn.py:252
+    _bwd_kernel_q8dx``): wt_qkv [3C, C] / wt_proj [C, C] are the int8 codes
+    of the dequantized weights quantized per input channel (scales st_qkv,
+    st_proj [C])."""
+    return _bwd(x, dy, qkv, o, r, valid, dp, ls, lb,
+                lambda g: q8_dot(g, wt_proj, st_proj),
+                lambda g: q8_dot(g, wt_qkv, st_qkv), num_heads, eps)
 
 
 def _check(name, x, num_heads, *f32s):
@@ -194,36 +257,145 @@ def attn_train_bwd(x, dy, qkv, o, r, valid, dp, ls, lb, w_qkv, w_proj,
     return dx, dls, dlb, dw_qkv, db_qkv, dw_proj, db_proj
 
 
+def _check_codes(name, C, *codes):
+    check_codes(name, *codes)
+    if any(tuple(q.shape) != (n, C) for q, n in zip(codes, (3 * C, C))):
+        raise ValueError(f"{name}: weight shapes do not match C")
+
+
+def attn_train_fwd_q8(x, valid, dp, ls, lb, wq_qkv, s_qkv, b_qkv, wq_proj,
+                      s_proj, b_proj, num_heads: int, eps: float = 1e-6):
+    """K4q forward: :func:`attn_train_fwd` with int8 qkv and proj products;
+    wq_qkv [3C, C] / wq_proj [C, C] int8 codes with per-output-channel
+    scales s_qkv [3C] / s_proj [C]. Returns (y, qkv, o, r) as
+    :func:`attn_train_fwd`."""
+    if x.device.type == "cpu":
+        return attn_train_fwd_q8_ref(x, valid, dp, ls, lb, wq_qkv, s_qkv,
+                                     b_qkv, wq_proj, s_proj, b_proj,
+                                     num_heads, eps)
+    B, N, C = x.shape
+    H = num_heads
+    _check_codes("attn_train_fwd_q8", C, wq_qkv, wq_proj)
+    if b_qkv is None:
+        b_qkv = torch.zeros(3 * C, device=x.device, dtype=torch.float32)
+    validf = valid.float().contiguous()
+    vv = _value_validity(validf)
+    dp = dp.float().contiguous()
+    _check("attn_train_fwd_q8", x, H, validf, dp, ls, lb, s_qkv, b_qkv,
+           s_proj, b_proj)
+    kb.require_cuda("attn_train_fwd_q8", x, validf, vv, dp, ls, lb, wq_qkv,
+                    s_qkv, b_qkv, wq_proj, s_proj, b_proj)
+    M = B * N
+    dev = x.device
+    hq = torch.empty(M, C, device=dev, dtype=torch.int8)
+    oq = torch.empty(M, C, device=dev, dtype=torch.int8)
+    hr = torch.empty(M, device=dev, dtype=torch.float32)
+    orr = torch.empty(M, device=dev, dtype=torch.float32)
+    qkv = torch.empty(B, N, 3 * C, device=dev, dtype=x.dtype)
+    o = torch.empty(B, N, C, device=dev, dtype=x.dtype)
+    r = torch.empty(B, N, H, device=dev, dtype=torch.float32)
+    out = torch.empty_like(x)
+    kb.launch("attn_train_fwd_q8", dev, *map(kb.ptr, (
+        x, validf, vv, dp, ls, lb, wq_qkv, s_qkv, b_qkv, wq_proj, s_proj,
+        b_proj, out, hq, hr, qkv, o, r, oq, orr)),
+        B, N, C, H, (C // H) ** -0.5, eps)
+    return out, qkv, o, r
+
+
+def attn_train_bwd_q8dx(x, dy, qkv, o, r, valid, dp, ls, lb, wt_qkv, st_qkv,
+                        wt_proj, st_proj, num_heads: int, eps: float = 1e-6):
+    """K4q backward (``int8dx``): :func:`attn_train_bwd` with the
+    grad-to-input products do and dh in int8 against wt_qkv [3C, C] /
+    wt_proj [C, C], the int8 codes of the dequantized weights quantized
+    per input channel (st_qkv / st_proj [C],
+    ``quantize_weight_q8(w, dim=0)``)."""
+    if x.device.type == "cpu":
+        return attn_train_bwd_q8dx_ref(x, dy, qkv, o, r, valid, dp, ls, lb,
+                                       wt_qkv, st_qkv, wt_proj, st_proj,
+                                       num_heads, eps)
+    B, N, C = x.shape
+    H = num_heads
+    _check_codes("attn_train_bwd_q8dx", C, wt_qkv, wt_proj)
+    validf = valid.float().contiguous()
+    dp = dp.float().contiguous()
+    _check("attn_train_bwd_q8dx", x, H, validf, dp, ls, lb, r, st_qkv,
+           st_proj)
+    if dy.dtype != x.dtype or qkv.dtype != x.dtype or o.dtype != x.dtype:
+        raise ValueError("attn_train_bwd_q8dx: dy, qkv and o must be in x's "
+                         "dtype")
+    kb.require_cuda("attn_train_bwd_q8dx", x, dy, qkv, o, r, validf, dp, ls,
+                    lb, wt_qkv, st_qkv, wt_proj, st_proj)
+    M = B * N
+    dev = x.device
+
+    def f32(*shape):
+        return torch.empty(*shape, device=dev, dtype=torch.float32)
+
+    def b16(*shape):
+        return torch.empty(*shape, device=dev, dtype=torch.bfloat16)
+
+    dx = torch.empty_like(x)
+    dw_qkv, db_qkv = f32(3 * C, C), f32(3 * C)
+    dw_proj, db_proj, dls, dlb = f32(C, C), f32(C), f32(C), f32(C)
+    scratch = (b16(M, C), b16(M, C), b16(M, C), b16(M, 3 * C), f32(M, C),
+               f32(M, H), torch.empty(M, 3 * C, device=dev, dtype=torch.int8),
+               f32(M))
+    kb.launch("attn_train_bwd_q8dx", dev, *map(kb.ptr, (
+        x, dy, qkv, o, r, validf, dp, ls, lb, wt_qkv, st_qkv, wt_proj,
+        st_proj, dx, dw_qkv, db_qkv, dw_proj, db_proj, dls, dlb, *scratch)),
+        B, N, C, H, (C // H) ** -0.5, eps)
+    return dx, dls, dlb, dw_qkv, db_qkv, dw_proj, db_proj
+
+
 class _AttnTrain(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, valid, dp, ls, lb, w_qkv, b_qkv, w_proj, b_proj,
-                num_heads, eps, plain):
-        fwd = attn_train_fwd_ref if plain else attn_train_fwd
-        y, qkv, o, r = fwd(x, valid, dp, ls, lb, w_qkv, b_qkv, w_proj,
-                           b_proj, num_heads, eps)
-        ctx.save_for_backward(x, valid, dp, ls, lb, w_qkv, w_proj, qkv, o, r)
-        ctx.cfg = (num_heads, eps, plain, b_qkv is not None)
+                num_heads, eps, plain, quant):
+        if quant:
+            qq, sq = quantize_weight_q8(w_qkv)
+            qp, sp = quantize_weight_q8(w_proj)
+            fwd = attn_train_fwd_q8_ref if plain else attn_train_fwd_q8
+            y, qkv, o, r = fwd(x, valid, dp, ls, lb, qq, sq, b_qkv, qp, sp,
+                               b_proj, num_heads, eps)
+            # the backward differentiates the dequantized-weight function
+            w_qkv_s = dequantize_weight_q8(qq, sq, x.dtype)
+            w_proj_s = dequantize_weight_q8(qp, sp, x.dtype)
+        else:
+            fwd = attn_train_fwd_ref if plain else attn_train_fwd
+            y, qkv, o, r = fwd(x, valid, dp, ls, lb, w_qkv, b_qkv, w_proj,
+                               b_proj, num_heads, eps)
+            w_qkv_s, w_proj_s = w_qkv, w_proj
+        ctx.save_for_backward(x, valid, dp, ls, lb, w_qkv_s, w_proj_s, qkv, o,
+                              r)
+        ctx.cfg = (num_heads, eps, plain, quant, b_qkv is not None,
+                   w_qkv.dtype, w_proj.dtype)
         return y
 
     @staticmethod
     def backward(ctx, dy):
         x, valid, dp, ls, lb, w_qkv, w_proj, qkv, o, r = ctx.saved_tensors
-        num_heads, eps, plain, has_bq = ctx.cfg
-        bwd = attn_train_bwd_ref if plain else attn_train_bwd
-        dx, dls, dlb, dwq, dbq, dwp, dbp = bwd(
-            x, dy.to(x.dtype).contiguous(), qkv, o, r, valid, dp, ls, lb,
-            w_qkv, w_proj, num_heads, eps)
+        num_heads, eps, plain, quant, has_bq, dt_qkv, dt_proj = ctx.cfg
+        args = (x, dy.to(x.dtype).contiguous(), qkv, o, r, valid, dp, ls, lb)
+        if quant == "int8dx":
+            bwd = attn_train_bwd_q8dx_ref if plain else attn_train_bwd_q8dx
+            grads = bwd(*args, *quantize_weight_q8(w_qkv, dim=0),
+                        *quantize_weight_q8(w_proj, dim=0), num_heads, eps)
+        else:
+            bwd = attn_train_bwd_ref if plain else attn_train_bwd
+            grads = bwd(*args, w_qkv, w_proj, num_heads, eps)
+        dx, dls, dlb, dwq, dbq, dwp, dbp = grads
         return (dx, None, None, dls.to(ls.dtype), dlb.to(lb.dtype),
-                dwq.to(w_qkv.dtype), dbq if has_bq else None,
-                dwp.to(w_proj.dtype), dbp, None, None, None)
+                dwq.to(w_qkv.dtype).to(dt_qkv), dbq if has_bq else None,
+                dwp.to(w_proj.dtype).to(dt_proj), dbp, None, None, None, None)
 
 
 def fused_attn_block(x, valid, dp, ls, lb, w_qkv, b_qkv: Optional[torch.Tensor],
                      w_proj, b_proj, num_heads: int, eps: float = 1e-6,
-                     plain: bool = False):
+                     plain: bool = False, quant: Optional[str] = None):
     """y = x + dp * proj(MHA(qkv(LN(x)))) with gradients to x, ls, lb and
-    the projection parameters (not to valid or dp). ``plain=True`` runs
-    the plain versions on any device (the reference the kernels are held
+    the projection parameters (not to valid or dp). ``quant`` is None,
+    ``"int8"`` or ``"int8dx"`` (module docstring). ``plain=True`` runs the
+    plain versions on any device (the reference the kernels are held
     against)."""
     return _AttnTrain.apply(x, valid, dp, ls, lb, w_qkv, b_qkv, w_proj,
-                            b_proj, num_heads, eps, plain)
+                            b_proj, num_heads, eps, plain, check_quant(quant))

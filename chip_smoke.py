@@ -1,6 +1,8 @@
 #!/usr/bin/env python3
 """GPU smoke check of the PyTorch port: the serving path of ATST-Frame
-base and the pretraining steps of ATST-Frame base and ATST-Clip small.
+base (bf16 and int8) and the pretraining steps of ATST-Frame base (bf16,
+f32 and the int8 recipes) and ATST-Clip small (f32, bf16 and the int8
+recipes).
 
 Run from the repository root on a machine with one CUDA GPU (Hopper,
 sm_90a) and the CUDA toolkit:
@@ -21,7 +23,13 @@ sm_90a) and the CUDA toolkit:
    12 heads), and in bf16 at [192, 250, 768], with a sequence that has no
    valid key; K8 in f32 and bf16 at [192 * 151, 384] and
    [192 * 250, 768]; K7 over the full parameter set of the ATST-Frame
-   base student branch;
+   base student branch; the int8 kernels K2q and K3q at [8, 250, 768],
+   [192, 250, 768] and [192, 151, 384], K4q and K5q (int8 forward, int8dx
+   backward) at [192, 250, 768] and [192, 151, 384], each also against its
+   float kernel, which a kernel that skipped quantizing would sit next
+   to. Every kernel's
+   bound (bytes or operations over the card's peak rates) and, where one
+   PyTorch call computes the same function, that call's time;
 3. serving: writes a seeded random ATST-Frame base encoder as a
    reference-layout ``.ckpt``, loads it with ``load_model(fused=True)``
    and ``load_model(fused=False)``, and drives ``get_scene_embedding`` (8 x
@@ -29,7 +37,9 @@ sm_90a) and the CUDA toolkit:
    token) and ``get_timestamp_embedding`` through the kernels, checking
    shapes, finiteness, launch counts and agreement with the plain f32
    path on the card, and the plain f32 path on the card against the CPU;
-   times scene embedding (clips/s, B=8) on both paths;
+   times scene embedding (clips/s, B=8) on both paths; then the same
+   with ``load_model(fused=True, quant="int8")`` (K1, K2q, K3q) against
+   ``load_model(fused=True)``;
 4. ATST-Frame training: one step of ``FrameMethod`` at the ATST-Frame base
    recipe (``bench.py:358-378``, B=96 clips of 10 s, bf16, seeded weights
    and waveforms) through the kernels K1-K5, K7 and K8, checking the launch
@@ -46,9 +56,19 @@ sm_90a) and the CUDA toolkit:
    this step's gradient, so the kernels are held to the plain version's
    distance from it);
 7. ATST-Frame training, f32: the same for ``FramePretrainConfig(arch=
-   "base")`` at its default dtype f32 (K1, K6, K8, K7).
+   "base")`` at its default dtype f32 (K1, K6, K8, K7);
+8. ATST-Frame training, int8: the bf16 recipe of phase 4 with
+   ``teacher_quant="int8"`` and ``student_quant="int8dx"`` (K2q, K3q, K4q
+   and K5q forward and backward, K1, K7, K8): its loss and gradients held
+   to its plain-version step (the lowest leaf cosine to what the plain
+   step moves by under a rounding-scale shift of its input), both paths'
+   gradients to the same step in f32 as in phase 6, timed in turns with
+   the bf16 step; then, untimed, with ``student_quant="int8"`` (the
+   K4q/K5q forward, the K4/K5 backward);
+9. ATST-Clip training, int8: the bf16 recipe of phase 6 with the int8
+   teacher and each int8 student, untimed, held as phase 6 is.
 ``--profile DIR`` also writes a ``torch.profiler`` table and trace of one
-kernel-path step of phases 4, 5 and 7 to DIR.
+kernel-path step of phases 4, 5, 7 and 8 to DIR.
 
 Any failed check raises and exits non-zero. Without a CUDA device, or
 without the package beside it, it exits non-zero and prints no result.
@@ -100,6 +120,31 @@ REF_MEDIAN_MARGIN, REF_MIN_MARGIN = 0.005, 0.02
 # hold rounding noise there, whose cosine means nothing; it is held to a
 # small norm instead.
 ZERO_GRAD_REL = 1e-2
+# int8 kernels (K2q-K5q) against the float kernels on the same inputs: the
+# JAX package's budget for its int8 kernels against its float ones
+# (tests/test_pallas_kernels.py:479-564), forward and every gradient
+Q8_FWD_REL, Q8_GRAD_REL = 2e-2, 5e-2
+# An int8 kernel that skipped quantizing would sit next to its float
+# kernel: its distance from the float kernel (on the residual branch, and
+# on dx less dy) must be at least this share of its plain version's
+Q8_SPREAD = 0.5
+# The int8 steps' kernel and plain paths, each against the same step in
+# f32: both sit at a median leaf cosine of ~0.995 and a lowest of ~0.987
+# (pos_embed), 2e-5 and 6e-5 apart (PERF.md); held two-sided to these
+Q8_REF_MARGINS = (1e-3, 5e-3)
+# An int8 code turns on rounding, so the int8 steps' two paths lie further
+# apart than rounding alone moves a bf16 step. The witness of that: the
+# plain step against itself on the waveform scaled by WITNESS_GAIN (a
+# constant 0.017 dB shift of the mel, which the f32 step's gradient
+# follows within F32_STEP_GRAD_COS); the kernel path's lowest leaf cosine
+# to the plain path must reach the witness's less WITNESS_MARGIN
+WITNESS_GAIN, WITNESS_MARGIN = 1.0 + 2.0 ** -9, 5e-3
+Q8_COS_MIN = 0.99  # int8 vs bf16 serving, per row with audio: ~1e-2
+# relative change of each block's output over 12 blocks
+# The card's peak rates (NVIDIA H100 SXM data sheet, dense) for the bounds:
+# operations by type, bytes of device memory
+PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+PEAK_BYTES = 3.35e12
 
 
 def check(ok, what):
@@ -121,6 +166,37 @@ def cuda_ms(fn, iters=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def nbytes(*tensors):
+    """Bytes of the given tensors (other arguments skipped)."""
+    return sum(t.numel() * t.element_size() for t in tensors
+               if isinstance(t, torch.Tensor))
+
+
+def bound(nbytes_moved, **ops):
+    """The least time the card could take for a kernel's work: the larger
+    of the bytes it must move (each input read once, each output written
+    once) over the memory rate and its operations, by type, over the peak
+    rate of that type (``PEAK_OPS``)."""
+    t_ops = sum(n / PEAK_OPS[k] for k, n in ops.items())
+    t_mem = nbytes_moved / PEAK_BYTES
+    return dict(bound_ms=max(t_ops, t_mem) * 1e3,
+                bound_by="bytes" if t_mem >= t_ops else "operations")
+
+
+def attn_pairs(lengths, n):
+    """(query, key) pairs the masked attention needs: every query against
+    the valid keys of its sequence, against all n for a sequence with no
+    valid key (uniform attention)."""
+    return n * int(torch.where(lengths > 0, lengths,
+                               torch.full_like(lengths, n)).sum())
+
+
+def int_mm_ms(pairs):
+    """CUDA-event time of ``torch._int_mm`` over the (codes, weight)
+    pairs of a kernel's int8 products alone (the library call for them)."""
+    return cuda_ms(lambda: [torch._int_mm(a, w) for a, w in pairs], iters=10)
 
 
 def rel_l2(a, b):
@@ -151,10 +227,15 @@ def kernel_checks(dev):
     print(f"K1 mel_db {tuple(stft.shape)} -> {tuple(got.shape)}: "
           f"max_abs_err {err} dB, rel_l2 {rel_l2(got, want)}")
     check(err <= K1_ATOL_DB, f"K1 max abs error {err} <= {K1_ATOL_DB} dB")
+    # power (3 per bin), the filterbank product (2 per bin and mel), dB
+    n_f, n_mels = fb.shape
     res["mel_db"] = dict(
         max_abs_err=err,
         ms=cuda_ms(lambda: stft_to_mel_db(stft, fb, cfg.amin)),
-        plain_ms=cuda_ms(lambda: stft_to_mel_db_ref(stft, fb, cfg.amin)))
+        plain_ms=cuda_ms(lambda: stft_to_mel_db_ref(stft, fb, cfg.amin)),
+        library_ms=None,
+        **bound(nbytes(stft, fb, got),
+                f32=got.shape[0] * got.shape[-1] * n_f * (3 + 2 * n_mels)))
 
     def t(*shape, s=1.0, off=0.0, dtype=torch.float32):
         a = (rng.randn(*shape) * s + off).astype(np.float32)
@@ -165,13 +246,14 @@ def kernel_checks(dev):
     valid = (torch.arange(N, device=dev)[None] < lengths[:, None]).float()
     dp = torch.tensor([1, 0, 1 / 0.9, 1, 1, 1 / 0.9, 0, 1], device=dev,
                       dtype=torch.float32)
-    res.update(infer_block_checks(t, x, valid, dp, H, HID))
+    res.update(infer_block_checks(t, x, valid, dp, H, HID, lengths))
     return res
 
 
-def infer_block_checks(t, x, valid, dp, h, hid, timed=True):
+def infer_block_checks(t, x, valid, dp, h, hid, lengths=None, timed=True):
     """K2 and K3 against their plain versions on x [S, n, c] bf16 with
-    weights drawn by ``t``; with ``timed``, both times as well."""
+    weights drawn by ``t``; with ``timed``, both times and the bounds as
+    well (``lengths`` the valid tokens of each sequence)."""
     from audiossl_tpu_torch.ops import block_infer as bi
 
     bf, c = torch.bfloat16, x.shape[-1]
@@ -201,27 +283,134 @@ def infer_block_checks(t, x, valid, dp, h, hid, timed=True):
               f"{name} residual-branch rel L2 {rb} <= {BLOCK_REL_L2}")
         res[name] = dict(max_abs_err=err, rel_l2=r)
         if timed:
+            M = x.shape[0] * x.shape[1]
+            ops = (dict(bf16=8 * M * c * c
+                        + 4 * c * attn_pairs(lengths, x.shape[1]))
+                   if name == "attn_block" else dict(bf16=4 * M * c * hid))
             res[name].update(ms=cuda_ms(lambda: fn(*args, dp=dp)),
-                             plain_ms=cuda_ms(lambda: ref(*args, dp=dp)))
+                             plain_ms=cuda_ms(lambda: ref(*args, dp=dp)),
+                             library_ms=None,
+                             **bound(nbytes(*args, dp, got), **ops))
     return res
 
 
-def train_kernel_checks(dev, n=N, c=C, h=H, hid=HID, timed=True):
-    """K4 and K5, forward and backward, against their plain versions at a
-    training step's shapes: 2B = 192 sequences of n tokens (ATST-Frame
-    base: 250, width 768, 12 heads), bf16, ragged lengths and drop-path
-    multipliers; with ``timed``, both times as well."""
-    from audiossl_tpu_torch.ops import attn_train as at
-    from audiossl_tpu_torch.ops import mlp_train as mt
+def q8_infer_checks(dev):
+    """K2q and K3q against their plain versions on the same int8 codes, and
+    against the bf16 kernels K2/K3 on the same weights (the JAX package's
+    int8 budget, and at least ``Q8_SPREAD`` of the plain int8 version's
+    distance on the residual branch): at the serving shape [8, 250, 768],
+    at the teacher's [192, 250, 768] with drop-path multipliers, both timed
+    with their bounds and the int8 products alone through
+    ``torch._int_mm``, and at the ATST-Clip small teacher's [192, 151, 384]
+    (6 heads, hidden 1536; errors only). The serving case is the one the
+    summary line reports at its top level."""
+    from audiossl_tpu_torch.ops import block_infer as bi
+    from audiossl_tpu_torch.ops.quant import quantize_weight_q8
 
-    rng = np.random.RandomState(SEED + 2)
-    S = 2 * TRAIN_B
+    rng = np.random.RandomState(SEED + 12)
+    bf = torch.bfloat16
 
     def t(*shape, s=1.0, off=0.0, dtype=torch.float32):
         a = (rng.randn(*shape) * s + off).astype(np.float32)
         return torch.from_numpy(a).to(dev, dtype)
 
-    x = t(S, n, c, dtype=torch.bfloat16)
+    res = {"attn_block_q8": {}, "mlp_block_q8": {}}
+    for label, S, n, c, h, hid, timed in (
+            ("serving", B, N, C, H, HID, True),
+            ("teacher", 2 * TRAIN_B, N, C, H, HID, True),
+            ("clip", 2 * TRAIN_B, CLIP_N, CLIP_C, CLIP_H, 4 * CLIP_C, False)):
+        x = t(S, n, c, dtype=bf)
+        ragged = [min(v, n) for v in (250, 200, 137, 64, 1, 0, 250, 99)]
+        lengths = torch.tensor([ragged[i % 8] if i % 3 != 1 else n
+                                for i in range(S)], device=dev)
+        valid = (torch.arange(n, device=dev)[None] < lengths[:, None]).float()
+        dp = torch.tensor([(1.0, 0.0, 1 / 0.9)[i % 3] for i in range(S)],
+                          device=dev)
+        M = S * n
+        # f32 masters, quantized per output channel as the wrappers do
+        w_qkv, w_proj = t(3 * c, c, s=0.05), t(c, c, s=0.05)
+        w1, w2 = t(hid, c, s=0.05), t(c, hid, s=0.05)
+        qkv_q, proj_q = quantize_weight_q8(w_qkv), quantize_weight_q8(w_proj)
+        w1_q, w2_q = quantize_weight_q8(w1), quantize_weight_q8(w2)
+        ln = [t(c, s=0.1, off=1.0), t(c, s=0.1)]
+        b_qkv, b_proj, b1, b2 = (t(3 * c, s=0.02), t(c, s=0.02),
+                                 t(hid, s=0.02), t(c, s=0.02))
+        cases = {
+            "attn_block_q8": (
+                bi.attn_block_infer_q8, bi.attn_block_infer_q8_ref,
+                (x, valid, *ln, *qkv_q, b_qkv, *proj_q, b_proj, h),
+                bi.attn_block_infer,
+                (x, valid, *ln, w_qkv.to(bf), b_qkv, w_proj.to(bf), b_proj,
+                 h),
+                dict(int8=8 * M * c * c, bf16=4 * c * attn_pairs(lengths, n)),
+                [(M, qkv_q[0].t()), (M, proj_q[0].t())]),
+            "mlp_block_q8": (
+                bi.mlp_block_infer_q8, bi.mlp_block_infer_q8_ref,
+                (x, *ln, *w1_q, b1, *w2_q, b2), bi.mlp_block_infer,
+                (x, *ln, w1.to(bf), b1, w2.to(bf), b2),
+                dict(int8=4 * M * c * hid),
+                [(M, w1_q[0].t()), (M, w2_q[0].t())])}
+        for name, (fn, ref, args, flt, fargs, ops, lib) in cases.items():
+            got, want = fn(*args, dp=dp), ref(*args, dp=dp)
+            f = flt(*fargs, dp=dp)
+            r = rel_l2(got, want)
+            rb = rel_l2(got.float() - x.float(), want.float() - x.float())
+            rf = rel_l2(got, f)
+            rfb = rel_l2(got.float() - x.float(), f.float() - x.float())
+            pfb = rel_l2(want.float() - x.float(), f.float() - x.float())
+            err = float((got.float() - want.float()).abs().max())
+            print(f"{name} {tuple(x.shape)} ({label}): vs plain rel_l2 {r}, "
+                  f"residual-branch rel_l2 {rb}, max_abs_err {err}, equal "
+                  f"{float((got == want).float().mean())}; vs the bf16 "
+                  f"kernel rel_l2 {rf}, residual-branch rel_l2 {rfb} (the "
+                  f"plain int8 version's {pfb})")
+            check(bool(torch.isfinite(got.float()).all()), f"{name} finite")
+            check(max(r, rb) <= BLOCK_REL_L2,
+                  f"{name} ({label}) rel L2 {max(r, rb)} <= {BLOCK_REL_L2}")
+            check(rf <= Q8_FWD_REL,
+                  f"{name} ({label}) vs bf16 rel L2 {rf} <= {Q8_FWD_REL}")
+            check(rfb >= Q8_SPREAD * pfb,
+                  f"{name} ({label}) quantizes: residual branch vs bf16 "
+                  f"{rfb} >= {Q8_SPREAD} x the plain int8 version's {pfb}")
+            res[name][label] = dict(
+                max_abs_err=err, rel_l2=max(r, rb), float_rel_l2=rf,
+                float_branch_rel_l2=rfb)
+            if timed:
+                res[name][label].update(
+                    ms=cuda_ms(lambda: fn(*args, dp=dp)),
+                    plain_ms=cuda_ms(lambda: ref(*args, dp=dp)),
+                    library_ms=library_int_mm(lib),
+                    **bound(nbytes(*args, dp, got), **ops))
+            del got, want, f
+        torch.cuda.empty_cache()
+    return {k: dict(v.pop("serving"), **v) for k, v in res.items()}
+
+
+def train_kernel_checks(dev, n=N, c=C, h=H, hid=HID, timed=True, quant=None):
+    """K4 and K5 (with ``quant="int8dx"`` K4q and K5q: the int8 forward and
+    the int8dx backward), forward and backward, against their plain
+    versions at a training step's shapes: 2B = 192 sequences of n tokens
+    (ATST-Frame base: 250, width 768, 12 heads), bf16, ragged lengths and
+    drop-path multipliers; with ``timed``, both times and the bounds as
+    well. Under ``quant`` each is also held on the residual branch of y
+    (y - x) to its plain version, and to the float kernels K4/K5 on the
+    same inputs: within the JAX package's int8 budget, and on the residual
+    branches of y and dx (dx - dy) at least ``Q8_SPREAD`` of the plain
+    int8 version's distance from them."""
+    from audiossl_tpu_torch.ops import attn_train as at
+    from audiossl_tpu_torch.ops import mlp_train as mt
+    from audiossl_tpu_torch.ops.quant import (dequantize_weight_q8,
+                                              quantize_weight_q8)
+
+    rng = np.random.RandomState(SEED + 2)
+    S, bf = 2 * TRAIN_B, torch.bfloat16
+    M = S * n
+
+    def t(*shape, s=1.0, off=0.0, dtype=torch.float32):
+        a = (rng.randn(*shape) * s + off).astype(np.float32)
+        return torch.from_numpy(a).to(dev, dtype)
+
+    x = t(S, n, c, dtype=bf)
     ragged = [min(v, n) for v in (250, 200, 137, 64, 1, 0)]
     lengths = torch.tensor([ragged[i // 4 % 6] if i % 4 == 3 else n
                             for i in range(S)], device=dev)
@@ -229,76 +418,176 @@ def train_kernel_checks(dev, n=N, c=C, h=H, hid=HID, timed=True):
     dp = torch.tensor([(0.0, 1.0, 1 / 0.9)[i % 3] for i in range(S)],
                       device=dev)
     w = t(S, n, c)  # cotangent of y
-    halves = {
-        "attn_train": (
-            [t(c, s=0.1, off=1.0), t(c, s=0.1), t(3 * c, c, s=0.03),
-             t(3 * c, s=0.02), t(c, c, s=0.03), t(c, s=0.02)],
-            lambda xx, p, plain: at.fused_attn_block(
-                xx, valid, dp, *p, h, plain=plain),
-            lambda p: at.attn_train_fwd(x, valid, dp, *p, h),
-            lambda p: at.attn_train_fwd_ref(x, valid, dp, *p, h),
-            lambda p, res: at.attn_train_bwd(
-                x, dyb, res[1], res[2], res[3], valid, dp, p[0], p[1], p[2],
-                p[4], h),
-            lambda p, res: at.attn_train_bwd_ref(
-                x, dyb, res[1], res[2], res[3], valid, dp, p[0], p[1], p[2],
-                p[4], h)),
-        "mlp_train": (
-            [t(c, s=0.1, off=1.0), t(c, s=0.1), t(hid, c, s=0.03),
-             t(hid, s=0.02), t(c, hid, s=0.03), t(c, s=0.02)],
-            lambda xx, p, plain: mt.fused_mlp_block(xx, dp, *p, plain=plain),
-            lambda p: mt.mlp_train_fwd(x, dp, *p),
-            lambda p: mt.mlp_train_fwd_ref(x, dp, *p),
-            lambda p, res: mt.mlp_train_bwd(
-                x, dyb, res[1], dp, p[0], p[1], p[2], p[4]),
-            lambda p, res: mt.mlp_train_bwd_ref(
-                x, dyb, res[1], dp, p[0], p[1], p[2], p[4])),
-    }
-    dyb = w.to(torch.bfloat16)
+    dyb = w.to(bf)
+    pairs = attn_pairs(lengths, n)
+    params = {
+        "attn_train": [t(c, s=0.1, off=1.0), t(c, s=0.1), t(3 * c, c, s=0.03),
+                       t(3 * c, s=0.02), t(c, c, s=0.03), t(c, s=0.02)],
+        "mlp_train": [t(c, s=0.1, off=1.0), t(c, s=0.1), t(hid, c, s=0.03),
+                      t(hid, s=0.02), t(c, hid, s=0.03), t(c, s=0.02)]}
+
+    def kernels(name, p):
+        """(forward, backward) of the half as functions of ``plain``, the
+        weights as the kernels read them, and the operations of each."""
+        if quant:  # codes per output channel; of the dequantized weights
+            # per input channel for the int8dx backward
+            fq = [quantize_weight_q8(p[i]) for i in (2, 4)]
+            bq = [quantize_weight_q8(dequantize_weight_q8(*q, bf), dim=0)
+                  for q in fq]
+            wts = [v for q in fq + bq for v in q]
+        else:
+            wts = [p[2].to(bf), p[4].to(bf)]
+        if name == "attn_train":
+            mm = 8 * M * c * c
+            if quant:
+                fwd = lambda plain: (at.attn_train_fwd_q8_ref if plain else at.attn_train_fwd_q8)(  # noqa: E731,E501
+                    x, valid, dp, p[0], p[1], *fq[0], p[3], *fq[1], p[5], h)
+                bwd = lambda plain, r: (at.attn_train_bwd_q8dx_ref if plain else at.attn_train_bwd_q8dx)(  # noqa: E731,E501
+                    x, dyb, r[1], r[2], r[3], valid, dp, p[0], p[1], *bq[0],
+                    *bq[1], h)
+                ops = (dict(int8=mm, bf16=4 * c * pairs),
+                       dict(int8=mm, bf16=mm + 10 * c * pairs))
+                lib = ([(M, fq[0][0].t()), (M, fq[1][0].t())],
+                       [(M, bq[1][0]), (M, bq[0][0])])
+            else:
+                fwd = lambda plain: (at.attn_train_fwd_ref if plain else at.attn_train_fwd)(  # noqa: E731,E501
+                    x, valid, dp, *p, h)
+                bwd = lambda plain, r: (at.attn_train_bwd_ref if plain else at.attn_train_bwd)(  # noqa: E731,E501
+                    x, dyb, r[1], r[2], r[3], valid, dp, p[0], p[1], p[2],
+                    p[4], h)
+                ops = (dict(bf16=mm + 4 * c * pairs),
+                       dict(bf16=2 * mm + 10 * c * pairs))
+        else:
+            mm = 4 * M * c * hid
+            if quant:
+                fwd = lambda plain: (mt.mlp_train_fwd_q8_ref if plain else mt.mlp_train_fwd_q8)(  # noqa: E731,E501
+                    x, dp, p[0], p[1], *fq[0], p[3], *fq[1], p[5])
+                bwd = lambda plain, r: (mt.mlp_train_bwd_q8dx_ref if plain else mt.mlp_train_bwd_q8dx)(  # noqa: E731,E501
+                    x, dyb, r[1], dp, p[0], p[1], *bq[0], *bq[1])
+                ops = (dict(int8=mm), dict(int8=mm, bf16=mm))
+                lib = ([(M, fq[0][0].t()), (M, fq[1][0].t())],
+                       [(M, bq[1][0]), (M, bq[0][0])])
+            else:
+                fwd = lambda plain: (mt.mlp_train_fwd_ref if plain else mt.mlp_train_fwd)(  # noqa: E731,E501
+                    x, dp, *p)
+                bwd = lambda plain, r: (mt.mlp_train_bwd_ref if plain else mt.mlp_train_bwd)(  # noqa: E731,E501
+                    x, dyb, r[1], dp, p[0], p[1], p[2], p[4])
+                ops = (dict(bf16=mm), dict(bf16=2 * mm))
+        return fwd, bwd, wts, ops, (lib if quant else None)
+
+    def run(name, p, plain, q):
+        xx = x.clone().requires_grad_()
+        ps = [v.clone().requires_grad_() for v in p]
+        if name == "attn_train":
+            y = at.fused_attn_block(xx, valid, dp, *ps, h, plain=plain,
+                                    quant=q)
+        else:
+            y = mt.fused_mlp_block(xx, dp, *ps, plain=plain, quant=q)
+        (y.float() * w).sum().backward()
+        return y.detach(), [xx.grad] + [v.grad for v in ps]
+
+    sfx = ("_fwd_q8", "_bwd_q8dx") if quant else ("_fwd", "_bwd")
     res = {}
-    for name, (params, block, fwd, fwd_ref, bwd, bwd_ref) in halves.items():
-        outs = {}
-        for plain in (False, True):
-            xx = x.clone().requires_grad_()
-            ps = [p.clone().requires_grad_() for p in params]
-            y = block(xx, ps, plain)
-            (y.float() * w).sum().backward()
-            outs[plain] = (y.detach(), [xx.grad] + [p.grad for p in ps])
-            del y, xx, ps
-        (yk, gk), (yp, gp) = outs[False], outs[True]
+    for name, p in params.items():
+        (yk, gk), (yp, gp) = run(name, p, False, quant), run(name, p, True,
+                                                             quant)
         ry = rel_l2(yk, yp)
         rg = [rel_l2(a, b) for a, b in zip(gk, gp)]
         err_y = float((yk.float() - yp.float()).abs().max())
         err_dx = float((gk[0].float() - gp[0].float()).abs().max())
-        print(f"{name} {tuple(x.shape)} bf16: y rel_l2 {ry}, max_abs_err "
+        label = f"{name}{' ' + quant if quant else ''}"
+        print(f"{label} {tuple(x.shape)} bf16: y rel_l2 {ry}, max_abs_err "
               f"{err_y}; gradient rel_l2 (dx, dLN w, dLN b, dW_in, db_in, "
               f"dW_out, db_out) {rg}; dx max_abs_err {err_dx}")
         check(bool(torch.isfinite(yk.float()).all())
               and all(bool(torch.isfinite(g).all()) for g in gk),
-              f"{name} output and gradients finite")
-        check(ry <= BLOCK_REL_L2, f"{name} y rel L2 {ry} <= {BLOCK_REL_L2}")
+              f"{label} output and gradients finite")
+        check(ry <= BLOCK_REL_L2, f"{label} y rel L2 {ry} <= {BLOCK_REL_L2}")
         check(max(rg) <= BLOCK_REL_L2,
-              f"{name} every gradient rel L2 {max(rg)} <= {BLOCK_REL_L2}")
-        del outs
-        res[f"{name}_fwd"] = dict(max_abs_err=err_y, rel_l2=ry)
-        res[f"{name}_bwd"] = dict(max_abs_err=err_dx, rel_l2=max(rg))
+              f"{label} every gradient rel L2 {max(rg)} <= {BLOCK_REL_L2}")
+        res[name + sfx[0]] = dict(max_abs_err=err_y, rel_l2=ry)
+        res[name + sfx[1]] = dict(max_abs_err=err_dx, rel_l2=max(rg))
+        if quant:  # residual branches; the int8 kernels against the float
+            yf, gf = run(name, p, False, None)
+            fy = rel_l2(yk, yf)
+            fg = [rel_l2(a, b) for a, b in zip(gk, gf)]
+            # y - x and dx - dy of the kernels, the plain int8 version and
+            # the float kernels
+            xf, dyf = x.float(), dyb.float()
+            br = {"y": [v.float() - xf for v in (yk, yp, yf)],
+                  "dx": [g[0].float() - dyf for g in (gk, gp, gf)]}
+            rb = {k: rel_l2(v[0], v[1]) for k, v in br.items()}
+            fb = {k: [rel_l2(v[0], v[2]), rel_l2(v[1], v[2])]
+                  for k, v in br.items()}
+            print(f"{label} residual branches vs plain: y - x rel_l2 "
+                  f"{rb['y']}, dx - dy rel_l2 {rb['dx']}; vs the float "
+                  f"kernels: y rel_l2 {fy}; gradient rel_l2 {fg}; residual "
+                  f"branches (kernel, plain int8) y - x {fb['y']}, dx - dy "
+                  f"{fb['dx']}")
+            check(rb["y"] <= BLOCK_REL_L2, f"{label} y residual branch rel "
+                  f"L2 {rb['y']} <= {BLOCK_REL_L2}")
+            check(fy <= Q8_FWD_REL,
+                  f"{label} y vs float rel L2 {fy} <= {Q8_FWD_REL}")
+            check(max(fg) <= Q8_GRAD_REL, f"{label} every gradient vs float "
+                  f"rel L2 {max(fg)} <= {Q8_GRAD_REL}")
+            for k, (kf, pf) in fb.items():
+                check(kf >= Q8_SPREAD * pf,
+                      f"{label} quantizes: {k} residual branch vs float {kf}"
+                      f" >= {Q8_SPREAD} x the plain int8 version's {pf}")
+            res[name + sfx[0]].update(rel_l2=max(ry, rb["y"]),
+                                      float_rel_l2=fy,
+                                      float_branch_rel_l2=fb["y"][0])
+            res[name + sfx[1]].update(float_rel_l2=max(fg),
+                                      dx_branch_rel_l2=rb["dx"],
+                                      float_branch_rel_l2=fb["dx"][0])
+            del yf, gf, br
+        del yk, gk, yp, gp
         if timed:
-            fres = fwd(params)
-            res[f"{name}_fwd"].update(
-                ms=cuda_ms(lambda: fwd(params), iters=10),
-                plain_ms=cuda_ms(lambda: fwd_ref(params), iters=10))
-            res[f"{name}_bwd"].update(
-                ms=cuda_ms(lambda: bwd(params, fres), iters=10),
-                plain_ms=cuda_ms(lambda: bwd_ref(params, fres), iters=10))
-            del fres
+            fwd, bwd, wts, ops, lib = kernels(name, p)
+            fres = fwd(False)
+            bres = bwd(False, fres)
+            small = [v for v in p if v.ndim == 1]
+            vk = [valid] if name == "attn_train" else []
+            fin = nbytes(x, *vk, dp, *small, *wts[:4 if quant else 2])
+            bin_ = nbytes(x, dyb, *fres[1:], *vk, dp, *p[:2], *wts[4:],
+                          *(wts if not quant else []))
+            for key, f, pf, nb, op, lb in (
+                    (sfx[0], lambda: fwd(False), lambda: fwd(True),
+                     fin + nbytes(*fres), ops[0], lib and lib[0]),
+                    (sfx[1], lambda: bwd(False, fres),
+                     lambda: bwd(True, fres), bin_ + nbytes(*bres), ops[1],
+                     lib and lib[1])):
+                res[name + key].update(
+                    ms=cuda_ms(f, iters=10), plain_ms=cuda_ms(pf, iters=10),
+                    library_ms=library_int_mm(lb), **bound(nb, **op))
+            del fres, bres
         torch.cuda.empty_cache()
     return res
 
 
+def library_int_mm(products):
+    """``int_mm_ms`` of a kernel's int8 products [(rows, weight codes as
+    [K, N])], on int8 activation codes of the same shapes; None where the
+    kernel has none. The weight is copied column-major first (cuBLASLt's
+    int8 layout)."""
+    if not products:
+        return None
+    pairs = [(torch.randint(-127, 128, (m, wk.shape[0]), dtype=torch.int8,
+                            device=wk.device), wk.t().contiguous().t())
+             for m, wk in products]
+    try:
+        return int_mm_ms(pairs)
+    except RuntimeError as exc:  # a layout cuBLASLt refuses: not timed
+        print(f"torch._int_mm refused {[tuple(w.shape) for _, w in pairs]}:"
+              f" {exc}")
+        return None
+
+
 def clip_block_checks(dev):
-    """K2-K5 against their plain versions at the ATST-Clip small step's
-    shapes: 192 sequences of 151 tokens (the CLS token and 150 patches),
-    width 384, 6 heads, hidden 1536, bf16."""
+    """K2-K5, and K4q/K5q (int8 forward, int8dx backward), against their
+    plain versions at the ATST-Clip small step's shapes: 192 sequences of
+    151 tokens (the CLS token and 150 patches), width 384, 6 heads, hidden
+    1536, bf16 (K2q/K3q there: ``q8_infer_checks``)."""
     rng = np.random.RandomState(SEED + 11)
     S = 2 * TRAIN_B
 
@@ -316,8 +605,9 @@ def clip_block_checks(dev):
                       device=dev)
     res = infer_block_checks(t, x, valid, dp, CLIP_H, 4 * CLIP_C,
                              timed=False)
-    res.update(train_kernel_checks(dev, CLIP_N, CLIP_C, CLIP_H, 4 * CLIP_C,
-                                   timed=False))
+    for quant in (None, "int8dx"):
+        res.update(train_kernel_checks(dev, CLIP_N, CLIP_C, CLIP_H,
+                                       4 * CLIP_C, timed=False, quant=quant))
     return res
 
 
@@ -368,19 +658,29 @@ def mha_kernel_checks(dev):
         check(not bool(out[5].any()) and not bool(dq[5].any()),
               f"{name} output and gradient 0 for the sequence with no "
               "valid key")
+        # K6 masks by key validity alone: a sequence with no valid key
+        # needs no pair
+        pairs = n * int(lengths.sum())
+        kind = "f32" if dtype == torch.float32 else "bf16"
         res[label] = dict(
             fwd=dict(max_abs_err=err_o, rel_l2=max(errs["out"], errs["r"]),
                      ms=cuda_ms(lambda: mha.mha_fwd(qkv, valid, h, scale),
                                 iters=10),
                      plain_ms=cuda_ms(
                          lambda: mha.mha_fwd_ref(qkv, valid, h, scale),
-                         iters=10)),
+                         iters=10),
+                     library_ms=None,
+                     **bound(nbytes(qkv, valid, out, r),
+                             **{kind: 4 * c * pairs})),
             bwd=dict(max_abs_err=float((dq.float() - dq_p.float()).abs().max()),
                      rel_l2=errs["dqkv"],
                      ms=cuda_ms(lambda: mha.mha_bwd(qkv, valid, out_p, r_p, g,
                                                     h, scale), iters=10),
                      plain_ms=cuda_ms(lambda: mha.mha_bwd_ref(
-                         qkv, valid, out_p, r_p, g, h, scale), iters=10)))
+                         qkv, valid, out_p, r_p, g, h, scale), iters=10),
+                     library_ms=None,
+                     **bound(nbytes(qkv, valid, out_p, r_p, g, dq),
+                             **{kind: 10 * c * pairs})))
         del qkv, g, out, r, out_p, r_p, dq, dq_p
         torch.cuda.empty_cache()
     main = res.pop("f32")
@@ -417,12 +717,20 @@ def ln_kernel_checks(dev):
         check(all(bool(torch.isfinite(t.float()).all()) for t in got),
               "K8 gradients finite")
         check(max(errs) <= tol, f"K8 rel L2 {max(errs)} <= {tol}")
+        # the library call: aten's LayerNorm backward from the statistics
+        # its forward saves (computed outside the timing)
+        wb = (sc.to(dtype), torch.zeros_like(sc, dtype=dtype))
+        _, mean, rstd = torch.native_layer_norm(x, [c], *wb, 1e-6)
+        lib_args = (g, x, [c], mean, rstd, *wb, [True, True, True])
         res[label] = dict(
             max_abs_err=err, rel_l2=max(errs),
             ms=cuda_ms(lambda: ln.ln_bwd(x, g, sc, 1e-6), iters=10),
             plain_ms=cuda_ms(lambda: ln.ln_bwd_ref(x, g, sc, 1e-6),
-                             iters=10))
-        del x, g, got, want
+                             iters=10),
+            library_ms=cuda_ms(lambda: torch.ops.aten.native_layer_norm_backward(
+                *lib_args), iters=10),
+            **bound(nbytes(x, g, sc, *got), f32=10 * rows * c))
+        del x, g, got, want, lib_args
     return {"ln_pg_bwd": dict(res.pop("f32"), **res)}
 
 
@@ -460,31 +768,49 @@ def adamw_ema_check(dev, shapes, teacher_leaves, decay):
     print(f"K7 adamw_ema over {len(shapes)} leaves, {n} elements "
           f"({sum(teacher_leaves)} with a teacher copy): max rel error {worst}")
     check(worst <= ADAMW_REL, f"K7 max rel error {worst} <= {ADAMW_REL}")
+    # reads p, g, mu, nu (and the teacher's copy), writes p, mu, nu (and
+    # the teacher's); ~20 f32 operations per element
+    n_t = sum(int(np.prod(s)) for s, k in zip(shapes, teacher_leaves) if k)
     return dict(max_abs_err=worst,
                 ms=cuda_ms(lambda: ae.adamw_ema(*a, decay, sc), iters=10),
                 plain_ms=cuda_ms(lambda: ae.adamw_ema_ref(*b, decay, sc),
-                                 iters=10))
+                                 iters=10),
+                library_ms=None,
+                **bound(4 * (7 * n + 2 * n_t), f32=20 * n))
 
 
-def main_path(dev, workdir):
+def write_base_ckpt(workdir):
+    """A seeded random ATST-Frame base encoder as a reference-layout
+    ``.ckpt`` in workdir; returns its path."""
+    from audiossl_tpu_torch.models.atst import frame_ast_base
+
+    enc = frame_ast_base(spec_w=1001, device="cpu",
+                         generator=torch.Generator().manual_seed(SEED))
+    path = os.path.join(workdir, "atstframe_base.ckpt")
+    torch.save({"state_dict": {f"model.teacher.encoder.{k}": v
+                               for k, v in enc.state_dict().items()},
+                "hyper_parameters": {"arch": "base"}}, path)
+    return path
+
+
+def serving_audio():
+    """8 clips of 10 s and one of 160,320 samples, seeded."""
+    rng = np.random.RandomState(SEED + 1)
+    return ((rng.randn(B, SAMPLES) * 0.1).astype(np.float32),
+            (rng.randn(1, LONG) * 0.1).astype(np.float32))
+
+
+def main_path(dev, path):
     """The public embedding API at ATST-Frame base width, through the
     kernels; returns the launch counts of that run."""
     from audiossl_tpu_torch.embedding import (get_scene_embedding,
                                               get_timestamp_embedding,
                                               load_model)
     from audiossl_tpu_torch.kernels import build as kb
-    from audiossl_tpu_torch.models.atst import frame_ast_base
 
-    enc = frame_ast_base(spec_w=1001, generator=torch.Generator().manual_seed(SEED))
-    path = os.path.join(workdir, "atstframe_base.ckpt")
-    torch.save({"state_dict": {f"model.teacher.encoder.{k}": v
-                               for k, v in enc.state_dict().items()},
-                "hyper_parameters": {"arch": "base"}}, path)
     fused = load_model(path, fused=True, device=dev)
     plain = load_model(path, fused=False, device=dev)
-    rng = np.random.RandomState(SEED + 1)
-    wav8 = (rng.randn(B, SAMPLES) * 0.1).astype(np.float32)
-    wav1 = (rng.randn(1, LONG) * 0.1).astype(np.float32)
+    wav8, wav1 = serving_audio()
 
     torch.cuda.synchronize()
     kb.reset_launches()
@@ -548,6 +874,70 @@ def main_path(dev, workdir):
         torch.cuda.synchronize()
         rates[label].append(reps * B / (time.perf_counter() - t0))
     print(json.dumps({"scene_clips_per_s_B8": rates}))
+    return launches
+
+
+def q8_serving_path(dev, path):
+    """int8 serving: ``load_model(fused=True, quant="int8")`` (K1, K2q,
+    K3q) on the same checkpoint and audio as the serving phase, held to
+    ``load_model(fused=True)`` (K1-K3) per row with audio; both rates in
+    turns. Returns the launch counts of the int8 run."""
+    from audiossl_tpu_torch.embedding import (get_scene_embedding,
+                                              get_timestamp_embedding,
+                                              load_model)
+    from audiossl_tpu_torch.kernels import build as kb
+
+    q8 = load_model(path, fused=True, quant="int8", device=dev)
+    fused = load_model(path, fused=True, device=dev)
+    wav8, wav1 = serving_audio()
+
+    torch.cuda.synchronize()
+    kb.reset_launches()
+    scene8 = get_scene_embedding(wav8, q8)
+    scene1 = get_scene_embedding(wav1, q8)
+    ts1, _ = get_timestamp_embedding(wav1, q8)
+    torch.cuda.synchronize()
+    launches = dict(kb.LAUNCHES)
+    print(f"int8 serving launches (3 forwards): {launches}")
+    check(launches["mel_db"] >= 3, "mel kernel launched in every forward")
+    check(launches["attn_block_q8"] == 3 * 12
+          and launches["mlp_block_q8"] == 3 * 12,
+          "12 K2q and 12 K3q launches per forward")
+    check(not any(v for k, v in launches.items()
+                  if k not in ("mel_db", "attn_block_q8", "mlp_block_q8")),
+          "no other kernel launched")
+    check(tuple(scene8.shape) == (B, 12 * C)
+          and tuple(scene1.shape) == (1, 12 * C)
+          and tuple(ts1.shape) == (1, 500, 12 * C), "int8 embedding shapes")
+    for name, v in (("scene", scene8), ("long scene", scene1),
+                    ("timestamp", ts1)):
+        check(bool(torch.isfinite(v).all()), f"int8 {name} embedding finite")
+    f8 = get_scene_embedding(wav8, fused)
+    f1 = get_scene_embedding(wav1, fused)
+    fts, _ = get_timestamp_embedding(wav1, fused)
+    # rows 250..499 of the timestamp embedding: the chunk with no valid
+    # token (main_path), not audio
+    cos = {"scene": row_cos(scene8, f8), "long scene": row_cos(scene1, f1),
+           "timestamp (rows with audio)": row_cos(ts1, fts)[:250]}
+    print("cosine int8 vs bf16 serving, lowest per row: "
+          + ", ".join(f"{k} {float(v.min())}" for k, v in cos.items()))
+    for name, cs in cos.items():
+        check(float(cs.min()) >= Q8_COS_MIN,
+              f"int8 {name} per-row cosine {float(cs.min())} >= {Q8_COS_MIN}")
+
+    rates = {"fused_bf16": [], "int8": []}
+    for label in ("fused_bf16", "int8", "int8", "fused_bf16"):
+        model = q8 if label == "int8" else fused
+        for _ in range(2):
+            get_scene_embedding(wav8, model)
+        torch.cuda.synchronize()
+        reps = 10
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            get_scene_embedding(wav8, model)
+        torch.cuda.synchronize()
+        rates[label].append(reps * B / (time.perf_counter() - t0))
+    print(json.dumps({"int8_scene_clips_per_s_B8": rates}))
     return launches
 
 
@@ -658,7 +1048,9 @@ def leaf_cos(a, b, skip):
 
 
 def step_path(dev, label, make_method, batch, want, loss_rel, grad_cos,
-              profile_dir=None, make_ref=None):
+              profile_dir=None, make_ref=None, rival=None, timed=True,
+              ref_margins=(REF_MEDIAN_MARGIN, REF_MIN_MARGIN),
+              grad_floor=None):
     """One step of ``make_method(plain=False)`` through the kernels (launch
     counts, finite loss, a teacher that moved), the same step from the same
     state and draws through every plain version (``make_method(True)``),
@@ -668,7 +1060,11 @@ def step_path(dev, label, make_method, batch, want, loss_rel, grad_cos,
     0). The gradients of the two paths are held to a leaf cosine of
     ``grad_cos``; with ``make_ref`` (a method that runs the step in f32
     through the plain versions) each path is held to that step instead,
-    the kernels within ``REF_*_MARGIN`` of the plain version."""
+    the kernels' median and lowest leaf cosine within ``ref_margins`` of
+    the plain version's on either side, and the two paths to a median leaf
+    cosine of ``grad_cos`` and a lowest of ``grad_floor`` where given.
+    ``rival`` (label, method factory) adds another method's kernel-path
+    step to the turns; ``timed=False`` leaves the turns out."""
     runs = {}
     for plain in (False, True):
         method = make_method(plain)
@@ -713,6 +1109,14 @@ def step_path(dev, label, make_method, batch, want, loss_rel, grad_cos,
         check(cos[worst] >= grad_cos,
               f"{label}: every gradient leaf cosine >= {grad_cos}")
     else:
+        if grad_cos is not None:
+            med = float(np.median(list(cos.values())))
+            check(med >= grad_cos,
+                  f"{label}: median gradient leaf cosine {med} >= {grad_cos}")
+        if grad_floor is not None:
+            check(cos[worst] >= grad_floor, f"{label}: lowest gradient leaf "
+                  f"cosine {cos[worst]} >= {grad_floor}")
+        torch.cuda.empty_cache()
         rmethod = make_ref()
         rstate = rmethod.init_state(seed=SEED)
         rstate.step = rmethod.cfg.optimizer.warmup_steps
@@ -727,21 +1131,32 @@ def step_path(dev, label, make_method, batch, want, loss_rel, grad_cos,
                   f"cosine median {stats[name][0]}, lowest "
                   f"{[(k, c[k]) for k in low]}")
         (km, kmin), (pm, pmin) = stats["kernel"], stats["plain"]
-        check(km >= pm - REF_MEDIAN_MARGIN,
-              f"{label}: median leaf cosine to the f32 step {km} >= the "
-              f"plain path's {pm} - {REF_MEDIAN_MARGIN}")
-        check(kmin >= pmin - REF_MIN_MARGIN,
-              f"{label}: lowest leaf cosine to the f32 step {kmin} >= the "
-              f"plain path's {pmin} - {REF_MIN_MARGIN}")
+        check(abs(km - pm) <= ref_margins[0],
+              f"{label}: median leaf cosine to the f32 step {km} within "
+              f"{ref_margins[0]} of the plain path's {pm}")
+        check(abs(kmin - pmin) <= ref_margins[1],
+              f"{label}: lowest leaf cosine to the f32 step {kmin} within "
+              f"{ref_margins[1]} of the plain path's {pmin}")
         del rmethod, rstate
     check(norms[zero_grad] <= ZERO_GRAD_REL * max(norms.values()),
           f"{label}: {zero_grad} gradient (zero in exact arithmetic) <= "
           f"{ZERO_GRAD_REL} of the largest leaf's on both paths")
 
-    # clips/s in turns: plain, kernels, kernels, plain (1 warm-up + 3 steps)
-    rates = {"plain": [], "kernels": []}
-    for which in ("plain", "kernels", "kernels", "plain"):
-        _, st, fn = runs[which == "plain"]
+    if not timed:
+        return launches
+    # clips/s in turns: plain, kernels, [rival, rival,] kernels, plain
+    # (1 warm-up + 3 steps each)
+    turns = {"plain": runs[True], "kernels": runs[False]}
+    order = ["plain", "kernels", "kernels", "plain"]
+    if rival is not None:
+        rmethod = rival[1]()
+        rstate = rmethod.init_state(seed=SEED)
+        rstate.step = rmethod.cfg.optimizer.warmup_steps
+        turns[rival[0]] = (rmethod, rstate, rmethod.make_step())
+        order[2:2] = [rival[0], rival[0]]
+    rates = {k: [] for k in turns}
+    for which in order:
+        _, st, fn = turns[which]
         fn(st, batch)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -831,6 +1246,121 @@ def frame_f32_path(dev, profile_dir=None):
         F32_STEP_LOSS_REL, F32_STEP_GRAD_COS, profile_dir)
 
 
+def q8_recipe(recipe, student_quant):
+    """``recipe`` with the int8 teacher (K2q/K3q) and the student's int8
+    forward (K4q/K5q), its backward int8dx (the K4q/K5q backward) or the
+    float K4/K5 backward on the dequantized weights."""
+    import dataclasses
+
+    return dataclasses.replace(recipe, teacher_quant="int8",
+                               student_quant=student_quant)
+
+
+def q8_want(student_quant, mel):
+    """Launches per step of an int8 recipe on the bf16 block kernels."""
+    bwd = "_q8dx" if student_quant == "int8dx" else ""
+    want = {k: 12 for k in ("attn_block_q8", "mlp_block_q8",
+                            "attn_train_fwd_q8", "mlp_train_fwd_q8",
+                            f"attn_train_bwd{bwd}", f"mlp_train_bwd{bwd}")}
+    want.update(mel_db=mel, adamw_ema=1, ln_pg_bwd=1)
+    return want
+
+
+def rounding_witness(dev, label, make_method, make_ref, batch):
+    """The plain-version step against itself on the waveform scaled by
+    ``WITNESS_GAIN``, from the same state and draws, and the same for the
+    f32 step (``make_ref``), which must follow the shift within
+    ``F32_STEP_GRAD_COS``: how far rounding alone moves the plain path's
+    gradient. Returns its lowest leaf cosine."""
+    gained = dict(batch, wav=batch["wav"] * WITNESS_GAIN)
+    low, draws = {}, None
+    for name, make in (("plain", lambda: make_method(True)), ("f32", make_ref)):
+        states = []
+        for b in (batch, gained):
+            method = make()
+            st = method.init_state(seed=SEED)
+            st.step = method.cfg.optimizer.warmup_steps
+            if draws is None:
+                draws = method.draw(
+                    torch.Generator(device=dev).manual_seed(SEED), TRAIN_B)
+            method.make_step()(st, b, draws)
+            states.append(st)
+            zero_grad = f"encoder.{method.student.encoder._norm_name}.bias"
+            del method
+            torch.cuda.empty_cache()
+        c = leaf_cos(*states, {zero_grad})[0]
+        lowest = sorted(c, key=c.get)[:3]
+        low[name] = c[lowest[0]]
+        print(f"{label} {name} step vs itself on the waveform x "
+              f"{WITNESS_GAIN}: gradient cosine median "
+              f"{float(np.median(list(c.values())))}, lowest "
+              f"{[(k, c[k]) for k in lowest]}")
+        del states
+        torch.cuda.empty_cache()
+    check(low["f32"] >= F32_STEP_GRAD_COS,
+          f"{label}: the f32 step follows the gain within "
+          f"{F32_STEP_GRAD_COS} (lowest leaf cosine {low['f32']})")
+    return low["plain"]
+
+
+def frame_q8_path(dev, student_quant, profile_dir=None):
+    """The int8 ATST-Frame base step at B=96: its loss and its median leaf
+    cosine held to the same step through the plain versions, its lowest
+    leaf cosine to the plain step's own under a rounding-scale shift of
+    the input (``rounding_witness``) less ``WITNESS_MARGIN``, and both
+    paths' gradients to the same step in f32 (plain versions), the kernels
+    within ``Q8_REF_MARGINS`` of the plain path: an int8 code turns on
+    rounding, so a last-bit difference upstream moves a product by a whole
+    step, and the two paths' gradients sit further apart than in bf16
+    (lowest leaf cosine 0.989 against 0.996, PERF.md). Under ``"int8dx"``
+    timed in turns with the bf16 frame step, under ``"int8"`` (the shorter
+    phase) not timed."""
+    import dataclasses
+
+    from audiossl_tpu_torch.methods.atstframe.method import FrameMethod
+
+    cfg = q8_recipe(base_recipe(), student_quant)
+    label = f"frame_{student_quant}"
+    timed = student_quant == "int8dx"
+    batch = wav_batch(dev, cfg.out_samples, SEED + 13)
+
+    def make(plain):
+        return FrameMethod(cfg, device=dev, seed=SEED, plain=plain)
+
+    def make_ref():
+        return FrameMethod(dataclasses.replace(cfg, dtype="float32"),
+                           device=dev, seed=SEED, plain=True)
+
+    floor = rounding_witness(dev, label, make, make_ref, batch)
+    return step_path(
+        dev, label, make, batch, q8_want(student_quant, 1), STEP_LOSS_REL,
+        STEP_GRAD_COS, profile_dir if timed else None, make_ref=make_ref,
+        rival=("bf16_kernels", lambda: FrameMethod(
+            base_recipe(), device=dev, seed=SEED)) if timed else None,
+        timed=timed, ref_margins=Q8_REF_MARGINS,
+        grad_floor=floor - WITNESS_MARGIN)
+
+
+def clip_q8_path(dev, student_quant):
+    """The ATST-Clip small bf16 step at B=96 with the int8 teacher and
+    ``student_quant``, untimed: K2q/K3q for the teacher and K4q/K5q for the
+    student over N = 151 tokens with the CLS token; held as the bf16 clip
+    step is (loss to its plain-version step, both paths' gradients to the
+    f32 step within ``REF_*_MARGIN`` of each other)."""
+    from audiossl_tpu_torch.methods.atst.method import ClipMethod
+
+    cfg = q8_recipe(clip_recipe("bfloat16"), student_quant)
+    ref_cfg = clip_recipe("float32")
+    return step_path(
+        dev, f"clip_{student_quant}",
+        lambda plain: ClipMethod(cfg, device=dev, seed=SEED, plain=plain),
+        wav_batch(dev, SAMPLES, SEED + 14, short=80000),
+        q8_want(student_quant, 2), STEP_LOSS_REL, None,
+        make_ref=lambda: ClipMethod(ref_cfg, device=dev, seed=SEED,
+                                    plain=True),
+        timed=False)
+
+
 def profile_step(step, state, batch, out_dir, label):
     """One kernel-path step under torch.profiler: a table of device time
     by kernel and a chrome trace in out_dir."""
@@ -858,8 +1388,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="DIR",
                     help="write a profile of one ATST-Frame bf16, one "
-                         "ATST-Clip f32 and one ATST-Frame f32 training step "
-                         "to DIR")
+                         "ATST-Clip f32, one ATST-Frame f32 and one "
+                         "ATST-Frame int8dx training step to DIR")
     args = ap.parse_args()
     t_start = time.perf_counter()
     root = os.path.dirname(os.path.abspath(__file__))
@@ -891,18 +1421,27 @@ def main():
     res = kernel_checks(dev)
     train_mel_check(dev)
     res.update(train_kernel_checks(dev))
-    for name, r in clip_block_checks(dev).items():
-        res[name]["clip"] = r
     res.update(mha_kernel_checks(dev))
     res.update(ln_kernel_checks(dev))
     res["adamw_ema"] = adamw_ema_check(dev, *student_leaves(dev))
+    res.update(q8_infer_checks(dev))
+    res.update(train_kernel_checks(dev, quant="int8dx"))
+    for name, r in clip_block_checks(dev).items():
+        res[name]["clip"] = r
     paths = {}
     with tempfile.TemporaryDirectory() as workdir:
-        paths["serving"] = main_path(dev, workdir)
+        path = write_base_ckpt(workdir)
+        paths["serving"] = main_path(dev, path)
+        paths["serving_int8"] = q8_serving_path(dev, path)
     for name, fn in (("frame_bf16", lambda: frame_bf16_path(dev, args.profile)),
                      ("clip_f32", lambda: clip_f32_path(dev, args.profile)),
                      ("clip_bf16", lambda: clip_bf16_path(dev)),
-                     ("frame_f32", lambda: frame_f32_path(dev, args.profile))):
+                     ("frame_f32", lambda: frame_f32_path(dev, args.profile)),
+                     ("frame_int8dx",
+                      lambda: frame_q8_path(dev, "int8dx", args.profile)),
+                     ("frame_int8", lambda: frame_q8_path(dev, "int8")),
+                     ("clip_int8dx", lambda: clip_q8_path(dev, "int8dx")),
+                     ("clip_int8", lambda: clip_q8_path(dev, "int8"))):
         torch.cuda.empty_cache()
         paths[name] = fn()
 
@@ -920,11 +1459,27 @@ def main():
         "mha_fwd": ("mha.cu", "audiossl_tpu/ops/pallas_mha.py:212"),
         "mha_bwd": ("mha.cu", "audiossl_tpu/ops/pallas_mha.py:261"),
         "ln_pg_bwd": ("ln_pg.cu", "audiossl_tpu/ops/pallas_ln.py:95"),
+        "attn_block_q8": ("attn_block.cu",
+                          "audiossl_tpu/ops/pallas_block.py:179"),
+        "mlp_block_q8": ("mlp_block.cu",
+                         "audiossl_tpu/ops/pallas_block.py:223"),
+        "attn_train_fwd_q8": ("attn_train.cu",
+                              "audiossl_tpu/ops/pallas_attn.py:106"),
+        "attn_train_bwd_q8dx": ("attn_train.cu",
+                                "audiossl_tpu/ops/pallas_attn.py:252"),
+        "mlp_train_fwd_q8": ("mlp_train.cu",
+                             "audiossl_tpu/ops/pallas_mlp.py:120"),
+        "mlp_train_bwd_q8dx": ("mlp_train.cu",
+                               "audiossl_tpu/ops/pallas_mlp.py:225"),
     }
+    check(set(sources) == set(kb.LAUNCHES), "every counted kernel listed")
     kernels = []
     for name, (src, rep) in sources.items():
         by_path = {p: launches.get(name, 0) for p, launches in paths.items()}
         check(sum(by_path.values()) > 0, f"{name} launched on a main path")
+        missing = {"max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                   "library_ms"} - set(res[name])
+        check(not missing, f"{name} measured in full (missing {missing})")
         kernels.append({"name": name, "route": "cuda",
                         "source": f"audiossl_tpu_torch/csrc/{src}",
                         "replaces": rep, "launches": sum(by_path.values()),

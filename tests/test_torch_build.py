@@ -73,7 +73,10 @@ def test_missing_nvcc_raises(tmp_path, monkeypatch):
                                    "attn_train_fwd", "attn_train_bwd",
                                    "mlp_train_fwd", "mlp_train_bwd",
                                    "adamw_ema", "mha_fwd", "mha_bwd",
-                                   "ln_pg_bwd"])
+                                   "ln_pg_bwd", "attn_block_q8",
+                                   "mlp_block_q8", "attn_train_fwd_q8",
+                                   "attn_train_bwd_q8dx", "mlp_train_fwd_q8",
+                                   "mlp_train_bwd_q8dx"])
 def test_wrappers_raise_for_a_tensor_off_the_cpu_and_cuda(which):
     """A tensor that is not on the CPU never takes the plain version: it
     reaches the kernel path, which refuses a non-CUDA device."""
@@ -83,6 +86,8 @@ def test_wrappers_raise_for_a_tensor_off_the_cpu_and_cuda(which):
 
     def t(*shape, dtype=f32):
         return torch.empty(*shape, device=meta, dtype=dtype)
+
+    i8 = torch.int8
 
     kb.reset_launches()
     with pytest.raises(ValueError, match="CUDA device"):
@@ -121,6 +126,35 @@ def test_wrappers_raise_for_a_tensor_off_the_cpu_and_cuda(which):
                         t(2, 8, C), 2, 0.125)
         elif which == "ln_pg_bwd":
             layer_norm.ln_bwd(t(16, C), t(16, C), t(C), 1e-6)
+        elif which == "attn_block_q8":
+            block_infer.attn_block_infer_q8(
+                t(2, 8, C, dtype=bf), t(2, 8), t(C), t(C),
+                t(3 * C, C, dtype=i8), t(3 * C), None, t(C, C, dtype=i8),
+                t(C), t(C), 2)
+        elif which == "mlp_block_q8":
+            block_infer.mlp_block_infer_q8(
+                t(2, 8, C, dtype=bf), t(C), t(C), t(4 * C, C, dtype=i8),
+                t(4 * C), t(4 * C), t(C, 4 * C, dtype=i8), t(C), t(C))
+        elif which == "attn_train_fwd_q8":
+            attn_train.attn_train_fwd_q8(
+                t(2, 8, C, dtype=bf), t(2, 8), t(2), t(C), t(C),
+                t(3 * C, C, dtype=i8), t(3 * C), None, t(C, C, dtype=i8),
+                t(C), t(C), 2)
+        elif which == "attn_train_bwd_q8dx":
+            attn_train.attn_train_bwd_q8dx(
+                t(2, 8, C, dtype=bf), t(2, 8, C, dtype=bf),
+                t(2, 8, 3 * C, dtype=bf), t(2, 8, C, dtype=bf), t(2, 8, 2),
+                t(2, 8), t(2), t(C), t(C), t(3 * C, C, dtype=i8), t(C),
+                t(C, C, dtype=i8), t(C), 2)
+        elif which == "mlp_train_fwd_q8":
+            mlp_train.mlp_train_fwd_q8(
+                t(2, 8, C, dtype=bf), t(2), t(C), t(C), t(4 * C, C, dtype=i8),
+                t(4 * C), t(4 * C), t(C, 4 * C, dtype=i8), t(C), t(C))
+        elif which == "mlp_train_bwd_q8dx":
+            mlp_train.mlp_train_bwd_q8dx(
+                t(2, 8, C, dtype=bf), t(2, 8, C, dtype=bf),
+                t(2, 8, 4 * C, dtype=bf), t(2), t(C), t(C),
+                t(4 * C, C, dtype=i8), t(C), t(C, 4 * C, dtype=i8), t(4 * C))
         else:
             adamw_ema.adamw_ema(
                 [t(C, C)], [t(C, C)], [t(C, C)], [t(C, C)], [None], [True],

@@ -143,7 +143,8 @@ def test_clip_encoder_forward_matches_jax(fused):
                                 jnp.asarray(lengths), deterministic=True))
     sd = ck.state_dict_from_flax(params)
     assert "cls_token" in sd and "norm.weight" in sd
-    port = tatst.ast_tiny(spec_w=W, fused_attention=fused).eval()
+    port = tatst.ast_tiny(spec_w=W, fused_attention=fused,
+                          device="cpu").eval()
     port.load_state_dict(sd)
     with torch.no_grad():
         got = port(_t(mel), _t(lengths).long()).numpy()
@@ -277,7 +278,7 @@ def one_step(request):
     pcfg = tm.ClipPretrainConfig(arch="tiny", anchor_len=lens,
                                  positive_len=lens, drop_path_rate=0.0,
                                  optimizer=tpt.OptimizerConfig(**OPT))
-    method = tm.ClipMethod(pcfg)
+    method = tm.ClipMethod(pcfg, device="cpu")
     pstate = ck.pretrain_state_from_flax(state, method,
                                          torch.Generator().manual_seed(0))
     before = {k: v.detach().clone()
@@ -411,7 +412,8 @@ def test_pretrain_state_bridge_covers_the_clip_branch():
     assert sum(v.numel() for v in sd.values()) == n_jax
     method = tm.ClipMethod(tm.ClipPretrainConfig(arch="tiny",
                                                  anchor_len=(1.0, 1.0),
-                                                 positive_len=(1.0, 1.0)))
+                                                 positive_len=(1.0, 1.0)),
+                           device="cpu")
     assert set(method.student.state_dict()) == set(sd)
     assert {"encoder.cls_token", "encoder.norm.weight"} <= set(sd)
 
@@ -423,7 +425,7 @@ def test_three_clip_steps_on_a_repeated_batch_lower_the_loss():
         arch="tiny", anchor_len=(0.6, 1.0), positive_len=(0.6, 1.0),
         optimizer=tpt.OptimizerConfig(learning_rate=1e-3, warmup_steps=0,
                                       max_steps=100))
-    method = tm.ClipMethod(cfg, seed=3)
+    method = tm.ClipMethod(cfg, device="cpu", seed=3)
     state = method.init_state(seed=4)
     wav = torch.from_numpy(
         (np.random.RandomState(5).randn(B, L) * 0.1).astype(np.float32))

@@ -25,7 +25,8 @@ ZERO_VALID_ATOL = 2e-3  # see tests/test_torch_encoder.py
 
 
 @pytest.fixture(scope="module")
-def models(tmp_path_factory):
+def ckpt(tmp_path_factory):
+    """The JAX model and the path of its reference-layout ``.ckpt``."""
     rng = np.random.RandomState(0)
     enc = frame_ast_tiny(spec_w=jemb.CHUNK_FRAMES)
     params = enc.init(jax.random.PRNGKey(0), jnp.zeros((1, 64, 1001)),
@@ -37,7 +38,13 @@ def models(tmp_path_factory):
     sd = {f"model.teacher.encoder.{k}": v
           for k, v in state_dict_from_flax(params).items()}
     torch.save({"state_dict": sd, "hyper_parameters": {"arch": "tiny"}}, path)
-    return jemb.EmbeddingModel(encoder=enc, params=params), temb.load_model(path)
+    return jemb.EmbeddingModel(encoder=enc, params=params), path
+
+
+@pytest.fixture(scope="module")
+def models(ckpt):
+    jmodel, path = ckpt
+    return jmodel, temb.load_model(path, device="cpu")
 
 
 @pytest.mark.parametrize("kind", ["scene", "timestamp"])
@@ -64,10 +71,51 @@ def test_embedding_matches_jax(models, n, kind):
 
 
 @pytest.mark.parametrize("path, kw, err", [
-    ("model.ckpt", dict(quant="int8"), NotImplementedError),
+    ("model.ckpt", dict(quant="int8"), ValueError),  # needs fused=True
     ("model.ckpt", dict(quant="fp8"), ValueError),
     ("exp/atst_small", {}, NotImplementedError),  # an orbax directory
 ])
 def test_load_model_refuses_what_is_not_ported(path, kw, err):
     with pytest.raises(err):
-        temb.load_model(path, **kw)
+        temb.load_model(path, device="cpu", **kw)
+
+
+def test_load_model_runs_on_the_card_unless_asked_for_the_cpu():
+    """The card is the default device; without one, load_model raises
+    before it reads anything, with a message that names the way out."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default would run")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        temb.load_model("model.ckpt")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        temb.load_model("model.ckpt", device="cuda", fused=True,
+                        quant="int8")
+
+
+def test_int8_serving_runs_k2q_k3q_and_tracks_bf16(ckpt, monkeypatch):
+    """``load_model(fused=True, quant="int8")`` keeps the f32 weights and
+    runs every block through K2q/K3q (their plain versions on the CPU);
+    its scene embedding stays within cosine 0.99 of the bf16 fused
+    model's (the JAX package's int8 budget: ~1e-2 relative per block)."""
+    from audiossl_tpu_torch.ops import block_infer as tbi
+
+    calls = {"attn_block_infer_q8": 0, "mlp_block_infer_q8": 0}
+    for name in calls:
+        def counted(*a, _fn=getattr(tbi, name), _name=name, **kw):
+            calls[_name] += 1
+            return _fn(*a, **kw)
+        monkeypatch.setattr(tbi, name, counted)
+    path = ckpt[1]
+    q8 = temb.load_model(path, fused=True, quant="int8", device="cpu")
+    assert all(p.dtype == torch.float32 for p in q8.encoder.parameters())
+    bf = temb.load_model(path, fused=True, device="cpu")
+    wav = (np.random.RandomState(3).randn(2, 48000) * 0.1).astype(np.float32)
+    got = temb.get_scene_embedding(wav, q8)
+    depth = len(q8.encoder.blocks)
+    assert calls == {"attn_block_infer_q8": depth,
+                     "mlp_block_infer_q8": depth}
+    want = temb.get_scene_embedding(wav, bf)
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    cos = torch.nn.functional.cosine_similarity(got.double(), want.double(),
+                                                dim=-1)
+    assert float(cos.min()) >= 0.99, cos

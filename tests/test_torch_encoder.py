@@ -54,7 +54,8 @@ def _jax_layers(enc, params, mel, scene):
 
 
 def _port(params, fused):
-    enc = tatst.frame_ast_tiny(spec_w=SPEC_W, fused=fused).float()
+    enc = tatst.frame_ast_tiny(spec_w=SPEC_W, fused=fused,
+                               device="cpu").float()
     enc.load_state_dict(state_dict_from_flax(params))
     return enc
 
@@ -91,7 +92,7 @@ def test_state_dict_from_flax_round_trips(frame_tiny):
     for (k, g), (_, w) in zip(got, want):
         np.testing.assert_array_equal(np.asarray(g), np.asarray(w), err_msg=str(k))
     # and the port's modules take the state dict as it is
-    tatst.frame_ast_tiny(spec_w=SPEC_W).load_state_dict(sd)
+    tatst.frame_ast_tiny(spec_w=SPEC_W, device="cpu").load_state_dict(sd)
 
 
 @pytest.mark.parametrize("fn", ["patchify", "patch_lengths", "masks", "gelu"])

@@ -8,6 +8,7 @@ import torch
 
 from audiossl_tpu_torch.kernels import build as kb
 from audiossl_tpu_torch.ops import block_infer, mel_db
+from audiossl_tpu_torch.ops.quant import quantize_weight_q8
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -22,6 +23,7 @@ def test_port_imports_without_jax():
         "import audiossl_tpu_torch.methods.atstframe.method\n"
         "import audiossl_tpu_torch.methods.atst.method\n"
         "import audiossl_tpu_torch.ops.mha, audiossl_tpu_torch.ops.layer_norm\n"
+        "import audiossl_tpu_torch.ops.quant\n"
         "import audiossl_tpu_torch.compat.checkpoint\n"
         "from audiossl_tpu_torch import load_model, get_scene_embedding\n"
         "bad = [m for m in sys.modules if m.split('.')[0] == 'audiossl_tpu']\n"
@@ -51,4 +53,25 @@ def test_wrappers_on_cpu_launch_nothing():
     assert y.shape == (B, N, C) and db.shape == (B, 3, 7)
     assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(db).all())
     assert set(kb.LAUNCHES) >= {"mel_db", "attn_block", "mlp_block"}
+    assert not any(kb.LAUNCHES.values()), kb.LAUNCHES
+
+
+def test_q8_wrappers_on_cpu_launch_nothing():
+    """K2q and K3q through their wrappers on CPU tensors: the plain
+    versions, no launch."""
+    kb.reset_launches()
+    g = torch.Generator().manual_seed(1)
+    B, N, C, H = 2, 8, 32, 2
+    x = torch.randn(B, N, C, generator=g).to(torch.bfloat16)
+    valid = torch.ones(B, N)
+    ln_w, ln_b = torch.ones(C), torch.zeros(C)
+    w = [torch.randn(*s, generator=g) * 0.1
+         for s in ((3 * C, C), (C, C), (4 * C, C), (C, 4 * C))]
+    y = block_infer.attn_block_infer_q8(
+        x, valid, ln_w, ln_b, *quantize_weight_q8(w[0]), None,
+        *quantize_weight_q8(w[1]), torch.zeros(C), H)
+    y = block_infer.mlp_block_infer_q8(
+        y, ln_w, ln_b, *quantize_weight_q8(w[2]), torch.zeros(4 * C),
+        *quantize_weight_q8(w[3]), torch.zeros(C))
+    assert y.shape == (B, N, C) and bool(torch.isfinite(y.float()).all())
     assert not any(kb.LAUNCHES.values()), kb.LAUNCHES

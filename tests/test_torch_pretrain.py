@@ -138,7 +138,7 @@ def one_step():
     pcfg = tm.FramePretrainConfig(arch="tiny", anchor_len=1.0,
                                   drop_path_rate=0.0,
                                   optimizer=tpt.OptimizerConfig(**OPT))
-    method = tm.FrameMethod(pcfg)
+    method = tm.FrameMethod(pcfg, device="cpu")
     pstate = ck.pretrain_state_from_flax(state, method,
                                          torch.Generator().manual_seed(0))
     before = {k: v.detach().clone()
@@ -255,7 +255,7 @@ def test_three_steps_on_a_repeated_batch_lower_the_loss():
         arch="tiny", anchor_len=1.0,
         optimizer=tpt.OptimizerConfig(learning_rate=1e-3, warmup_steps=0,
                                       max_steps=100))
-    method = tm.FrameMethod(cfg, seed=3)
+    method = tm.FrameMethod(cfg, device="cpu", seed=3)
     state = method.init_state(seed=4)
     wav = torch.from_numpy(
         (np.random.RandomState(5).randn(B, 16000) * 0.1).astype(np.float32))
@@ -328,14 +328,14 @@ def test_pretrain_state_bridge_covers_the_whole_branch():
         (state.params, state.batch_stats)))
     assert sum(v.numel() for v in sd.values()) == n_jax
     method = tm.FrameMethod(dataclasses.replace(
-        tm.FramePretrainConfig(arch="tiny", anchor_len=1.0)))
+        tm.FramePretrainConfig(arch="tiny", anchor_len=1.0)), device="cpu")
     assert set(method.student.state_dict()) == set(sd)
     t_sd = ck.branch_state_from_flax(ck._tree_np(state.teacher_params),
                                      ck._tree_np(state.teacher_batch_stats))
     assert set(method.teacher.state_dict()) == set(t_sd)
     enc = {k[len("encoder."):] for k in t_sd if k.startswith("encoder.")}
     from audiossl_tpu_torch.models.atst import frame_ast_tiny
-    assert enc == set(frame_ast_tiny(spec_w=101).state_dict())
+    assert enc == set(frame_ast_tiny(spec_w=101, device="cpu").state_dict())
 
 
 def test_trained_teacher_loads_into_load_model(tmp_path):
@@ -344,12 +344,13 @@ def test_trained_teacher_loads_into_load_model(tmp_path):
     ``embedding.load_model`` as it is and embeds."""
     from audiossl_tpu_torch.embedding import get_scene_embedding, load_model
 
-    method = tm.FrameMethod(tm.FramePretrainConfig(arch="tiny"), seed=1)
+    method = tm.FrameMethod(tm.FramePretrainConfig(arch="tiny"),
+                            device="cpu", seed=1)
     sd = {f"model.teacher.{k}": v for k, v in
           method.teacher.state_dict().items() if k.startswith("encoder.")}
     path = str(tmp_path / "teacher.ckpt")
     torch.save({"state_dict": sd, "hyper_parameters": {"arch": "tiny"}}, path)
-    model = load_model(path)
+    model = load_model(path, device="cpu")
     enc = method.teacher.encoder.state_dict()
     for k, v in model.encoder.state_dict().items():
         assert torch.equal(v, enc[k]), k
@@ -366,7 +367,7 @@ def _module_vs_kernel_step(dtype):
         cfg = tm.FramePretrainConfig(arch="tiny", anchor_len=1.0,
                                      fused_attention=fused, dtype=dtype,
                                      optimizer=tpt.OptimizerConfig(**OPT))
-        method = tm.FrameMethod(cfg, seed=11)
+        method = tm.FrameMethod(cfg, device="cpu", seed=11)
         state = method.init_state(seed=0)
         wav = torch.from_numpy((np.random.RandomState(12).randn(B, L)
                                 * 0.1).astype(np.float32))
@@ -450,11 +451,12 @@ def test_step_routes_blocks_by_dtype(monkeypatch, which, dtype):
     opt = tpt.OptimizerConfig(**OPT)
     if which == "frame":
         method = tm.FrameMethod(tm.FramePretrainConfig(
-            arch="tiny", anchor_len=1.0, dtype=dtype, optimizer=opt))
+            arch="tiny", anchor_len=1.0, dtype=dtype, optimizer=opt),
+            device="cpu")
     else:
         method = tcm.ClipMethod(tcm.ClipPretrainConfig(
             arch="tiny", anchor_len=(1.0, 1.0), positive_len=(1.0, 1.0),
-            dtype=dtype, optimizer=opt))
+            dtype=dtype, optimizer=opt), device="cpu")
     state = method.init_state(seed=0)
     wav = torch.from_numpy((np.random.RandomState(14).randn(B, L)
                             * 0.1).astype(np.float32))
