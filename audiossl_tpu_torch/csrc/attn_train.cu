@@ -12,8 +12,8 @@
 // What bounds it on the H100: at the training step (2B = 192 sequences of
 // N = 250 tokens, C = 768, 12 heads) the forward is 227 GFLOP of weight
 // products and 37 GFLOP of attention, the backward twice the products plus
-// ~130 GFLOP of attention -- tensor-core and SIMT rate, far above the bf16
-// ridge point. The weights (4.7 MB bf16) cannot stay resident in a 227 KB
+// ~130 GFLOP of attention -- tensor-core rate (the forward's attention
+// still SIMT), far above the bf16 ridge point. The weights (4.7 MB bf16) cannot stay resident in a 227 KB
 // SM, and blocks run in parallel in no order, so the sequential-grid
 // accumulation of dW becomes one product over all M = B*N rows.
 //
@@ -38,9 +38,13 @@
 //      dh = dqkv W_qkv (f32)
 //  (7) LN1 backward from recomputed f32 statistics: dx, dls, dlb
 // Steps (3)-(5) are the attention backward shared with K6 (attn_bwd.cuh),
-// on the SIMT f32 FMA units like K2's forward; the [N, N] score tiles live
-// in shared memory only. wgmma attention, fusing (3) into (4) and keeping
-// the bf16 operands on chip are later work.
+// which replaces the products of _bwd_impl (:186-211). At this shape its
+// two passes do ~130 GFLOP of [N, N] x D products, so the tensor cores
+// bound it (0.13 ms at 989 TFLOP/s bf16): (4) and (5) run bf16 mma.sync
+// m16n8k16 with f32 accumulation, the score, e and t tiles in registers,
+// e and t rounded to bf16 where they become the next product's A operand.
+// The forward's attention (c) is still SIMT f32 (attn_exp.cuh); wgmma,
+// fusing (3) into (4) and the GEMMs' LN prologue are later work.
 //
 // Kernel K4q, the int8 variants (student_quant, pallas_attn.py:283 with
 // quant): the weights come as int8 codes quantized by the caller once per

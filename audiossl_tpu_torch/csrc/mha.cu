@@ -21,11 +21,17 @@
 //
 // What bounds it on the H100: at the ATST-Clip small step (2B = 192
 // sequences, N = 151 tokens, 6 heads of 64, f32) the forward is 6.7 GFLOP
-// and the backward ~17 GFLOP of [N, N] products against ~45 MB of qkv, so
-// the f32 FMA rate bounds it (no tensor cores: f32 products accumulate in
-// full f32, never TF32). The TPU kernel pads N to a multiple of 128 for lane
-// alignment; here no padding is needed, since rows past N are masked in the
-// tile loads. f32 tiles of the backward take dynamic shared memory.
+// and the backward ~17 GFLOP of [N, N] products against ~45 MB of qkv
+// (ATST-Frame base, [192, 250, 2304] with 12 heads: ~130 GFLOP in the
+// backward's two passes), so the products bound it. The backward replaces
+// pallas_mha.py:_bwd_head with the tensor-core core of attn_bwd.cuh: in bf16
+// mma.sync m16n8k16 (989 TFLOP/s peak); in f32 3xTF32 on mma.sync m16n8k8,
+// each operand split into two TF32 halves and each product summed from three
+// TF32 passes (495 TFLOP/s peak, so 3 x ops / 495 bounds f32-accurate
+// products), ~1e-6 relative, where one TF32 pass (~1e-3) would break the
+// f32 contract. The forward is still SIMT f32 FMA (attn_exp.cuh). The TPU
+// kernel pads N to a multiple of 128 for lane alignment; here no padding is
+// needed, since rows past N are zero-filled in the tile loads.
 #include "attn_bwd.cuh"
 #include "attn_exp.cuh"
 #include "common.cuh"

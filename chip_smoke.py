@@ -20,8 +20,10 @@ sm_90a) and the CUDA toolkit:
    width 384, 6 heads; errors only); K6, forward and backward, in
    f32 at the ATST-Clip small step's shape (192 sequences of 151 tokens,
    width 384, 6 heads) and at the ATST-Frame base one ([192, 250, 768],
-   12 heads), and in bf16 at [192, 250, 768], with a sequence that has no
-   valid key; K8 in f32 and bf16 at [192 * 151, 384] and
+   12 heads), and in bf16 at [192, 250, 768], each beside
+   ``scaled_dot_product_attention`` with the key mask (its library call),
+   and untimed in both dtypes at [16, 97, 256] with 8 heads of 32, with a
+   sequence that has no valid key; K8 in f32 and bf16 at [192 * 151, 384] and
    [192 * 250, 768]; K7 over the full parameter set of the ATST-Frame
    base student branch; the int8 kernels K2q and K3q at [8, 250, 768],
    [192, 250, 768] and [192, 151, 384], K4q and K5q (int8 forward, int8dx
@@ -142,8 +144,10 @@ WITNESS_GAIN, WITNESS_MARGIN = 1.0 + 2.0 ** -9, 5e-3
 Q8_COS_MIN = 0.99  # int8 vs bf16 serving, per row with audio: ~1e-2
 # relative change of each block's output over 12 blocks
 # The card's peak rates (NVIDIA H100 SXM data sheet, dense) for the bounds:
-# operations by type, bytes of device memory
-PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+# operations by type, bytes of device memory. K6's f32 products count as
+# three TF32 passes (the 3xTF32 split that keeps f32 accuracy on the tensor
+# cores): 3 x ops / 495 TFLOP/s lies below ops / 67 TFLOP/s of SIMT f32
+PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12, "tf32": 495e12}
 PEAK_BYTES = 3.35e12
 
 
@@ -611,29 +615,66 @@ def clip_block_checks(dev):
     return res
 
 
+def sdpa_library(qkv, valid, g, h, scale):
+    """K6's library call, timed: ``F.scaled_dot_product_attention`` on the
+    q, k, v views of qkv with the boolean key mask (the same function on
+    every sequence with a valid key; a sequence with none gets a full mask
+    here, since SDPA has no defined output there), forward and its autograd
+    backward to qkv from g. Returns (forward ms, backward ms, the backend
+    PyTorch's dispatcher picks, SDPA's output as [S, n, C])."""
+    from torch.nn.attention import SDPBackend
+
+    S, n, c3 = qkv.shape
+    d = c3 // 3 // h
+    x = qkv.detach().requires_grad_()
+    q, k, v = x.view(S, n, 3, h, d).permute(2, 0, 3, 1, 4).unbind(0)
+    keep = valid.bool()
+    keep[~keep.any(dim=1)] = True
+    mask = keep[:, None, None, :]
+    backend = SDPBackend(torch._fused_sdp_choice(
+        q, k, v, mask, 0.0, False, scale=scale)).name
+
+    def fwd():
+        return torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, scale=scale)
+
+    out = fwd()
+    go = g.view(S, n, h, d).transpose(1, 2)
+    fwd_ms = cuda_ms(fwd, iters=10)
+    bwd_ms = cuda_ms(lambda: torch.autograd.grad(out, x, go,
+                                                 retain_graph=True), iters=10)
+    return fwd_ms, bwd_ms, backend, out.detach().transpose(1, 2).reshape(
+        S, n, c3 // 3)
+
+
 def mha_kernel_checks(dev):
     """K6 forward and backward against its plain version at the shapes of
     the training steps: f32 at ATST-Clip small's ([192, 151, 3 * 384], 6
     heads) and ATST-Frame base's ([192, 250, 3 * 768], 12 heads), bf16 at
-    the latter; some sequences short and one with no valid key, whose
-    output and gradient must be 0. The backward of both versions reads the
-    plain forward's out and r. The first case is the one the summary line
+    the latter, each timed beside its library call (``sdpa_library``); and,
+    untimed, both dtypes at [16, 97, 3 * 256] with 8 heads of 32 (the other
+    head-dim instantiation, and tile edges that are no multiple of 16);
+    some sequences short and one with no valid key, whose output and
+    gradient must be 0. The backward of both versions reads the plain
+    forward's out and r. The first case is the one the summary line
     reports at its top level."""
     from audiossl_tpu_torch.ops import mha
 
     rng = np.random.RandomState(SEED + 6)
-    S = 2 * TRAIN_B
     res = {}
-    for label, dtype, n, c, h, tol in (
-            ("f32", torch.float32, CLIP_N, CLIP_C, CLIP_H, MHA_F32_REL),
-            ("f32_frame", torch.float32, N, C, H, MHA_F32_REL),
-            ("bf16", torch.bfloat16, N, C, H, BLOCK_REL_L2)):
+    for label, dtype, S, n, c, h, tol in (
+            ("f32", torch.float32, 2 * TRAIN_B, CLIP_N, CLIP_C, CLIP_H,
+             MHA_F32_REL),
+            ("f32_frame", torch.float32, 2 * TRAIN_B, N, C, H, MHA_F32_REL),
+            ("bf16", torch.bfloat16, 2 * TRAIN_B, N, C, H, BLOCK_REL_L2),
+            ("f32_d32", torch.float32, 16, 97, 256, 8, MHA_F32_REL),
+            ("bf16_d32", torch.bfloat16, 16, 97, 256, 8, BLOCK_REL_L2)):
         name = f"K6 mha {label}"
         qkv = torch.from_numpy(rng.randn(S, n, 3 * c).astype(
             np.float32)).to(dev, dtype)
         g = torch.from_numpy(rng.randn(S, n, c).astype(np.float32)).to(
             dev, dtype)
-        ragged = [n - 1, 100, 17, 1]
+        ragged = [n - 1, min(100, n), 17, 1]
         lengths = torch.tensor([ragged[i // 4 % 4] if i % 4 == 1 else n
                                 for i in range(S)], device=dev)
         lengths[5] = 0  # a sequence with no valid key
@@ -658,29 +699,39 @@ def mha_kernel_checks(dev):
         check(not bool(out[5].any()) and not bool(dq[5].any()),
               f"{name} output and gradient 0 for the sequence with no "
               "valid key")
-        # K6 masks by key validity alone: a sequence with no valid key
-        # needs no pair
-        pairs = n * int(lengths.sum())
-        kind = "f32" if dtype == torch.float32 else "bf16"
         res[label] = dict(
-            fwd=dict(max_abs_err=err_o, rel_l2=max(errs["out"], errs["r"]),
-                     ms=cuda_ms(lambda: mha.mha_fwd(qkv, valid, h, scale),
-                                iters=10),
-                     plain_ms=cuda_ms(
-                         lambda: mha.mha_fwd_ref(qkv, valid, h, scale),
-                         iters=10),
-                     library_ms=None,
-                     **bound(nbytes(qkv, valid, out, r),
-                             **{kind: 4 * c * pairs})),
+            fwd=dict(max_abs_err=err_o, rel_l2=max(errs["out"], errs["r"])),
             bwd=dict(max_abs_err=float((dq.float() - dq_p.float()).abs().max()),
-                     rel_l2=errs["dqkv"],
-                     ms=cuda_ms(lambda: mha.mha_bwd(qkv, valid, out_p, r_p, g,
-                                                    h, scale), iters=10),
-                     plain_ms=cuda_ms(lambda: mha.mha_bwd_ref(
-                         qkv, valid, out_p, r_p, g, h, scale), iters=10),
-                     library_ms=None,
-                     **bound(nbytes(qkv, valid, out_p, r_p, g, dq),
-                             **{kind: 10 * c * pairs})))
+                     rel_l2=errs["dqkv"]))
+        if S == 2 * TRAIN_B:  # the training shapes: timed
+            # K6 masks by key validity alone: a sequence with no valid key
+            # needs no pair; f32 products count as three TF32 passes
+            # (PEAK_OPS), so no f32 kernel can beat its bound
+            pairs = n * int(lengths.sum())
+            kind, passes = (("tf32", 3) if dtype == torch.float32
+                            else ("bf16", 1))
+            n_fwd, n_bwd = passes * 4 * c * pairs, passes * 10 * c * pairs
+            lib_fwd, lib_bwd, backend, lib_out = sdpa_library(
+                qkv, valid, g, h, scale)
+            print(f"{name} library call: scaled_dot_product_attention, "
+                  f"backend {backend}; output rel_l2 to K6 on sequences with "
+                  f"a valid key {rel_l2(lib_out[live], out[live])}")
+            res[label]["fwd"].update(
+                ms=cuda_ms(lambda: mha.mha_fwd(qkv, valid, h, scale),
+                           iters=10),
+                plain_ms=cuda_ms(lambda: mha.mha_fwd_ref(qkv, valid, h, scale),
+                                 iters=10),
+                library_ms=lib_fwd, library_backend=backend,
+                **bound(nbytes(qkv, valid, out, r), **{kind: n_fwd}))
+            res[label]["bwd"].update(
+                ms=cuda_ms(lambda: mha.mha_bwd(qkv, valid, out_p, r_p, g, h,
+                                               scale), iters=10),
+                plain_ms=cuda_ms(lambda: mha.mha_bwd_ref(
+                    qkv, valid, out_p, r_p, g, h, scale), iters=10),
+                library_ms=lib_bwd, library_backend=backend,
+                **bound(nbytes(qkv, valid, out_p, r_p, g, dq),
+                        **{kind: n_bwd}))
+            del lib_out
         del qkv, g, out, r, out_p, r_p, dq, dq_p
         torch.cuda.empty_cache()
     main = res.pop("f32")
