@@ -17,17 +17,17 @@
 // Design (first, simple version) -- four launches on the caller's stream:
 //  (a) row LayerNorm, f32 statistics, bf16 output h            (common.cuh)
 //  (b) qkv = bf16(h W_qkv^T + b_qkv)   tiled WMMA GEMM       (gemm_bf16.cuh)
-//  (c) per (clip, head, 64-query tile): s = q.k * scale over 32-key tiles,
+//  (c) per (clip, head, 64-query tile): s = q.k * scale over 64-key tiles,
 //      e = bf16(exp(s)) -- no max subtraction, so partial sums over key
-//      tiles simply add --, o = sum e v / (sum e valid_v + 1e-30), bf16
-//                                                             (attn_exp.cuh)
+//      tiles simply add --, o = sum e v / (sum e valid_v + 1e-30), bf16,
+//      on the tensor cores                                    (attn_exp.cuh)
 //  (d) out = bf16(x + dp * (o W_proj^T + b_proj))  the same GEMM template
 // with the TPU kernel's masking: invalid keys are zeroed in k (e = 1) and
 // dropped from the sums by valid_v, which the wrapper sets to all ones for a
 // sequence with no valid key (uniform attention); and its rounding points:
 // qkv, e and o are bf16, the denominator sums the same rounded e.
-// q/k/v never leave the [M, 3C] bf16 buffer; the score tile lives in shared
-// memory only. Keeping qkv and o on chip, wgmma and TMA are later work.
+// q/k/v never leave the [M, 3C] bf16 buffer; the score tile and e stay in
+// registers. Keeping qkv and o on chip, wgmma and TMA are later work.
 //
 // Kernel K2q, attn_block_q8_launch: K2 with the qkv and proj products in
 // int8 (the TPU kernel _attn_kernel_q8, pallas_block.py:179, via :326):

@@ -12,8 +12,8 @@
 // What bounds it on the H100: at the training step (2B = 192 sequences of
 // N = 250 tokens, C = 768, 12 heads) the forward is 227 GFLOP of weight
 // products and 37 GFLOP of attention, the backward twice the products plus
-// ~130 GFLOP of attention -- tensor-core rate (the forward's attention
-// still SIMT), far above the bf16 ridge point. The weights (4.7 MB bf16) cannot stay resident in a 227 KB
+// ~130 GFLOP of attention -- tensor-core rate, far above the bf16 ridge
+// point. The weights (4.7 MB bf16) cannot stay resident in a 227 KB
 // SM, and blocks run in parallel in no order, so the sequential-grid
 // accumulation of dW becomes one product over all M = B*N rows.
 //
@@ -43,8 +43,9 @@
 // bound it (0.13 ms at 989 TFLOP/s bf16): (4) and (5) run bf16 mma.sync
 // m16n8k16 with f32 accumulation, the score, e and t tiles in registers,
 // e and t rounded to bf16 where they become the next product's A operand.
-// The forward's attention (c) is still SIMT f32 (attn_exp.cuh); wgmma,
-// fusing (3) into (4) and the GEMMs' LN prologue are later work.
+// The forward's attention (c) runs on the same tensor-core parts
+// (attn_exp.cuh: S, e and o in registers); wgmma, fusing (3) into (4) and
+// the GEMMs' LN prologue are later work.
 //
 // Kernel K4q, the int8 variants (student_quant, pallas_attn.py:283 with
 // quant): the weights come as int8 codes quantized by the caller once per

@@ -29,7 +29,9 @@
 // each operand split into two TF32 halves and each product summed from three
 // TF32 passes (495 TFLOP/s peak, so 3 x ops / 495 bounds f32-accurate
 // products), ~1e-6 relative, where one TF32 pass (~1e-3) would break the
-// f32 contract. The forward is still SIMT f32 FMA (attn_exp.cuh). The TPU
+// f32 contract. The forward (attn_exp.cuh) runs on the same warp-level
+// parts: S = q kz^T, e rounded in registers, o += e vz, in bf16 mma.sync
+// and in f32 3xTF32, and its e is the one the backward recomputes. The TPU
 // kernel pads N to a multiple of 128 for lane alignment; here no padding is
 // needed, since rows past N are zero-filled in the tile loads.
 #include "attn_bwd.cuh"

@@ -68,12 +68,17 @@ def load_model(ckpt_path: str, arch: Optional[str] = None,
     caller asks for the CPU; without a card that raises).
 
     ``arch`` defaults to the checkpoint's ``hyper_parameters["arch"]``,
-    else "base". ``fused=True`` holds the block matmul weights in bf16 and
-    runs the blocks through the inference block kernels; ``fused=False``
-    is the plain f32 module path. ``quant="int8"`` (with ``fused=True``
-    only, as in JAX) keeps the f32 weights and runs the blocks' products
-    in int8 (K2q, K3q): about 1e-2 relative change of each block's
-    output, for bulk extraction rather than parity evaluation."""
+    else "base". ``fused=True`` builds the encoder JAX's
+    ``load_model(fused=True)`` builds: it computes in bf16 from the patch
+    projection on, holds the block matmul weights in bf16, runs the blocks
+    through the inference block kernels and normalizes with
+    ``LayerNormPG`` in bf16, rounding where JAX rounds; the embeddings
+    come back in f32, an exact cast of those bf16 values.
+    ``fused=False`` is the plain f32 module path. ``quant="int8"`` (with
+    ``fused=True`` only, as in JAX) keeps the f32 weights and runs the
+    blocks' products in int8 (K2q, K3q): about 1e-2 relative change of
+    each block's output, for bulk extraction rather than parity
+    evaluation."""
     device = resolve_device(device)
     if quant not in ("none", "int8"):
         raise ValueError(f"unknown quant mode {quant!r} "
@@ -87,6 +92,7 @@ def load_model(ckpt_path: str, arch: Optional[str] = None,
     sd, hparams = load_pretrain_checkpoint(ckpt_path, which=which)
     arch = arch or hparams.get("arch", "base")
     enc = _ARCHS[arch](spec_w=CHUNK_FRAMES, fused=fused, device=device,
+                       dtype=torch.bfloat16 if fused else torch.float32,
                        infer_quant=quant)
     enc.load_state_dict(sd)
     enc.requires_grad_(False)
@@ -123,11 +129,13 @@ def _encode(audio, model: EmbeddingModel, scene: bool):
 @torch.inference_mode()
 def get_scene_embedding(audio, model: EmbeddingModel) -> torch.Tensor:
     """audio: [B, n_samples] (or [n_samples]) 16 kHz waveform ->
-    [B, n_blocks*embed_dim] scene embeddings."""
+    [B, n_blocks*embed_dim] scene embeddings, f32 (the chunk mean rounded
+    to the encoder's dtype, as JAX takes it)."""
     emb, has, B, nc = _encode(audio, model, scene=True)
-    emb = emb.reshape(B, nc, -1)
-    w = has.to(emb.dtype)[:, :, None]
-    return (emb * w).sum(dim=1) / torch.clamp(w.sum(dim=1), min=1.0)
+    dt = model.encoder.dtype
+    w = has.float()[:, :, None]
+    total = (emb.reshape(B, nc, -1) * w).sum(dim=1).to(dt)
+    return (total / torch.clamp(w.sum(dim=1), min=1.0).to(dt)).float()
 
 
 @torch.inference_mode()

@@ -146,10 +146,15 @@ def build() -> Path:
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         logs.append(link.stdout)
         (BUILD_DIR / f"{digest}.log").write_text("\n".join(logs))
-        failed = [s.name for s, p in zip(sources, procs) if p.returncode]
+        failed = [(s.name, log) for s, p, log in zip(sources, procs, logs)
+                  if p.returncode]
         if failed or link.returncode:
-            raise RuntimeError(f"nvcc failed ({failed or 'link'}):\n"
-                               + "\n".join(logs)[-8000:])
+            # the failed files' output first: the others' ptxas reports
+            # would push the errors out of the message
+            raise RuntimeError(
+                f"nvcc failed ({[n for n, _ in failed] or 'link'}):\n"
+                + "\n".join(log for _, log in failed or [("", logs[-1])]
+                             )[:8000])
         os.replace(tmp_lib, lib)  # atomic: concurrent builds agree
     return lib
 

@@ -10,10 +10,16 @@ the normed CLS token). No prompt tokens, no block averaging, "cut"
 position embeddings. Parameter names are the reference's, so a reference
 state dict loads with ``load_state_dict``.
 
-``fused=True`` runs the blocks through the inference block kernels
-(``ops/block_infer.py``) with the four matmul weights of every block
-held in bf16; ``fused=False`` runs the module path in the weights'
-dtype (f32) with the additive -10000 mask.
+The inference passes (:meth:`AudioTransformer.get_intermediate_layers`)
+compute in ``dtype`` from the patch projection on, as the JAX encoder
+does: a clip encoder prepends the CLS token, and the blocks mask keys
+with the valid token counts, CLS included. ``fused=True`` runs the blocks
+through the inference block kernels (``ops/block_infer.py``) with the four
+matmul weights of every block held in ``dtype``, and normalizes with
+``LayerNormPG``; with ``dtype=torch.bfloat16`` that is the encoder JAX's
+``load_model(fused=True)`` builds (``dtype=bfloat16, fused_attention=True,
+fused_infer=True``), rounding where it rounds. ``fused=False`` runs the
+module path with the additive -10000 mask.
 
 The pretraining forward (:meth:`AudioTransformer.forward`) keeps f32
 master weights and computes in ``dtype``, and picks the blocks' route by
@@ -57,7 +63,6 @@ from audiossl_tpu_torch.kernels.build import resolve_device
 from audiossl_tpu_torch.models.transformer import (
     Block,
     LayerNormPG,
-    _linear,
     _norm,
     length_to_attn_mask,
     length_to_token_mask,
@@ -113,9 +118,11 @@ class AudioTransformer(nn.Module):
                  infer_quant: str = "none", train_quant: str = "none"):
         """Parameters are drawn on the CPU from ``generator`` (seed 0 when
         None) as the reference initializes them, then moved to
-        ``device``. ``dtype``, ``fused_attention``, ``fused_infer``,
-        ``plain`` and the quant options configure the pretraining forward
-        (module docstring); ``use_cls`` makes the clip-level encoder."""
+        ``device``. ``dtype`` is the compute dtype of both passes;
+        ``fused`` the inference route; ``fused_attention``,
+        ``fused_infer``, ``plain`` and the quant options configure the
+        pretraining forward (module docstring); ``use_cls`` makes the
+        clip-level encoder."""
         super().__init__()
         device = resolve_device(device)
         self.infer_quant = check_quant(infer_quant, ("int8",))
@@ -154,7 +161,7 @@ class AudioTransformer(nn.Module):
                   fused_attention=self._route == "k6", plain=plain)
             for _ in range(depth))
         norm = (nn.LayerNorm(embed_dim, eps=eps, device=meta)
-                if self._route == "module"
+                if self._route == "module" and not fused
                 else LayerNormPG(embed_dim, eps, meta, plain))
         # the reference names: AST's final norm is ``norm``, FrameAST's
         # ``norm_frame``
@@ -167,7 +174,7 @@ class AudioTransformer(nn.Module):
             for blk in self.blocks:
                 for lin in (blk.attn.qkv, blk.attn.proj, blk.mlp.fc1,
                             blk.mlp.fc2):
-                    lin.weight.data = lin.weight.data.to(torch.bfloat16)
+                    lin.weight.data = lin.weight.data.to(dtype)
         self.to(device)
 
     @torch.no_grad()
@@ -205,32 +212,50 @@ class AudioTransformer(nn.Module):
         return plen + 1
 
     def prepare_tokens(self, mel: torch.Tensor,
-                       length: Optional[torch.Tensor] = None):
-        """mel [B, F, T] -> (tokens [B, Np, D], valid patch counts [B] or
-        None)."""
+                       length: Optional[torch.Tensor] = None,
+                       mask_index: Optional[torch.Tensor] = None,
+                       apply_mask: bool = True):
+        """mel [B, F, T] -> (tokens [B, N, D] in ``dtype``, valid patch
+        counts [B] or None), as JAX's ``prepare_tokens``: the patch
+        projection (its product, then its bias, each rounded to ``dtype``,
+        as flax's ``Dense``), with ``apply_mask`` the tokens of
+        ``mask_index`` [B, Np] (bool) replaced by ``mask_embed``, a clip
+        encoder's CLS token before the patches (N = Np + 1), and the cut
+        position embeddings."""
+        dt = self.dtype
         B, F, T = mel.shape
-        x = self.patch_embed.patch_embed(
-            patchify(mel, self.patch_h, self.patch_w))
+        lin = self.patch_embed.patch_embed
+        x = (patchify(mel.to(dt), self.patch_h, self.patch_w)
+             @ lin.weight.to(dt).t() + lin.bias.to(dt))
         Np = x.shape[1]
         plen = None
         if length is not None:
             plen = patch_lengths(length, F - F % self.patch_h, self.patch_h,
                                  self.patch_w)
-        return x + self.pos_embed[:, 1: Np + 1], plen
+        if mask_index is not None and apply_mask:
+            m = mask_index[:, :, None].to(dt)
+            x = (1.0 - m) * x + m * self.mask_embed.to(dt)
+        if self.use_cls:
+            cls = self.cls_token.to(dt).expand(B, 1, self.embed_dim)
+            return (torch.cat([cls, x], dim=1)
+                    + self.pos_embed[:, :Np + 1].to(dt)), plen
+        return x + self.pos_embed[:, 1: Np + 1].to(dt), plen
 
-    def run_blocks(self, x, plen, collect_from: Optional[int] = None):
-        """Run all blocks; collect the outputs of blocks >= collect_from."""
+    def run_blocks(self, x, lengths, collect_from: Optional[int] = None):
+        """Run all blocks of an inference pass over tokens x [B, N, D] with
+        lengths [B] valid tokens (None: all); collect the outputs of blocks
+        >= collect_from."""
         if self.fused:
             # imported here: ops.block_infer imports models.transformer
             from audiossl_tpu_torch.ops.block_infer import encoder_blocks_infer
 
-            # the int8 codes are made from f32 weights; the activations
-            # stay bf16, as the weights' dtype makes them otherwise
+            # the int8 codes are made from the f32 weights; the activations
+            # are in dtype
             return encoder_blocks_infer(
-                self.blocks, x, plen, self.num_heads, self.eps, collect_from,
-                dtype=torch.bfloat16 if self.infer_quant else None,
-                quant=self.infer_quant)
-        mask = None if plen is None else length_to_attn_mask(plen, x.shape[1])
+                self.blocks, x, lengths, self.num_heads, self.eps,
+                collect_from, dtype=self.dtype, quant=self.infer_quant)
+        mask = (None if lengths is None
+                else length_to_attn_mask(lengths, x.shape[1]))
         collected = []
         for i, blk in enumerate(self.blocks):
             x = blk(x, mask)
@@ -249,27 +274,12 @@ class AudioTransformer(nn.Module):
         D] in ``dtype``, sel [B, Np] = mask & valid, or the validity when
         there is no mask). Clip level: returns the final norm of the CLS
         token [B, D] in ``dtype`` (reference AST.forward)."""
-        dt = self.dtype
-        B, F, T = mel.shape
-        x = _linear(self.patch_embed.patch_embed,
-                    patchify(mel.to(dt), self.patch_h, self.patch_w))
-        Np = x.shape[1]
-        plen = None
-        if length is not None:
-            plen = patch_lengths(length, F - F % self.patch_h, self.patch_h,
-                                 self.patch_w)
-        if mask_index is not None and apply_mask:
-            m = mask_index[:, :, None].to(dt)
-            x = (1.0 - m) * x + m * self.mask_embed.to(dt)
-        if self.use_cls:
-            cls = self.cls_token.to(dt).expand(B, 1, self.embed_dim)
-            x = torch.cat([cls, x], dim=1) + self.pos_embed[:, :Np + 1].to(dt)
-        else:
-            x = x + self.pos_embed[:, 1: Np + 1].to(dt)
+        x, plen = self.prepare_tokens(mel, length, mask_index, apply_mask)
         x = self._train_blocks(x, self._attn_lengths(plen), dps)
         if self.use_cls:
             return _norm(self.final_norm, x)[:, 0]
         frames = _norm(self.final_norm, x)
+        B, Np = frames.shape[:2]
         if plen is not None:
             sel = length_to_token_mask(plen, Np)
         else:
@@ -325,24 +335,37 @@ class AudioTransformer(nn.Module):
     def get_intermediate_layers(self, mel: torch.Tensor,
                                 length: Optional[torch.Tensor] = None,
                                 n: int = 1, scene: bool = True):
-        """Frame-level downstream/embedding API.
+        """Downstream/embedding API, token for token JAX's
+        ``get_intermediate_layers`` (``audiossl_tpu/models/atst.py:392``).
 
-        scene=True: concat of the masked token means of the last-n normed
-        block outputs -> [B, n*D]. scene=False: concat of the last-n normed
-        frame sequences -> [B, T, n*D]. Outputs are f32."""
-        x, plen = self.prepare_tokens(mel, length)
-        _, collected = self.run_blocks(x, plen, collect_from=self.depth - n)
+        The last-n block outputs are normed by the final norm in the
+        blocks' dtype. scene=True: concat of their masked token means ->
+        [B, n*D], the first ``plen`` tokens summed (in f32, rounded to the
+        blocks' dtype) and divided by ``plen + 1e-6`` in the blocks' dtype
+        (without lengths, the mean rounded to it); for a clip
+        encoder those tokens are the CLS token and the first plen - 1
+        patches, as in JAX. scene=False: concat of the normed token
+        sequences, a clip encoder's CLS row first -> [B, N, n*D]. Outputs
+        are f32, an exact cast of the blocks' dtype where it is not f32
+        (the bf16 values JAX returns under ``load_model(fused=True)``)."""
+        x, plen = self.prepare_tokens(mel, length, apply_mask=False)
+        _, collected = self.run_blocks(x, self._attn_lengths(plen),
+                                       collect_from=self.depth - n)
         outs = []
         for h in collected:
-            norm_h = self.final_norm(h.float())
+            norm_h = _norm(self.final_norm, h)
             if not scene:
-                outs.append(norm_h)
-            elif plen is None:
-                outs.append(norm_h.mean(dim=1))
-            else:
-                mask = length_to_token_mask(plen, norm_h.shape[1])
-                outs.append((norm_h * mask[:, :, None]).sum(dim=1)
-                            / (plen[:, None] + 1e-6))
+                outs.append(norm_h.float())
+                continue
+            if plen is None:  # jnp.mean: an f32 mean, rounded
+                outs.append(norm_h.float().mean(dim=1).to(norm_h.dtype)
+                            .float())
+                continue
+            # JAX divides by a weakly typed f32 count: in the blocks' dtype
+            mask = length_to_token_mask(plen, norm_h.shape[1])
+            total = (norm_h.float() * mask[:, :, None]).sum(dim=1)
+            count = (plen[:, None] + 1e-6).to(norm_h.dtype)
+            outs.append((total.to(norm_h.dtype) / count).float())
         return torch.cat(outs, dim=-1)
 
 

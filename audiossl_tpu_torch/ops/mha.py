@@ -19,9 +19,8 @@ uniformly over its keys. Invalid keys are excluded exactly, so the TPU
 kernel's padding of N to a multiple of 128 is dropped with no effect on any
 row. Rounding points, in the element type: e = exp(s), o, and in the
 backward delta's products, ``do * r``, ``-delta * r``, ``t = e * dpd`` and
-dqkv; products accumulate in f32 (in f32: the forward as FMAs on the SIMT
-units, the backward as 3xTF32 on the tensor cores, ~1e-6 relative; never
-one TF32 pass).
+dqkv; products accumulate in f32 (in f32: forward and backward as 3xTF32
+on the tensor cores, ~1e-6 relative; never one TF32 pass).
 
 :func:`exp_attention_ref` and :func:`exp_attention_bwd_ref` are the plain
 versions of the shared attention core (K4's plain versions use them too);

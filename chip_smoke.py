@@ -29,9 +29,10 @@ sm_90a) and the CUDA toolkit:
    [192, 250, 768] and [192, 151, 384], K4q and K5q (int8 forward, int8dx
    backward) at [192, 250, 768] and [192, 151, 384], each also against its
    float kernel, which a kernel that skipped quantizing would sit next
-   to. Every kernel's
-   bound (bytes or operations over the card's peak rates) and, where one
-   PyTorch call computes the same function, that call's time;
+   to; K2 and K2q at head dim 128 ([8, 97, 512], 4 heads; errors only).
+   Every kernel's bound (bytes or operations over the card's peak rates)
+   and, where one PyTorch call computes the same function, that call's
+   time;
 3. serving: writes a seeded random ATST-Frame base encoder as a
    reference-layout ``.ckpt``, loads it with ``load_model(fused=True)``
    and ``load_model(fused=False)``, and drives ``get_scene_embedding`` (8 x
@@ -41,7 +42,10 @@ sm_90a) and the CUDA toolkit:
    path on the card, and the plain f32 path on the card against the CPU;
    times scene embedding (clips/s, B=8) on both paths; then the same
    with ``load_model(fused=True, quant="int8")`` (K1, K2q, K3q) against
-   ``load_model(fused=True)``;
+   ``load_model(fused=True)``; then the clip encoder's inference path at
+   ATST-Clip small width (``get_intermediate_layers`` of 8 ragged 6 s
+   crops, the CLS token first, through K1-K3 in bf16) against its f32
+   module path;
 4. ATST-Frame training: one step of ``FrameMethod`` at the ATST-Frame base
    recipe (``bench.py:358-378``, B=96 clips of 10 s, bf16, seeded weights
    and waveforms) through the kernels K1-K5, K7 and K8, checking the launch
@@ -95,8 +99,8 @@ N, C, H, HID = 250, 768, 12, 3072  # ATST-Frame base tokens per 10 s chunk
 K1_ATOL_DB = 1e-3  # f32 kernel vs f32 plain: summation order only
 BLOCK_REL_L2 = 1e-2  # bf16 kernel vs bf16 plain: same rounding points,
 # f32 sums in another order can move an element by one bf16 step
-COS_MIN = 0.995  # fused bf16 vs plain f32: bf16 weights and residual
-# stream over 12 blocks
+COS_MIN = 0.995  # fused bf16 vs plain f32: bf16 tokens, weights, residual
+# stream over 12 blocks and final norm
 CPU_ATOL = 1e-3  # plain f32 on the card vs the CPU: f32 summation order
 TRAIN_B = 96  # clips per training step (bench.py:384): 2B sequences
 ADAMW_REL = 1e-6  # K7 vs plain: the same f32 operations in the same order
@@ -615,6 +619,51 @@ def clip_block_checks(dev):
     return res
 
 
+def d128_checks(dev):
+    """K2 and K2q at head dim 128 (the D = 128 template of the forward
+    attention core, which no main path here reaches): bf16 [8, 97, 512], 4
+    heads, ragged lengths with one sequence with no valid key (uniform
+    attention), against their plain versions on the output and on the
+    residual branch y - x; untimed."""
+    from audiossl_tpu_torch.ops import block_infer as bi
+    from audiossl_tpu_torch.ops.quant import quantize_weight_q8
+
+    rng = np.random.RandomState(SEED + 15)
+    S, n, c, h, bf = 8, 97, 512, 4, torch.bfloat16
+
+    def t(*shape, s=1.0, off=0.0, dtype=torch.float32):
+        a = (rng.randn(*shape) * s + off).astype(np.float32)
+        return torch.from_numpy(a).to(dev, dtype)
+
+    x = t(S, n, c, dtype=bf)
+    lengths = torch.tensor([97, 60, 0, 1, 97, 33, 96, 97], device=dev)
+    valid = (torch.arange(n, device=dev)[None] < lengths[:, None]).float()
+    dp = torch.tensor([1, 0, 1 / 0.9, 1, 1, 1 / 0.9, 0, 1], device=dev,
+                      dtype=torch.float32)
+    ln = (t(c, s=0.1, off=1.0), t(c, s=0.1))
+    w_qkv, w_proj = t(3 * c, c, s=0.05), t(c, c, s=0.05)
+    b_qkv, b_proj = t(3 * c, s=0.02), t(c, s=0.02)
+    res = {}
+    for name, fn, ref, args in (
+            ("attn_block", bi.attn_block_infer, bi.attn_block_infer_ref,
+             (x, valid, *ln, w_qkv.to(bf), b_qkv, w_proj.to(bf), b_proj, h)),
+            ("attn_block_q8", bi.attn_block_infer_q8,
+             bi.attn_block_infer_q8_ref,
+             (x, valid, *ln, *quantize_weight_q8(w_qkv), b_qkv,
+              *quantize_weight_q8(w_proj), b_proj, h))):
+        got, want = fn(*args, dp=dp), ref(*args, dp=dp)
+        r = rel_l2(got, want)
+        rb = rel_l2(got.float() - x.float(), want.float() - x.float())
+        err = float((got.float() - want.float()).abs().max())
+        print(f"{name} {tuple(x.shape)} H={h} (head dim 128): rel_l2 {r}, "
+              f"residual-branch rel_l2 {rb}, max_abs_err {err}")
+        check(bool(torch.isfinite(got.float()).all()), f"{name} D=128 finite")
+        check(max(r, rb) <= BLOCK_REL_L2,
+              f"{name} D=128 rel L2 {max(r, rb)} <= {BLOCK_REL_L2}")
+        res[name] = dict(max_abs_err=err, rel_l2=max(r, rb))
+    return res
+
+
 def sdpa_library(qkv, valid, g, h, scale):
     """K6's library call, timed: ``F.scaled_dot_product_attention`` on the
     q, k, v views of qkv with the boolean key mask (the same function on
@@ -989,6 +1038,52 @@ def q8_serving_path(dev, path):
         torch.cuda.synchronize()
         rates[label].append(reps * B / (time.perf_counter() - t0))
     print(json.dumps({"int8_scene_clips_per_s_B8": rates}))
+    return launches
+
+
+def clip_infer_path(dev):
+    """The clip encoder's inference path at ATST-Clip small width (384, 12
+    blocks, 6 heads, CLS token), seeded weights: ``get_intermediate_layers``
+    (scene, all 12 blocks) of 8 ragged 6 s crops through K1 and the block
+    kernels (``fused=True``, bf16) against the module path in f32, per row;
+    returns the launch counts of the kernel run."""
+    from audiossl_tpu_torch.kernels import build as kb
+    from audiossl_tpu_torch.models.atst import ast_small
+    from audiossl_tpu_torch.ops.melspec import MelConfig, log_melspec
+
+    rng = np.random.RandomState(SEED + 16)
+    samples = 96000  # 6 s: 601 frames, 150 patches and the CLS token
+    wav = torch.from_numpy((rng.randn(B, samples) * 0.1).astype(
+        np.float32)).to(dev)
+    valid = torch.tensor([96000, 64000, 32000, 15600, 96000, 48000, 6000,
+                          96000], device=dev)
+    length = valid // 160 + 1
+    models = {fused: ast_small(spec_w=601, fused=fused, device=dev,
+                               dtype=torch.bfloat16 if fused else
+                               torch.float32,
+                               generator=torch.Generator().manual_seed(SEED))
+              for fused in (True, False)}
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        kb.reset_launches()
+        mel = log_melspec(wav, valid, MelConfig())
+        got = models[True].get_intermediate_layers(mel, length, n=12)
+        torch.cuda.synchronize()
+        launches = dict(kb.LAUNCHES)
+        want = models[False].get_intermediate_layers(mel, length, n=12)
+    print(f"clip inference launches: {launches}")
+    check(launches["mel_db"] == 1 and launches["attn_block"] == 12
+          and launches["mlp_block"] == 12,
+          "clip inference: K1 once, 12 K2 and 12 K3 launches")
+    check(tuple(got.shape) == (B, 12 * CLIP_C)
+          and bool(torch.isfinite(got).all()),
+          f"clip scene embedding shape {tuple(got.shape)}, finite")
+    cs = row_cos(got, want)
+    print(f"clip inference (ast_small, {tuple(mel.shape)}, patches "
+          f"{(length // 4).tolist()}): cosine fused bf16 vs plain f32 per "
+          f"row {cs.tolist()}")
+    check(float(cs.min()) >= COS_MIN,
+          f"clip scene per-row cosine {float(cs.min())} >= {COS_MIN}")
     return launches
 
 
@@ -1479,11 +1574,14 @@ def main():
     res.update(train_kernel_checks(dev, quant="int8dx"))
     for name, r in clip_block_checks(dev).items():
         res[name]["clip"] = r
+    for name, r in d128_checks(dev).items():
+        res[name]["d128"] = r
     paths = {}
     with tempfile.TemporaryDirectory() as workdir:
         path = write_base_ckpt(workdir)
         paths["serving"] = main_path(dev, path)
         paths["serving_int8"] = q8_serving_path(dev, path)
+    paths["clip_serving"] = clip_infer_path(dev)
     for name, fn in (("frame_bf16", lambda: frame_bf16_path(dev, args.profile)),
                      ("clip_f32", lambda: clip_f32_path(dev, args.profile)),
                      ("clip_bf16", lambda: clip_bf16_path(dev)),

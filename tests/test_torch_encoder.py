@@ -3,7 +3,7 @@
 Frame-tiny (C=64, 2 blocks, 2 heads) on weights carried over by
 ``state_dict_from_flax``, with ragged lengths including a sample whose
 patch count is 0. The module path (``fused=False``) is compared on all
-tokens; the block-kernel path (``fused=True`` cast back to f32, whose
+tokens; the block-kernel path (``fused=True`` built in f32, whose
 kernel wrappers take their plain versions on the CPU) on the valid
 tokens, since it masks keys by validity columns instead of the additive
 -10000 mask. Tolerance 2e-4, except on the module path's sample with no
@@ -55,7 +55,7 @@ def _jax_layers(enc, params, mel, scene):
 
 def _port(params, fused):
     enc = tatst.frame_ast_tiny(spec_w=SPEC_W, fused=fused,
-                               device="cpu").float()
+                               dtype=torch.float32, device="cpu")
     enc.load_state_dict(state_dict_from_flax(params))
     return enc
 

@@ -10,9 +10,9 @@ rel L2 1e-5 in f32 and 1e-2 in bf16 (the same rounding points; f32 sums in
 another order can move a bf16 element by one step); the sequence with no
 valid key gives 0 and a finite zero gradient on both sides.
 
-On the card the f32 backward forms each product in 3xTF32 (each operand
-split into two TF32 halves, three tensor-core passes); an emulation of that
-split here documents its error against f32 before any card run.
+On the card the f32 forward and backward form each product in 3xTF32
+(each operand split into two TF32 halves, three tensor-core passes); an
+emulation of that split here documents its error against f32.
 """
 import numpy as np
 import pytest
@@ -169,3 +169,37 @@ def test_3xtf32_backward_stays_at_f32_accuracy(heads):
     assert _rel(three.numpy(), want.numpy()) <= 1e-6
     assert _rel(one.numpy(), want.numpy()) >= 1e-4
     assert not three[3].any()  # no valid key: zero gradient
+
+
+def _fwd_emulated(qkv, valid, heads, scale, ein):
+    """The f32 forward of the core with its two products (S = q kz^T and
+    e vz) through ``ein``, its denominator summing the same e; every other
+    step as ``exp_attention_ref``."""
+    Bq, n, C3 = qkv.shape
+    d = C3 // 3 // heads
+    vk = valid.float()[:, :, None, None]
+    q, k, v = qkv.reshape(Bq, n, 3, heads, d).unbind(2)
+    e = torch.exp(ein("bnhd,bmhd->bhnm", q, k * vk) * scale)
+    o = ein("bhnm,bmhd->bnhd", e, v * vk)
+    r = 1.0 / (torch.einsum("bhnm,bm->bnh", e, valid.float()) + 1e-30)
+    return (o * r[..., None]).reshape(Bq, n, C3 // 3)
+
+
+@pytest.mark.parametrize("heads", [2, 4])
+def test_3xtf32_forward_stays_at_f32_accuracy(heads):
+    """The f32 forward's design on the card (``csrc/attn_exp.cuh``): its two
+    products in 3xTF32 stay within 1e-6 rel L2 of the f32 plain version;
+    one TF32 pass would not (~1e-3). The sequence with no valid key gives
+    o = 0."""
+    qkv, mask = _inputs(97, seed=7)
+    x = torch.tensor(qkv)
+    valid = torch.tensor(mask > -1.0).float()
+    scale = (C // heads) ** -0.5
+    want, _ = tmha.mha_fwd_ref(x, valid, heads, scale)
+    three = _fwd_emulated(x, valid, heads, scale, _einsum_tf32(3))
+    one = _fwd_emulated(x, valid, heads, scale, _einsum_tf32(1))
+    r3, r1 = (_rel(a.numpy(), want.numpy()) for a in (three, one))
+    print(f"forward rel L2 to f32, {heads} heads: 3xTF32 {r3}, one pass {r1}")
+    assert r3 <= 1e-6
+    assert r1 >= 1e-4
+    assert not three[3].any()
