@@ -16,7 +16,7 @@
 //
 // Design (first, simple version) -- four launches on the caller's stream:
 //  (a) row LayerNorm, f32 statistics, bf16 output h            (common.cuh)
-//  (b) qkv = bf16(h W_qkv^T + b_qkv)   tiled WMMA GEMM       (gemm_bf16.cuh)
+//  (b) qkv = bf16(h W_qkv^T + b_qkv)   wgmma + TMA GEMM      (gemm_bf16.cuh)
 //  (c) per (clip, head, 64-query tile): s = q.k * scale over 64-key tiles,
 //      e = bf16(exp(s)) -- no max subtraction, so partial sums over key
 //      tiles simply add --, o = sum e v / (sum e valid_v + 1e-30), bf16,

@@ -74,11 +74,27 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// 1.0f / x, bit-equal to the IEEE division for every x in [1, 2^126] and
+// for +inf (checked over every such float on the card: gemm.cu
+// rcp_check_launch), without the division's slow-path call: that call
+// keeps the compiler from issuing one element's loads ahead of the last
+// element's arithmetic in the GEMM epilogues, whose GELU products then
+// wait on every load in turn. The approximate reciprocal and two Newton
+// steps on FMAs.
+__device__ __forceinline__ float rcp_ge1(float x) {
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  r = __fmaf_rn(r, __fmaf_rn(-x, r, 1.0f), r);
+  r = __fmaf_rn(r, __fmaf_rn(-x, r, 1.0f), r);
+  return isinf(x) ? 0.0f : r;
+}
+
 // erf by Abramowitz & Stegun 7.1.26, the polynomial the TPU kernel and the
-// JAX module path use (|err| < 1.5e-7), with an exact reciprocal.
+// JAX module path use (|err| < 1.5e-7), with an exact reciprocal (the
+// argument 1 + 0.3275911 |x| of a finite f32 x is at most 7.9e37 < 2^126).
 __device__ __forceinline__ float erf_as(float x) {
   float a = fabsf(x);
-  float t = 1.0f / (1.0f + 0.3275911f * a);
+  float t = rcp_ge1(1.0f + 0.3275911f * a);
   float poly = t * (0.254829592f + t * (-0.284496736f + t * (1.421413741f +
                t * (-1.453152027f + t * 1.061405429f))));
   float r = 1.0f - poly * expf(-a * a);

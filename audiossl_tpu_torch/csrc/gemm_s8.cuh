@@ -17,10 +17,10 @@
 //                                           grad-to-input products dy W of
 //                                           the int8dx backward)
 //
-// Design (first, simple version), as gemm_bf16.cuh: a 64x64 output tile per
-// block of 4 warps, each warp a 32x32 quarter as 2x2 WMMA 16x16x16 int8
-// tiles (int32 accumulators) on the tensor cores; 64-deep K steps (64
-// bytes, as bf16's 32) double-buffered in shared memory with cp.async. The
+// Design (first, simple version; gemm_bf16.cuh's before wgmma): a 64x64
+// output tile per block of 4 warps, each warp a 32x32 quarter as 2x2 WMMA
+// 16x16x16 int8 tiles (int32 accumulators) on the tensor cores; 64-deep K
+// steps (64 bytes) double-buffered in shared memory with cp.async. The
 // tiles are stored as slabs 16 bytes wide along their contiguous dimension,
 // [slab][row][16], so that every WMMA fragment starts 256-bit aligned with
 // a row pitch of 16 bytes, and the 16-byte chunks that consecutive threads
@@ -40,23 +40,26 @@
 
 namespace gemm {
 
+// the tile of the int8 kernel (its own: gemm_bf16.cuh's tile is wgmma's)
+constexpr int S8_BM = 64, S8_BN = 64, S8_THREADS = 128;
+constexpr int S8_LDC = S8_BN + 4;  // int32 row pitch of the accumulators
 constexpr int S8_BK = 64;  // int8 codes per K step
 
 template <bool B_K, class Epi>
-static __global__ void __launch_bounds__(THREADS)
+static __global__ void __launch_bounds__(S8_THREADS)
     gemm_s8_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ B,
                    const float* __restrict__ ra, const float* __restrict__ sb,
                    int M, int N, int K, Epi epi) {
   using namespace nvcuda;
   constexpr int SL = S8_BK / 16;  // slabs of a K step
   // B_K: [slab of k][n][16]; otherwise [slab of n][k][16]
-  constexpr int BS0 = B_K ? SL : BN / 16, BS1 = B_K ? BN : S8_BK;
-  __shared__ __align__(128) int8_t As[2][SL][BM][16];
+  constexpr int BS0 = B_K ? SL : S8_BN / 16, BS1 = B_K ? S8_BN : S8_BK;
+  __shared__ __align__(128) int8_t As[2][SL][S8_BM][16];
   __shared__ __align__(128) int8_t Bs[2][BS0][BS1][16];
-  __shared__ __align__(128) int Cs[BM][LDC];
+  __shared__ __align__(128) int Cs[S8_BM][S8_LDC];
 
   const int tid = threadIdx.x, warp = tid >> 5;
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const int m0 = blockIdx.x * S8_BM, n0 = blockIdx.y * S8_BN;
   const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
 
   wmma::fragment<wmma::accumulator, 16, 16, 16, int> acc[2][2];
@@ -69,14 +72,14 @@ static __global__ void __launch_bounds__(THREADS)
   auto load = [&](int stage, int k0) {
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      const int c = tid + i * THREADS;
-      {  // A: slab c / BM, row c % BM
-        int sl = c / BM, r = c % BM, gm = m0 + r, gk = k0 + sl * 16;
+      const int c = tid + i * S8_THREADS;
+      {  // A: slab c / S8_BM, row c % S8_BM
+        int sl = c / S8_BM, r = c % S8_BM, gm = m0 + r, gk = k0 + sl * 16;
         bool ok = gm < M && gk < K;
         cp_async16(&As[stage][sl][r][0], ok ? A + (size_t)gm * K + gk : A, ok);
       }
-      if constexpr (B_K) {  // slab c / BN of k, row n = c % BN
-        int sl = c / BN, r = c % BN, gn = n0 + r, gk = k0 + sl * 16;
+      if constexpr (B_K) {  // slab c / S8_BN of k, row n = c % S8_BN
+        int sl = c / S8_BN, r = c % S8_BN, gn = n0 + r, gk = k0 + sl * 16;
         bool ok = gn < N && gk < K;
         cp_async16(&Bs[stage][sl][r][0], ok ? B + (size_t)gn * K + gk : B, ok);
       } else {  // slab c / S8_BK of n, row k = c % S8_BK
@@ -129,11 +132,11 @@ static __global__ void __launch_bounds__(THREADS)
   for (int i = 0; i < 2; ++i)
 #pragma unroll
     for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(&Cs[wm + i * 16][wn + j * 16], acc[i][j], LDC,
-                              wmma::mem_row_major);
+      wmma::store_matrix_sync(&Cs[wm + i * 16][wn + j * 16], acc[i][j],
+                              S8_LDC, wmma::mem_row_major);
   __syncthreads();
-  for (int e = tid; e < BM * BN; e += THREADS) {
-    int r = e / BN, c = e % BN;
+  for (int e = tid; e < S8_BM * S8_BN; e += S8_THREADS) {
+    int r = e / S8_BN, c = e % S8_BN;
     int gm = m0 + r, gn = n0 + c;
     bool in = gm < M && gn < N;
     // the dequantization of _q8_dot: f32(acc) * r[m], then * s[n]
@@ -143,9 +146,9 @@ static __global__ void __launch_bounds__(THREADS)
   }
   if constexpr (Epi::kColSum) {
     __syncthreads();
-    if (tid < BN && n0 + tid < N) {
+    if (tid < S8_BN && n0 + tid < N) {
       float s = 0.0f;
-      for (int r = 0; r < BM; ++r) s += __int_as_float(Cs[r][tid]);
+      for (int r = 0; r < S8_BM; ++r) s += __int_as_float(Cs[r][tid]);
       atomicAdd(&epi.colsum[n0 + tid], s);
     }
   }
@@ -156,10 +159,10 @@ static inline cudaError_t gemm_s8(const void* A, const void* B,
                                   const float* ra, const float* sb, int M,
                                   int N, int K, Epi epi, cudaStream_t s) {
   if (K % 16 || (!B_K && N % 16) || M <= 0 || N <= 0 || K <= 0 ||
-      (N + BN - 1) / BN > 65535)
+      (N + S8_BN - 1) / S8_BN > 65535)
     return cudaErrorInvalidValue;
-  dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN);
-  gemm_s8_kernel<B_K, Epi><<<grid, THREADS, 0, s>>>(
+  dim3 grid((M + S8_BM - 1) / S8_BM, (N + S8_BN - 1) / S8_BN);
+  gemm_s8_kernel<B_K, Epi><<<grid, S8_THREADS, 0, s>>>(
       static_cast<const int8_t*>(A), static_cast<const int8_t*>(B), ra, sb, M,
       N, K, epi);
   return cudaGetLastError();

@@ -29,8 +29,8 @@
 //      same exp(-u^2/2); stores bf16(du), db1 = sum of the f32 du (epilogue)
 //  (5) h recomputed as in (a); dW1 = du^T h; dh = du W1 (f32)
 //  (6) LN2 backward from recomputed f32 statistics: dx, dls, dlb
-// Keeping du on chip (the TPU kernel never writes it to memory), wgmma and
-// TMA are later work.
+// The products run on wgmma with TMA loads (gemm_bf16.cuh); keeping du on
+// chip (the TPU kernel never writes it to memory) is later work.
 //
 // Kernel K5q, the int8 variants (student_quant, pallas_mlp.py:255 with
 // quant), weights as int8 codes quantized by the caller once per call.
@@ -57,11 +57,11 @@ constexpr float kInvSqrt2Pi = 0.3989422804014327f;
 
 // Phi(u) = 0.5 (1 + erf(u / sqrt 2)) and exp(-u^2/2) for GELU and its
 // derivative: A&S 7.1.26 given the shared exponential, exact reciprocal
-// (pallas_mlp.py _erf_from_exp).
+// (pallas_mlp.py _erf_from_exp; common.cuh rcp_ge1).
 __device__ __forceinline__ float half_cdf(float u, float ex2) {
   float x = u * kInvSqrt2;
   float a = fabsf(x);
-  float t = 1.0f / (1.0f + 0.3275911f * a);
+  float t = rcp_ge1(1.0f + 0.3275911f * a);
   float poly = t * (0.254829592f + t * (-0.284496736f + t * (1.421413741f +
                t * (-1.453152027f + t * 1.061405429f))));
   float erf = 1.0f - poly * ex2;
@@ -78,7 +78,7 @@ struct EpiBiasGeluSave {
   int N;
   __device__ float operator()(int m, int n, float acc) const {
     size_t i = (size_t)m * N + n;
-    float u = acc + bias[n];
+    float u = acc + __ldg(&bias[n]);
     u_out[i] = __float2bfloat16(u);
     a_out[i] = __float2bfloat16(u * half_cdf(u, expf(-u * u * 0.5f)));
     return 0.0f;
@@ -95,7 +95,7 @@ struct EpiGeluGrad {
   int N;
   __device__ float operator()(int m, int n, float acc) const {
     size_t i = (size_t)m * N + n;
-    float uf = __bfloat162float(u[i]);
+    float uf = __bfloat162float(__ldg(&u[i]));
     float ex2 = expf(-uf * uf * 0.5f);
     float du = acc * (half_cdf(uf, ex2) + uf * kInvSqrt2Pi * ex2);
     du_out[i] = __float2bfloat16(du);
@@ -103,14 +103,25 @@ struct EpiGeluGrad {
   }
 };
 
-// (2): a = bf16(u * Phi(u)) elementwise
+// (2): a = bf16(u * Phi(u)) elementwise, 8 values (16 bytes) a thread at a
+// time; u and a are 16-byte aligned
+__device__ __forceinline__ bf16 gelu_bf16(bf16 u) {
+  float uf = __bfloat162float(u);
+  return __float2bfloat16(uf * half_cdf(uf, expf(-uf * uf * 0.5f)));
+}
+
 __global__ void gelu_from_u_kernel(const bf16* __restrict__ u,
                                    bf16* __restrict__ a, size_t n) {
-  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n;
-       i += (size_t)gridDim.x * blockDim.x) {
-    float uf = __bfloat162float(u[i]);
-    a[i] = __float2bfloat16(uf * half_cdf(uf, expf(-uf * uf * 0.5f)));
+  const size_t tid = blockIdx.x * (size_t)blockDim.x + threadIdx.x;
+  const size_t stride = (size_t)gridDim.x * blockDim.x;
+  for (size_t i = tid; i < n / 8; i += stride) {
+    uint4 v = __ldg(reinterpret_cast<const uint4*>(u) + i);
+    bf16* e = reinterpret_cast<bf16*>(&v);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) e[j] = gelu_bf16(e[j]);
+    reinterpret_cast<uint4*>(a)[i] = v;
   }
+  for (size_t i = n / 8 * 8 + tid; i < n; i += stride) a[i] = gelu_bf16(u[i]);
 }
 
 // K5q (b): u = acc + b1 in f32 and saved in bf16

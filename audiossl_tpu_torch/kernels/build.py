@@ -9,7 +9,10 @@ device pointers and the CUDA stream, and returns ``cudaGetLastError()``.
 
 ``LAUNCHES`` counts the kernel launches of each wrapper; a wrapper adds
 one only where it launched its kernel, so a run can show that its main
-path went through the kernels.
+path went through the kernels. It lists the counterparts of the TPU
+kernels only: ``gemm_bf16`` (the block kernels' GEMM template alone) and
+``rcp_check`` (``ops/gemm.py``) launch through :func:`call` and are not
+counted.
 """
 from __future__ import annotations
 
@@ -92,6 +95,10 @@ _SIGNATURES = {
     # x, dy, u, dp, ln_w, ln_b, wt1, st1, wt2, st2, dx, dw1, db1, dw2, db2,
     # dls, dlb, h, dyb, a, du, duf, dh, aq, ar; B, N, C, Hd, eps
     "mlp_train_bwd_q8dx_launch": [_I] + [_P] * 25 + [_I, _I, _I, _I, _F, _P],
+    # a, b, out, bias; M, N, K, layout, epilogue, splits
+    "gemm_bf16_launch": [_I] + [_P] * 4 + [_I] * 6 + [_P],
+    # mismatches (one zeroed int64)
+    "rcp_check_launch": [_I, _P, _P],
 }
 
 # the element-type codes of the kernels templated on it
@@ -188,16 +195,20 @@ def ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
-def launch(name: str, device: torch.device, *args) -> None:
+def call(name: str, device: torch.device, *args) -> None:
     """Call the C entry point ``<name>_launch`` on ``device`` and PyTorch's
-    current stream there, and count the launch; raises when the launch
-    was refused or faulted."""
+    current stream there; raises when the launch was refused or faulted."""
     lib = library()
     s = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
     err = getattr(lib, f"{name}_launch")(device.index or 0, *args, s)
     if err:
         msg = lib.audiossl_cuda_error_string(err).decode()
         raise RuntimeError(f"CUDA kernel {name} failed: {msg} ({err})")
+
+
+def launch(name: str, device: torch.device, *args) -> None:
+    """:func:`call`, and count the launch in ``LAUNCHES``."""
+    call(name, device, *args)
     LAUNCHES[name] += 1
 
 

@@ -11,6 +11,13 @@ sm_90a) and the CUDA toolkit:
 
 1. prints the card's name and power limit, builds the hand-written CUDA
    kernels from ``audiossl_tpu_torch/csrc`` and prints the build time;
+   then the GEMM phase: the bf16 GEMM template of K2-K5 alone
+   (``ops/gemm.py``), its registers, spills and HGMMA count from the build,
+   each operand layout and epilogue against float64 products of the same
+   bf16 operands at the ATST-Frame base step's products, the ATST-Clip
+   small step's fc1, serving's qkv and a small ragged shape, each main
+   shape timed beside ``torch.matmul`` in bf16 (cuBLAS); and the GELU
+   epilogues' reciprocal against the IEEE division over its domain;
 2. holds each kernel against its plain PyTorch version on the card, with
    its error and both times from CUDA events: K1-K3 at the serving shapes
    (8 clips of 10 s, 250 tokens, width 768); the training mel (TF32 STFT)
@@ -32,7 +39,8 @@ sm_90a) and the CUDA toolkit:
    to; K2 and K2q at head dim 128 ([8, 97, 512], 4 heads; errors only).
    Every kernel's bound (bytes or operations over the card's peak rates)
    and, where one PyTorch call computes the same function, that call's
-   time;
+   time; for K2-K5 the cuBLAS time of their bf16 products alone, for the
+   int8 kernels ``torch._int_mm``'s of their int8 products alone;
 3. serving: writes a seeded random ATST-Frame base encoder as a
    reference-layout ``.ckpt``, loads it with ``load_model(fused=True)``
    and ``load_model(fused=False)``, and drives ``get_scene_embedding`` (8 x
@@ -153,6 +161,10 @@ Q8_COS_MIN = 0.99  # int8 vs bf16 serving, per row with audio: ~1e-2
 # cores): 3 x ops / 495 TFLOP/s lies below ops / 67 TFLOP/s of SIMT f32
 PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12, "tf32": 495e12}
 PEAK_BYTES = 3.35e12
+# The GEMM template alone against float64 products of the same bf16
+# operands: exact products summed in f32 in another order (f32 outputs),
+# and one rounding of sum + bias to bf16 (bias epilogue)
+GEMM_F32_REL, GEMM_BIAS_REL = 1e-5, 4e-3
 
 
 def check(ok, what):
@@ -174,6 +186,17 @@ def cuda_ms(fn, iters=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def card_state(label):
+    """Prints the card's SM clock (and its maximum), power draw,
+    temperature and active clock-event reasons beside a timed phase: a card
+    that throttles runs every kernel slower, library calls included."""
+    q = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,"
+         "temperature.gpu,clocks_event_reasons.active",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    print(f"card state ({label}): {(q.stdout or q.stderr).strip()}")
 
 
 def nbytes(*tensors):
@@ -216,6 +239,151 @@ def row_cos(a, b):
     a = a.reshape(-1, a.shape[-1]).double()
     b = b.reshape(-1, b.shape[-1]).double()
     return torch.nn.functional.cosine_similarity(a, b, dim=-1)
+
+
+def gemm_operands(layout, m, n, k, gen, dev):
+    """bf16 operands of a product of ``ops.gemm``'s ``layout`` drawn from
+    ``gen``, and the same product through ``torch.matmul``'s operand
+    views (lhs [m, k], rhs [k, n])."""
+    shapes = {"forward": ((m, k), (n, k)), "dx": ((m, k), (k, n)),
+              "weight_grad": ((k, m), (k, n))}[layout]
+    a, b = (torch.randn(*s, generator=gen, device=dev).to(torch.bfloat16)
+            for s in shapes)
+    lhs = a.t() if layout == "weight_grad" else a
+    rhs = b.t() if layout == "forward" else b
+    return a, b, lhs, rhs
+
+
+def gemm_build_report():
+    """What the compiler made of the GEMM template: each instantiation of
+    ``gemm_bf16_kernel``, its registers, spills and barriers from the
+    build's ``-Xptxas -v`` log and its count of HGMMA (``wgmma``) and HMMA
+    (``mma.sync``, WMMA) instructions in the built library
+    (``cuobjdump -sass``). Fails unless each issues HGMMA and no HMMA."""
+    import re
+
+    from audiossl_tpu_torch.kernels import build as kb
+
+    lib = kb.build()
+    digest = lib.name[len("libaudiossl_kernels_"):-len(".so")]
+    log = (lib.parent / f"{digest}.log").read_text().splitlines()
+    props = {}
+    for i, line in enumerate(log):
+        m = re.search(r"Compiling entry function '(\w*gemm_bf16_kernel\w*)'",
+                      line)
+        if m:
+            props[m.group(1)] = " ".join(s.strip().replace("ptxas info    : ",
+                                                           "")
+                                         for s in log[i + 2:i + 4])
+    check(bool(props), "the build log lists the GEMM template's kernels")
+    cuobjdump = os.path.join(os.path.dirname(kb._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", "-fun", ",".join(props),
+                           str(lib)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            counts.setdefault(fn, [0, 0])
+        elif fn:
+            counts[fn][0] += len(re.findall(r"\bHGMMA\b", line))
+            counts[fn][1] += len(re.findall(r"\bHMMA\b", line))
+    for name, p in props.items():
+        hg, hm = counts.get(name, (0, 0))
+        # the template arguments A_K, B_K, Epi from the mangled name
+        m = re.search(r"ILb(\d)ELb(\d)E.*?(\d+)(Epi\w+)", name)
+        short = (f"{m.group(1) == '1'}, {m.group(2) == '1'}, "
+                 f"{m.group(4)[:int(m.group(3))]}") if m else name
+        print(f"gemm_bf16_kernel<{short}>: {p}; SASS: {hg} HGMMA, {hm} HMMA")
+        check(hg > 0 and hm == 0, f"gemm_bf16_kernel<{short}> computes with "
+              f"wgmma ({hg} HGMMA) and no mma.sync / WMMA ({hm} HMMA)")
+
+
+def gemm_checks(dev):
+    """The bf16 GEMM template of K2-K5 alone (``ops.gemm``), each operand
+    layout against ``torch.matmul`` in float64 of the same bf16 operands:
+    at the ATST-Frame base step's products (48,000 rows, width 768, hidden
+    3072: forward, input-gradient and the weight gradients over all rows
+    with the block kernels' own K splits), the ATST-Clip small step's
+    ragged fc1 (28,992 rows), serving's qkv with the bias epilogue (2,000
+    rows) and a small ragged case of each layout and epilogue; each main
+    shape timed beside ``torch.matmul`` in bf16 (cuBLAS) at the same
+    shape. Then the GELU epilogues' branch-free reciprocal against the
+    IEEE division over its whole domain."""
+    from audiossl_tpu_torch.ops.gemm import gemm_bf16, reciprocal_mismatches
+
+    gemm_build_report()
+    card_state("GEMM phase")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 20)
+    M, MC = 2 * TRAIN_B * N, 2 * TRAIN_B * CLIP_N
+    # (what, layout, epilogue, M, N, K, splits, timed)
+    cases = [("fc1", "forward", "f32", M, HID, C, 1, True),
+             ("fc2", "forward", "f32", M, C, HID, 1, True),
+             ("proj", "forward", "f32", M, C, C, 1, True),
+             ("da = dyb W2", "dx", "f32", M, HID, C, 1, True),
+             ("dh = du W1", "dx", "f32", M, C, HID, 1, True),
+             ("do = dyb W_proj", "dx", "f32", M, C, C, 1, True),
+             ("dW2 = dyb^T a", "weight_grad", "atomic", C, HID, M, 0, True),
+             ("dW1 = du^T h", "weight_grad", "atomic", HID, C, M, 0, True),
+             ("dW_proj = dyb^T o", "weight_grad", "atomic", C, C, M, 0,
+              True),
+             ("clip fc1", "forward", "f32", MC, 4 * CLIP_C, CLIP_C, 1, True),
+             ("serving qkv", "forward", "bias", B * N, 3 * C, C, 1, True)]
+    # small and ragged: M = 97 rows (K = 97 rows for the weight gradient,
+    # whose M is contiguous), every epilogue
+    for layout in ("forward", "dx", "weight_grad"):
+        m, k = (256, 97) if layout == "weight_grad" else (97, 256)
+        for epi, splits in (("f32", 1), ("atomic", 2), ("bias", 1)):
+            cases.append((f"small {epi}", layout, epi, m, 200, k, splits,
+                          False))
+    for what, layout, epi, m, n, k, splits, timed in cases:
+        a, b, lhs, rhs = gemm_operands(layout, m, n, k, gen, dev)
+        bias = (torch.randn(n, generator=gen, device=dev)
+                if epi == "bias" else None)
+        got = gemm_bf16(a, b, layout, epi, bias=bias, splits=splits)
+        want = lhs.double() @ rhs.double()
+        if bias is not None:
+            want += bias.double()
+        r = rel_l2(got.double(), want)
+        tol = GEMM_BIAS_REL if epi == "bias" else GEMM_F32_REL
+        label = (f"gemm {layout} {epi} ({what}) [{m} x {k}] x [{k} x {n}]"
+                 f"{f', {splits} splits' if splits != 1 else ''}")
+        line = f"{label}: rel_l2 {r}"
+        if timed:
+            flop = 2.0 * m * n * k
+            ms = cuda_ms(lambda: gemm_bf16(a, b, layout, epi, bias=bias,
+                                           splits=splits), iters=10)
+            lib = cuda_ms(lambda: torch.matmul(lhs, rhs), iters=10)
+            line += "".join(
+                f", {who} {t} ms {flop / t / 1e9:.1f} TFLOP/s "
+                f"({100 * flop / t / 1e-3 / PEAK_OPS['bf16']:.1f}% of the "
+                f"bf16 peak)" for who, t in (("template", ms),
+                                             ("cuBLAS bf16", lib)))
+        print(line)
+        check(bool(torch.isfinite(got.float()).all()), f"{label} finite")
+        check(r <= tol, f"{label} rel L2 {r} <= {tol}")
+        del a, b, lhs, rhs, got, want
+    torch.cuda.empty_cache()
+    # host time of a launch: the hook's Python checks, ctypes call, two
+    # tensor-map encodings and launch, beside one cuBLAS call (enqueue
+    # only: the small product finishes faster than the host enqueues it)
+    a, b, lhs, rhs = gemm_operands("forward", 97, 200, 256, gen, dev)
+    host = {}
+    for who, fn in (("template hook", lambda: gemm_bf16(a, b, "forward")),
+                    ("torch.matmul", lambda: torch.matmul(lhs, rhs))):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(500):
+            fn()
+        host[who] = (time.perf_counter() - t0) / 500 * 1e6
+        torch.cuda.synchronize()
+    print("host time per call, [97 x 256] x [256 x 200]: " + ", ".join(
+        f"{who} {us} us" for who, us in host.items()))
+    bad = reciprocal_mismatches(dev)
+    check(bad == 0, f"the GELU epilogues' reciprocal equals 1 / x over every "
+          f"float in [1, 2^126] and +inf ({bad} differ)")
 
 
 def kernel_checks(dev):
@@ -295,9 +463,12 @@ def infer_block_checks(t, x, valid, dp, h, hid, lengths=None, timed=True):
             ops = (dict(bf16=8 * M * c * c
                         + 4 * c * attn_pairs(lengths, x.shape[1]))
                    if name == "attn_block" else dict(bf16=4 * M * c * hid))
+            mm = ([("forward", M, 3 * c, c), ("forward", M, c, c)]
+                  if name == "attn_block" else
+                  [("forward", M, hid, c), ("forward", M, c, hid)])
             res[name].update(ms=cuda_ms(lambda: fn(*args, dp=dp)),
                              plain_ms=cuda_ms(lambda: ref(*args, dp=dp)),
-                             library_ms=None,
+                             library_ms=library_mm(mm, x.device),
                              **bound(nbytes(*args, dp, got), **ops))
     return res
 
@@ -465,6 +636,10 @@ def train_kernel_checks(dev, n=N, c=C, h=H, hid=HID, timed=True, quant=None):
                     p[4], h)
                 ops = (dict(bf16=mm + 4 * c * pairs),
                        dict(bf16=2 * mm + 10 * c * pairs))
+                # qkv, proj; dW_proj, do, dW_qkv, dh
+                lib = ([("forward", M, 3 * c, c), ("forward", M, c, c)],
+                       [("weight_grad", c, c, M), ("dx", M, c, c),
+                        ("weight_grad", 3 * c, c, M), ("dx", M, c, 3 * c)])
         else:
             mm = 4 * M * c * hid
             if quant:
@@ -481,7 +656,11 @@ def train_kernel_checks(dev, n=N, c=C, h=H, hid=HID, timed=True, quant=None):
                 bwd = lambda plain, r: (mt.mlp_train_bwd_ref if plain else mt.mlp_train_bwd)(  # noqa: E731,E501
                     x, dyb, r[1], dp, p[0], p[1], p[2], p[4])
                 ops = (dict(bf16=mm), dict(bf16=2 * mm))
-        return fwd, bwd, wts, ops, (lib if quant else None)
+                # fc1, fc2; dW2, da, dW1, dh
+                lib = ([("forward", M, hid, c), ("forward", M, c, hid)],
+                       [("weight_grad", c, hid, M), ("dx", M, hid, c),
+                        ("weight_grad", hid, c, M), ("dx", M, c, hid)])
+        return fwd, bwd, wts, ops, lib
 
     def run(name, p, plain, q):
         xx = x.clone().requires_grad_()
@@ -551,6 +730,7 @@ def train_kernel_checks(dev, n=N, c=C, h=H, hid=HID, timed=True, quant=None):
             del yf, gf, br
         del yk, gk, yp, gp
         if timed:
+            card_state(f"{label} timing")
             fwd, bwd, wts, ops, lib = kernels(name, p)
             fres = fwd(False)
             bres = bwd(False, fres)
@@ -561,13 +741,15 @@ def train_kernel_checks(dev, n=N, c=C, h=H, hid=HID, timed=True, quant=None):
                           *(wts if not quant else []))
             for key, f, pf, nb, op, lb in (
                     (sfx[0], lambda: fwd(False), lambda: fwd(True),
-                     fin + nbytes(*fres), ops[0], lib and lib[0]),
+                     fin + nbytes(*fres), ops[0], lib[0]),
                     (sfx[1], lambda: bwd(False, fres),
                      lambda: bwd(True, fres), bin_ + nbytes(*bres), ops[1],
-                     lib and lib[1])):
+                     lib[1])):
                 res[name + key].update(
                     ms=cuda_ms(f, iters=10), plain_ms=cuda_ms(pf, iters=10),
-                    library_ms=library_int_mm(lb), **bound(nb, **op))
+                    library_ms=(library_int_mm(lb) if quant
+                                else library_mm(lb, dev)),
+                    **bound(nb, **op))
             del fres, bres
         torch.cuda.empty_cache()
     return res
@@ -589,6 +771,16 @@ def library_int_mm(products):
         print(f"torch._int_mm refused {[tuple(w.shape) for _, w in pairs]}:"
               f" {exc}")
         return None
+
+
+def library_mm(products, dev):
+    """CUDA-event time of ``torch.matmul`` in bf16 (cuBLAS) over a bf16
+    block kernel's products alone [(layout, m, n, k)], on seeded operands
+    stored as the kernel reads them (``gemm_operands``): the library call
+    for its products, not for its whole function."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+    pairs = [gemm_operands(*p, gen, dev)[2:] for p in products]
+    return cuda_ms(lambda: [torch.matmul(a, b) for a, b in pairs], iters=10)
 
 
 def clip_block_checks(dev):
@@ -1301,6 +1493,7 @@ def step_path(dev, label, make_method, batch, want, loss_rel, grad_cos,
         turns[rival[0]] = (rmethod, rstate, rmethod.make_step())
         order[2:2] = [rival[0], rival[0]]
     rates = {k: [] for k in turns}
+    card_state(f"{label} turns, before")
     for which in order:
         _, st, fn = turns[which]
         fn(st, batch)
@@ -1310,6 +1503,7 @@ def step_path(dev, label, make_method, batch, want, loss_rel, grad_cos,
             fn(st, batch)
         torch.cuda.synchronize()
         rates[which].append(3 * TRAIN_B / (time.perf_counter() - t0))
+    card_state(f"{label} turns, after")
     print(json.dumps({f"{label}_clips_per_s_B96": rates,
                       f"{label}_peak_gib_kernels": peak}))
     if profile_dir:
@@ -1564,6 +1758,7 @@ def main():
     kb.library()
     print(f"kernel build + load: {time.perf_counter() - t0:.1f} s")
 
+    gemm_checks(dev)
     res = kernel_checks(dev)
     train_mel_check(dev)
     res.update(train_kernel_checks(dev))
