@@ -36,7 +36,7 @@
 // activation codes made on the card. Five launches:
 //  (a) LN1 in f32 -> int8 codes hq and row scales hr, from the unrounded
 //      f32 LN output                                          (quant_q8.cuh)
-//  (b) qkv = bf16(deq(hq W_qkv^T) + b_qkv)   int8 WMMA GEMM    (gemm_s8.cuh)
+//  (b) qkv = bf16(deq(hq W_qkv^T) + b_qkv)   int8 wgmma GEMM   (gemm_s8.cuh)
 //  (c) the same exp-only attention, with o left in f32 (unrounded)
 //  (d) o -> int8 codes oq and row scales                      (quant_q8.cuh)
 //  (e) out = bf16(x + dp * (deq(oq W_proj^T) + b_proj))
@@ -93,14 +93,14 @@ extern "C" int attn_block_q8_launch(
   const bf16* xb = static_cast<const bf16*>(x);
   bf16* qkvb = static_cast<bf16*>(qkv);
   if ((e = q8::ln_q8(xb, ln_w, ln_b, hq, hr, M, C, eps, s))) return e;
-  if ((e = gemm::gemm_s8<true>(hq, wq_qkv, hr, s_qkv, M, 3 * C, C,
-                               gemm::EpiBias{qkvb, b_qkv, 3 * C}, s)))
+  if ((e = gemm::gemm_s8(hq, wq_qkv, hr, s_qkv, M, 3 * C, C,
+                         gemm::EpiBias{qkvb, b_qkv, 3 * C}, s)))
     return e;
   if ((e = attn::attn_exp(qkvb, valid_k, valid_v, o, nullptr, B, N, C, H,
                           scale, s)))
     return e;
   if ((e = q8::rows_q8(o, nullptr, 1, M, C, oq, orow, s))) return e;
-  return gemm::gemm_s8<true>(
+  return gemm::gemm_s8(
       oq, wq_proj, orow, s_proj, M, C, C,
       gemm::EpiBiasResidual{static_cast<bf16*>(out), xb, b_proj, dp, C, N},
       s);

@@ -53,12 +53,12 @@
 // attn_train_fwd_q8_launch follows _fwd_kernel_q8 (:106, via :348): (a)-(d)
 // above with the qkv product from the codes of the f32 LN1 output
 // (quant_q8.cuh ln_q8) and the proj product from the codes of o after its
-// bf16 store, both int8 WMMA GEMMs (gemm_s8.cuh) dequantized per row and
+// bf16 store, both int8 wgmma GEMMs (gemm_s8.cuh) dequantized per row and
 // channel. attn_train_bwd_q8dx_launch follows _bwd_kernel_q8dx (:252, via
 // :425): (1)-(7) above with the two grad-to-input products in int8 against
-// the codes of the dequantized weights quantized again per input channel
-// (the B_K = false layout): do from the codes of the f32 dy * dp, dh from
-// those of the bf16 dqkv. The attention core and the bf16 weight-gradient
+// the codes of the dequantized weights quantized again per input channel,
+// passed as the codes of W^T ([in, out], K-major for int8 wgmma): do from
+// the codes of the f32 dy * dp, dh from those of the bf16 dqkv. The attention core and the bf16 weight-gradient
 // products are unchanged.
 #include "attn_bwd.cuh"
 #include "attn_exp.cuh"
@@ -169,8 +169,8 @@ extern "C" int attn_train_fwd_q8_launch(
   bf16* qkvb = static_cast<bf16*>(qkv);
   bf16* ob = static_cast<bf16*>(o);
   if ((e = q8::ln_q8(xb, ln_w, ln_b, hq, hr, M, C, eps, s))) return e;
-  if ((e = gemm::gemm_s8<true>(hq, wq_qkv, hr, s_qkv, M, 3 * C, C,
-                               gemm::EpiBias{qkvb, b_qkv, 3 * C}, s)))
+  if ((e = gemm::gemm_s8(hq, wq_qkv, hr, s_qkv, M, 3 * C, C,
+                         gemm::EpiBias{qkvb, b_qkv, 3 * C}, s)))
     return e;
   if ((e = attn::attn_exp(qkvb, valid_k, valid_v, ob, r, B, N, C, H, scale,
                           s)))
@@ -178,13 +178,14 @@ extern "C" int attn_train_fwd_q8_launch(
   if ((e = q8::rows_q8(static_cast<const bf16*>(ob), nullptr, 1, M, C, oq,
                        orow, s)))
     return e;
-  return gemm::gemm_s8<true>(
+  return gemm::gemm_s8(
       oq, wq_proj, orow, s_proj, M, C, C,
       gemm::EpiBiasResidual{static_cast<bf16*>(out), xb, b_proj, dp, C, N},
       s);
 }
 
-// As attn_train_bwd_launch; wt_qkv [3C, C] / wt_proj [C, C] int8 codes with
+// As attn_train_bwd_launch; wt_qkv [C, 3C] / wt_proj [C, C] int8 codes of
+// W_qkv^T / W_proj^T ([in, out]: the product's K contiguous) with
 // per-input-channel scales st_qkv / st_proj [C]. Extra scratch: aq int8
 // [M, 3C] and ar f32 [M], the codes and row scales of dy * dp, then of dqkv.
 extern "C" int attn_train_bwd_q8dx_launch(
@@ -222,8 +223,8 @@ extern "C" int attn_train_bwd_q8dx_launch(
   if ((e = gemm::gemm_bf16_weight_grad(dybb, ob, M, C, C, dw_proj, s)))
     return e;
   if ((e = q8::rows_q8(dyin, dp, N, M, C, aq, ar, s))) return e;
-  if ((e = gemm::gemm_s8<false>(aq, wt_proj, ar, st_proj, M, C, C,
-                                gemm::EpiStoreF32{d_f32, C}, s)))
+  if ((e = gemm::gemm_s8(aq, wt_proj, ar, st_proj, M, C, C,
+                         gemm::EpiStoreF32{d_f32, C}, s)))
     return e;
   // (3)-(5)
   if ((e = attn::attn_bwd<bf16, float>(d_f32, ob, r, qkvb, valid_k, dorb, nd,
@@ -237,8 +238,8 @@ extern "C" int attn_train_bwd_q8dx_launch(
   if ((e = q8::rows_q8(static_cast<const bf16*>(dqkvb), nullptr, 1, M, 3 * C,
                        aq, ar, s)))
     return e;
-  if ((e = gemm::gemm_s8<false>(aq, wt_qkv, ar, st_qkv, M, C, 3 * C,
-                                gemm::EpiStoreF32{d_f32, C}, s)))
+  if ((e = gemm::gemm_s8(aq, wt_qkv, ar, st_qkv, M, C, 3 * C,
+                         gemm::EpiStoreF32{d_f32, C}, s)))
     return e;
   // (7)
   return train::ln_bwd(xb, d_f32, dyin, ln_w, static_cast<bf16*>(dx), dls,

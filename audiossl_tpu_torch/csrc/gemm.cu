@@ -1,7 +1,8 @@
-// The bf16 GEMM template of gemm_bf16.cuh alone, for holding it against a
-// reference at the block kernels' shapes (audiossl_tpu_torch/ops/gemm.py).
-// No TPU kernel corresponds to it and no main path calls it.
+// The GEMM templates alone, for holding them against a reference at the
+// block kernels' shapes (audiossl_tpu_torch/ops/gemm.py). No TPU kernel
+// corresponds to them and no main path calls them.
 //
+// gemm_bf16_launch, the bf16 template of gemm_bf16.cuh:
 // layout: 0  forward      C = A B^T, A [M, K], B [N, K]   (A_K, B_K)
 //         1  dx           C = A B,   A [M, K], B [K, N]   (A_K, !B_K)
 //         2  weight_grad  C = A^T B, A [K, M], B [K, N]   (!A_K, !B_K)
@@ -11,12 +12,18 @@
 //            kernels' own choice (gemm_bf16_weight_grad)
 //         2  EpiBias into bf16 out [M, N] with f32 bias [N]
 //
+// gemm_s8_launch, the int8 template of gemm_s8.cuh: C = deq(A B^T), A [M, K]
+// and B [N, K] int8 codes, ra [M] and sb [N] f32 scales;
+// epi:    0  EpiStoreF32 into f32 out [M, N]
+//         1  EpiBias into bf16 out [M, N] with f32 bias [N]
+//
 // rcp_check_launch counts the floats x in [1, 2^126] and +inf where the
 // epilogues' reciprocal (common.cuh rcp_ge1) differs from 1.0f / x.
 #include <cstdint>
 
 #include "common.cuh"
 #include "gemm_bf16.cuh"
+#include "gemm_s8.cuh"
 
 namespace {
 
@@ -70,6 +77,25 @@ extern "C" int gemm_bf16_launch(int device, const void* a, const void* b,
     case 2:
       return run(layout, A, B, M, N, K,
                  gemm::EpiBias{static_cast<bf16*>(out), bias, N}, s, 1);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+extern "C" int gemm_s8_launch(int device, const void* a, const void* b,
+                              const float* ra, const float* sb, void* out,
+                              const float* bias, int M, int N, int K, int epi,
+                              void* stream) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return e;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (epi) {
+    case 0:
+      return gemm::gemm_s8(a, b, ra, sb, M, N, K,
+                           gemm::EpiStoreF32{static_cast<float*>(out), N}, s);
+    case 1:
+      return gemm::gemm_s8(a, b, ra, sb, M, N, K,
+                           gemm::EpiBias{static_cast<bf16*>(out), bias, N}, s);
     default:
       return cudaErrorInvalidValue;
   }

@@ -1,6 +1,8 @@
 // Tiled bf16 GEMM with f32 accumulation and a per-element epilogue, shared
 // by the block kernels (attn_block.cu, mlp_block.cu, attn_train.cu,
-// mlp_train.cu) and held alone through gemm.cu.
+// mlp_train.cu) and held alone through gemm.cu. Its body (gemm_body) is
+// generic over an operand trait: OpBf16 here, OpS8 (int8 codes, exact int32
+// accumulators dequantized at the epilogue) in gemm_s8.cuh.
 //
 //   C[m, n] = sum_k A(m, k) * B(k, n)
 //
@@ -33,21 +35,21 @@
 //    operand (A_K or B_K false) is two boxes of 64 m or n (128 bytes) x 64
 //    k and enters wgmma through its transpose bit, so no layout is copied.
 //  - One producer warp issues the TMA loads into a ring of STAGES stages of
-//    BK = 64, with a full and an empty mbarrier per stage. The producer is a
-//    warp, not a warpgroup, so 288 threads of 156 registers fit the SM's
-//    register file without setmaxnreg. One persistent block an SM (the ring
-//    and the staging tiles take ~197 KB of shared memory); its two consumer
-//    warpgroups take turns, so one's epilogue runs while the other's
-//    products do.
+//    one 128-byte swizzle row of K (BK = 64 bf16), with a full and an empty
+//    mbarrier per stage. The producer is a warp, not a warpgroup, so 288
+//    threads of 168 registers at most fit the SM's register file without
+//    setmaxnreg. One persistent block an SM (the ring and the staging tiles
+//    take ~198 KB of shared memory); its two consumer warpgroups take
+//    turns, so one's epilogue runs while the other's products do.
 //  - TMA zero-fills reads past the tensor, so ragged M, N and K need no
 //    masked arithmetic; TMA needs a 16-byte aligned base and a row pitch
-//    (the contiguous extent) that is a multiple of 8 bf16.
+//    (the contiguous extent) that is a multiple of 16 bytes (8 bf16).
 //  - The epilogue runs from the accumulator registers: each element goes
 //    through the functor epi(m, n, acc) (rows and columns past M and N
 //    skipped); an epilogue with kColSum also adds the column sums of the
 //    values it returns into colsum[n] (the bias gradient of a product's
-//    output) with warp shuffles, a shared array and one atomicAdd per column
-//    per tile.
+//    output), summed in a register by the thread that walks the column and
+//    added with one atomicAdd per column per tile.
 //  - Blocks walk the tiles with n fastest, so that a wave shares the rows
 //    of A it reads. The weight-gradient products have K = M rows (48,000)
 //    and a small output, so they split K into ranges that add their partial
@@ -60,25 +62,30 @@
 #include <algorithm>
 #include <climits>
 #include <cstdint>
+#include <type_traits>
 
 #include "common.cuh"
 
 namespace gemm {
 
-constexpr int BM = 128, BN = 128, BK = 64;  // BK: one 128-byte swizzle row
+constexpr int BM = 128, BN = 128;
+constexpr int ROW_BYTES = 128;  // a stage's K extent: one 128-byte swizzle
+// row, 64 bf16 or 128 int8 codes, read by wgmma as 4 slices of 32 bytes
+constexpr int BK_BF16 = ROW_BYTES / 2;
+constexpr int K_SLICES = ROW_BYTES / 32;
 constexpr int STAGES = 4;
 constexpr int CONSUMERS = 2;  // warpgroups, each on its own tiles
 constexpr int THREADS = CONSUMERS * 128 + 32;  // and one producer warp
-constexpr int A_BYTES = BM * BK * 2, B_BYTES = BN * BK * 2;
+constexpr int A_BYTES = BM * ROW_BYTES, B_BYTES = BN * ROW_BYTES;
 constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
 // the stages (1024-byte aligned for the swizzle), the mbarriers (full and
-// empty per stage, order per consumer warpgroup) and each warpgroup's
-// staging tile
+// empty per stage, order per consumer warpgroup), each warpgroup's staging
+// tile and the row scales of its staged rows (int8 products)
 constexpr int CP = BN + 8;  // f32 row pitch of a staging tile: float2
 // stores from the accumulator layout meet no bank conflict
 constexpr int SMEM_BYTES = 1024 + STAGES * STAGE_BYTES +
                            (2 * STAGES + CONSUMERS) * 8 +
-                           CONSUMERS * 64 * CP * 4;
+                           CONSUMERS * 64 * (CP + 1) * 4;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -195,12 +202,33 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
 }
 
-// keeps the compiler from moving reads of the accumulators across the
-// asynchronous wgmma that writes them
-__device__ __forceinline__ void fence_regs(float (&d)[64]) {
+// keeps the compiler from moving reads of the accumulators (f32 or s32)
+// across the asynchronous wgmma that writes them
+template <class Acc>
+__device__ __forceinline__ void fence_regs(Acc (&d)[64]) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < 64; ++i) {
+    if constexpr (std::is_same<Acc, float>::value)
+      asm volatile("" : "+f"(d[i])::"memory");
+    else
+      asm volatile("" : "+r"(d[i])::"memory");
+  }
 }
+
+// The operand trait of the bf16 products: bf16 in, f32 accumulators handed
+// to the epilogue as they are (no scales), every layout.
+struct OpBf16 {
+  using T = bf16;
+  using Acc = float;
+  static constexpr CUtensorMapDataType kMapType =
+      CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  static constexpr bool kScaled = false;
+  struct Scales {};
+  template <int TA, int TB>
+  __device__ static void mma(float (&d)[64], uint64_t da, uint64_t db) {
+    wgmma_m64n128k16<TA, TB>(d, da, db);
+  }
+};
 
 // Persistent blocks: block b takes tiles b, b + gridDim.x, ... of the
 // output, numbered with n fastest, then m, then the K split; its consumer
@@ -210,20 +238,28 @@ __device__ __forceinline__ void fence_regs(float (&d)[64]) {
 // stage and phase run on across tiles. A warpgroup starts a tile's products
 // once the other has waited for the last K step of the tile before (the
 // order barriers), so no waiter runs two phases ahead of a barrier.
-template <bool A_K, bool B_K, class Epi>
-static __global__ void __launch_bounds__(THREADS, 1)
-    gemm_bf16_kernel(const __grid_constant__ CUtensorMap tma_a,
-                     const __grid_constant__ CUtensorMap tma_b, int M, int N,
-                     int K, int k_split, int tiles_n, int tiles, int total,
-                     Epi epi) {
+//
+// The body of every kernel of the template: Op is the operand trait (its
+// element type T, accumulator type Acc and wgmma; with kScaled, the row
+// and column scales that dequantize an accumulator into the f32 value the
+// epilogue takes).
+template <class Op, bool A_K, bool B_K, class Epi>
+__device__ __forceinline__ void gemm_body(const CUtensorMap& tma_a,
+                                          const CUtensorMap& tma_b, int M,
+                                          int N, int K, int k_split,
+                                          int tiles_n, int tiles, int total,
+                                          Epi epi, typename Op::Scales sc) {
+  constexpr int BK = ROW_BYTES / sizeof(typename Op::T);
   extern __shared__ __align__(1024) unsigned char gemm_smem[];
   unsigned char* smem =
       gemm_smem + ((1024 - (smem_u32(gemm_smem) & 1023)) & 1023);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * STAGE_BYTES);
   uint64_t* empty = full + STAGES;
   uint64_t* order = empty + STAGES;  // order[w]: warpgroup w may start
-  // each consumer warpgroup's staging tile for the epilogue, 64 x CP f32
+  // each consumer warpgroup's staging tile for the epilogue, 64 x CP f32,
+  // and the row scales of its 64 rows
   float* stage_c = reinterpret_cast<float*>(order + CONSUMERS);
+  float* stage_r = stage_c + CONSUMERS * 64 * CP;
 
   const int tid = threadIdx.x;
   if (tid == 0) {
@@ -287,29 +323,29 @@ static __global__ void __launch_bounds__(THREADS, 1)
       continue;
     }
     if (i > 0) mbar_wait(&order[wg], (i / CONSUMERS - 1 + wg) & 1);
-    float d[2][64];
+    typename Op::Acc d[2][64];
 #pragma unroll
     for (int h = 0; h < 2; ++h)
 #pragma unroll
-      for (int r = 0; r < 64; ++r) d[h][r] = 0.0f;
+      for (int r = 0; r < 64; ++r) d[h][r] = 0;
     for (int kt = 0; kt < nk; ++kt, ++it) {
       const int s = it % STAGES;
       mbar_wait(&full[s], (it / STAGES) & 1);
       const uint32_t a = smem_u32(smem + s * STAGE_BYTES), b = a + A_BYTES;
       wgmma_fence();
 #pragma unroll
-      for (int j = 0; j < BK / 16; ++j) {
-        // K-major: 16 k are 32 bytes along the swizzled row; MN-major: 16
-        // rows of k, 2048 bytes
+      for (int j = 0; j < K_SLICES; ++j) {
+        // K-major: a slice is 32 bytes along the swizzled row; MN-major
+        // (bf16 only): 16 rows of k, 2048 bytes
         const uint64_t db = B_K ? sw128_desc(b + j * 32, 16, 1024)
                                 : sw128_desc(b + j * 2048, B_BYTES / 2, 1024);
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const uint64_t da =
-              A_K ? sw128_desc(a + h * 64 * 128 + j * 32, 16, 1024)
+              A_K ? sw128_desc(a + h * 64 * ROW_BYTES + j * 32, 16, 1024)
                   : sw128_desc(a + h * (A_BYTES / 2) + j * 2048,
                                A_BYTES / 2, 1024);
-          wgmma_m64n128k16<A_K ? 0 : 1, B_K ? 0 : 1>(d[h], da, db);
+          Op::template mma<A_K ? 0 : 1, B_K ? 0 : 1>(d[h], da, db);
         }
       }
       wgmma_commit();
@@ -324,14 +360,23 @@ static __global__ void __launch_bounds__(THREADS, 1)
     if (tid % 128 == 0) mbar_arrive(&empty[(it - 1) % STAGES]);
 
     // The epilogue, one half of the tile (64 rows) at a time: the
-    // accumulators go to the warpgroup's staging tile (accumulator layout
-    // of m64nNk16: warp w holds rows 16 w + lane / 4 (+ 8), d[h][4 j + 2 e
-    // + c] is column 8 j + 2 (lane % 4) + c of row 16 w + lane / 4 + 8 e),
-    // then thread c of the warpgroup walks column c row by row, so that the
-    // epilogue's loads and stores are coalesced; its column sum stays in a
-    // register.
+    // accumulators, converted to f32 in registers, go to the warpgroup's
+    // staging tile (accumulator layout of m64nNk16 / k32: warp w holds rows
+    // 16 w + lane / 4 (+ 8), d[h][4 j + 2 e + c] is column 8 j + 2 (lane %
+    // 4) + c of row 16 w + lane / 4 + 8 e), then thread c of the warpgroup
+    // walks column c row by row, so that the epilogue's loads and stores
+    // are coalesced; its column sum stays in a register. With kScaled the
+    // walk dequantizes each value, f32(acc) * ra[m] * sb[n] in that order,
+    // from its column's scale in a register and the rows' scales staged
+    // beside the tile (dequantizing in the accumulator layout instead held
+    // 32 column scales live beside the 128 accumulators, and spilled).
     const int c = tid % 128, row = c / 32 * 16 + lane / 4;
     float* st = stage_c + wg * 64 * CP;
+    float* st_r = stage_r + wg * 64;
+    const int n = n0 + c;
+    float cs = 0.0f;
+    if constexpr (Op::kScaled)
+      if (n < N) cs = Op::col_scale(sc, n);
     float csum = 0.0f;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -343,9 +388,12 @@ static __global__ void __launch_bounds__(THREADS, 1)
         for (int e = 0; e < 2; ++e)
           *reinterpret_cast<float2*>(
               &st[(row + 8 * e) * CP + 8 * j + 2 * (lane % 4)]) =
-              make_float2(d[h][4 * j + 2 * e], d[h][4 * j + 2 * e + 1]);
+              make_float2(static_cast<float>(d[h][4 * j + 2 * e]),
+                          static_cast<float>(d[h][4 * j + 2 * e + 1]));
+      if constexpr (Op::kScaled)
+        if (c < 64 && m0 + 64 * h + c < M)
+          st_r[c] = Op::row_scale(sc, m0 + 64 * h + c);
       asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
-      const int n = n0 + c;
       const int rows = min(64, M - (m0 + 64 * h));
       if (n < N) {
         // 32 rows in flight: with one warp of the warpgroup on each
@@ -354,14 +402,26 @@ static __global__ void __launch_bounds__(THREADS, 1)
         // faster at 32 than at 4, 8, 16 or 64)
 #pragma unroll 32
         for (int r = 0; r < rows; ++r) {
-          const float v = epi(m0 + 64 * h + r, n, st[r * CP + c]);
+          float acc = st[r * CP + c];
+          if constexpr (Op::kScaled) acc = acc * st_r[r] * cs;
+          const float v = epi(m0 + 64 * h + r, n, acc);
           if constexpr (Epi::kColSum) csum += v;
         }
       }
     }
     if constexpr (Epi::kColSum)
-      if (n0 + c < N) atomicAdd(&epi.colsum[n0 + c], csum);
+      if (n < N) atomicAdd(&epi.colsum[n], csum);
   }
+}
+
+template <bool A_K, bool B_K, class Epi>
+static __global__ void __launch_bounds__(THREADS, 1)
+    gemm_bf16_kernel(const __grid_constant__ CUtensorMap tma_a,
+                     const __grid_constant__ CUtensorMap tma_b, int M, int N,
+                     int K, int k_split, int tiles_n, int tiles, int total,
+                     Epi epi, OpBf16::Scales sc) {
+  gemm_body<OpBf16, A_K, B_K>(tma_a, tma_b, M, N, K, k_split, tiles_n, tiles,
+                              total, epi, sc);
 }
 
 // Each epilogue returns the value that kColSum epilogues sum per column.
@@ -463,19 +523,23 @@ static inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// The map of a row-major bf16 [outer, inner] matrix, read in boxes of 64
-// inner (128 bytes, swizzled) x box_outer, zero-filled past its edges.
-static inline bool tensor_map(CUtensorMap* map, const bf16* p, int inner,
-                              int outer, int box_outer) {
+// The map of a row-major [outer, inner] matrix of Op's elements, read in
+// boxes of 128 bytes of inner (swizzled) x box_outer, zero-filled past its
+// edges.
+template <class Op>
+static inline bool tensor_map(CUtensorMap* map, const typename Op::T* p,
+                              int inner, int outer, int box_outer) {
+  using T = typename Op::T;
   EncodeTiledFn enc = encode_tiled();
   if (!enc) return false;
   cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
-  cuuint64_t pitch[1] = {(cuuint64_t)inner * sizeof(bf16)};
-  cuuint32_t box[2] = {64, (cuuint32_t)box_outer};
+  cuuint64_t pitch[1] = {(cuuint64_t)inner * sizeof(T)};
+  cuuint32_t box[2] = {(cuuint32_t)(ROW_BYTES / sizeof(T)),
+                       (cuuint32_t)box_outer};
   cuuint32_t step[2] = {1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<bf16*>(p),
-             dims, pitch, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+  return enc(map, Op::kMapType, 2, const_cast<T*>(p), dims, pitch, box, step,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
@@ -489,15 +553,21 @@ static inline int sm_count() {
   return sms;
 }
 
-template <bool A_K, bool B_K, class Epi>
-static inline cudaError_t gemm_bf16(const bf16* A, const bf16* B, int M,
-                                    int N, int K, Epi epi, cudaStream_t s,
-                                    int splits = 1) {
-  // TMA: 16-byte aligned bases, the contiguous extent (the row pitch) a
-  // multiple of 8 bf16
+// The launch of a kernel of the template (gemm_bf16_kernel, gemm_s8_kernel)
+// over the tiles of an M x N output, K split `splits` ways. Refuses, before
+// any launch, what TMA cannot read: M, N or K < 1, a base that is not
+// 16-byte aligned, a row pitch that is not a multiple of 16 bytes.
+template <class Op, bool A_K, bool B_K, class Kernel, class Epi>
+static inline cudaError_t gemm_launch(Kernel kernel,
+                                      const typename Op::T* A,
+                                      const typename Op::T* B, int M, int N,
+                                      int K, Epi epi, typename Op::Scales sc,
+                                      cudaStream_t s, int splits) {
+  constexpr int BK = ROW_BYTES / sizeof(typename Op::T);
+  constexpr int PITCH = 16 / sizeof(typename Op::T);
   const int a_in = A_K ? K : M, b_in = B_K ? K : N;
-  if (M <= 0 || N <= 0 || K <= 0 || splits < 1 || a_in % 8 || b_in % 8 ||
-      reinterpret_cast<uintptr_t>(A) % 16 ||
+  if (M <= 0 || N <= 0 || K <= 0 || splits < 1 || a_in % PITCH ||
+      b_in % PITCH || reinterpret_cast<uintptr_t>(A) % 16 ||
       reinterpret_cast<uintptr_t>(B) % 16)
     return cudaErrorInvalidValue;
   // each split covers a whole number of BK steps
@@ -507,10 +577,9 @@ static inline cudaError_t gemm_bf16(const bf16* A, const bf16* B, int M,
   const long long tiles = (long long)((M + BM - 1) / BM) * tiles_n;
   if (tiles * splits > INT_MAX) return cudaErrorInvalidValue;
   CUtensorMap ta, tb;
-  if (!tensor_map(&ta, A, a_in, A_K ? M : K, A_K ? BM : BK) ||
-      !tensor_map(&tb, B, b_in, B_K ? N : K, B_K ? BN : BK))
+  if (!tensor_map<Op>(&ta, A, a_in, A_K ? M : K, A_K ? BM : BK) ||
+      !tensor_map<Op>(&tb, B, b_in, B_K ? N : K, B_K ? BN : BK))
     return cudaErrorInvalidValue;
-  auto kernel = gemm_bf16_kernel<A_K, B_K, Epi>;
   static unsigned configured = 0;  // a bit per device: attributes set
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -526,9 +595,18 @@ static inline cudaError_t gemm_bf16(const bf16* A, const bf16* B, int M,
     if (dev < 32) configured |= 1u << dev;
   }
   const int total = (int)(tiles * splits);
-  kernel<<<std::min(total, sm_count()), THREADS, SMEM_BYTES,
-           s>>>(ta, tb, M, N, K, k_split, tiles_n, (int)tiles, total, epi);
+  kernel<<<std::min(total, sm_count()), THREADS, SMEM_BYTES, s>>>(
+      ta, tb, M, N, K, k_split, tiles_n, (int)tiles, total, epi, sc);
   return cudaGetLastError();
+}
+
+template <bool A_K, bool B_K, class Epi>
+static inline cudaError_t gemm_bf16(const bf16* A, const bf16* B, int M,
+                                    int N, int K, Epi epi, cudaStream_t s,
+                                    int splits = 1) {
+  return gemm_launch<OpBf16, A_K, B_K>(gemm_bf16_kernel<A_K, B_K, Epi>, A, B,
+                                       M, N, K, epi, OpBf16::Scales{}, s,
+                                       splits);
 }
 
 // x W^T with torch's [out, in] weight: the forward products
@@ -541,7 +619,7 @@ static inline cudaError_t gemm_bf16_tn(const bf16* A, const bf16* W, int M,
 
 // The K splits of a weight-gradient product of `tiles` output tiles over
 // `rows` rows: at least two waves of blocks on the card, the count within
-// [s, 2 s) that leaves the last wave fullest, each split 8 or more BK steps.
+// [s, 2 s) that leaves the last wave fullest, each split 8 or more K steps.
 static inline int weight_grad_splits(int rows, int tiles) {
   const int wave = CONSUMERS * sm_count();  // tiles in flight
   const int lo = (2 * wave + tiles - 1) / tiles;
@@ -553,7 +631,7 @@ static inline int weight_grad_splits(int rows, int tiles) {
         (double)blocks / ((blocks + wave - 1) / wave * (double)wave);
     if (fill > best_fill + 1e-9) best = sp, best_fill = fill;
   }
-  return std::max(1, std::min(best, rows / (8 * BK)));
+  return std::max(1, std::min(best, rows / (8 * BK_BF16)));
 }
 
 // dW[n, k] = sum_m dY[m, n] X[m, k] over all M rows into a zeroed f32

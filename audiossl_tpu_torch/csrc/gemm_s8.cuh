@@ -2,170 +2,123 @@
 // dequantization, shared by the int8 block kernels (K2q attn_block.cu, K3q
 // mlp_block.cu, K4q attn_train.cu, K5q mlp_train.cu).
 //
-//   acc[m, n] = sum_k A[m, k] * B(k, n)          (int8 x int8 -> int32)
+//   acc[m, n] = sum_k A[m, k] * B[n, k]          (int8 x int8 -> int32)
 //   epi(m, n, float(acc) * ra[m] * sb[n])
 //
 // the TPU kernels' _q8_dot (audiossl_tpu/ops/pallas_block.py:96): A holds
 // the int8 codes of an activation with one scale per row (ra), B those of a
-// weight with one scale per output channel (sb), and the epilogues of
+// weight with one scale per column of the output (sb), and the epilogues of
 // gemm_bf16.cuh (EpiBias, EpiBiasResidual, EpiStoreF32, ...) take the
-// dequantized value as they take the bf16 product's f32 sum. A is always
-// stored with K contiguous (A[m * K + k]); the weight in one of two layouts:
-//   B_K = true   B(k, n) at B[n * K + k]   (torch's [out, in] weight: the
-//                                           forward products x W^T)
-//   B_K = false  B(k, n) at B[k * N + n]   (the same layout read as W: the
-//                                           grad-to-input products dy W of
-//                                           the int8dx backward)
+// dequantized value as they take the bf16 product's f32 sum. Both operands
+// are stored K-major (K contiguous): A [M, K], B [N, K], torch's [out, in]
+// weight for the forward products x W^T; the grad-to-input products dy W of
+// the int8dx backward take the codes of W^T, [in, out], from their caller.
+// The int32 sum is exact in any order while K * 127^2 < 2^31 (the block
+// kernels' K is at most 3,072), so the value each epilogue takes equals the
+// TPU kernels' bit for bit.
 //
-// Design (first, simple version; gemm_bf16.cuh's before wgmma): a 64x64
-// output tile per block of 4 warps, each warp a 32x32 quarter as 2x2 WMMA
-// 16x16x16 int8 tiles (int32 accumulators) on the tensor cores; 64-deep K
-// steps (64 bytes) double-buffered in shared memory with cp.async. The
-// tiles are stored as slabs 16 bytes wide along their contiguous dimension,
-// [slab][row][16], so that every WMMA fragment starts 256-bit aligned with
-// a row pitch of 16 bytes, and the 16-byte chunks that consecutive threads
-// copy land on consecutive rows of one slab. Loads are 16 int8 at a time,
-// so K (and N where it is contiguous) must be a multiple of 16; ragged
-// edges are zero-filled, and a zero code adds nothing to the sum. wgmma and
-// TMA (the int8 tensor-core rate, twice bf16's) are later work.
+// What bounds it on the H100: K5q's products (M = 48,000 rows, C = 768,
+// hidden 3072) do ~600 int8 operations per byte of their codes and ~150 per
+// byte of an f32 output, so the tensor-core rate (1,979 TOP/s dense) bounds
+// the products and the epilogue's stores come close to the memory bound.
+//
+// Design: the body of gemm_bf16.cuh (gemm_body) with the operand trait
+// OpS8: wgmma.mma_async m64n128k32 .s32.s8.s8, both operands K-major from
+// 128-byte-swizzled shared memory (int8 wgmma reads no MN-major operand). A
+// stage has the bf16 template's byte geometry -- 128 codes of K (one
+// 128-byte swizzle row) x 128 rows of each operand, loaded by TMA as uint8
+// boxes -- so its descriptors and 32-byte slice advance (k32 of int8 is k16
+// of bf16) are the same, and a stage holds twice the MACs. TMA zero-fills
+// past the tensor and a zero code adds nothing, so ragged M, N and K need
+// no masks. The epilogue converts the s32 accumulators to f32 in registers
+// and stages them as the bf16 products' sums are; the thread that walks a
+// column dequantizes each value, f32(acc) * ra[m] * sb[n] in that order,
+// before its functor takes it.
 #pragma once
 
-#include <mma.h>
-
 #include <cstdint>
-#include <type_traits>
 
 #include "common.cuh"
 #include "gemm_bf16.cuh"
 
 namespace gemm {
 
-// the tile of the int8 kernel (its own: gemm_bf16.cuh's tile is wgmma's)
-constexpr int S8_BM = 64, S8_BN = 64, S8_THREADS = 128;
-constexpr int S8_LDC = S8_BN + 4;  // int32 row pitch of the accumulators
-constexpr int S8_BK = 64;  // int8 codes per K step
-
-template <bool B_K, class Epi>
-static __global__ void __launch_bounds__(S8_THREADS)
-    gemm_s8_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ B,
-                   const float* __restrict__ ra, const float* __restrict__ sb,
-                   int M, int N, int K, Epi epi) {
-  using namespace nvcuda;
-  constexpr int SL = S8_BK / 16;  // slabs of a K step
-  // B_K: [slab of k][n][16]; otherwise [slab of n][k][16]
-  constexpr int BS0 = B_K ? SL : S8_BN / 16, BS1 = B_K ? S8_BN : S8_BK;
-  __shared__ __align__(128) int8_t As[2][SL][S8_BM][16];
-  __shared__ __align__(128) int8_t Bs[2][BS0][BS1][16];
-  __shared__ __align__(128) int Cs[S8_BM][S8_LDC];
-
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int m0 = blockIdx.x * S8_BM, n0 = blockIdx.y * S8_BN;
-  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, int> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0);
-
-  // one stage: 256 chunks of 16 bytes for each operand, 2 per thread
-  auto load = [&](int stage, int k0) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int c = tid + i * S8_THREADS;
-      {  // A: slab c / S8_BM, row c % S8_BM
-        int sl = c / S8_BM, r = c % S8_BM, gm = m0 + r, gk = k0 + sl * 16;
-        bool ok = gm < M && gk < K;
-        cp_async16(&As[stage][sl][r][0], ok ? A + (size_t)gm * K + gk : A, ok);
-      }
-      if constexpr (B_K) {  // slab c / S8_BN of k, row n = c % S8_BN
-        int sl = c / S8_BN, r = c % S8_BN, gn = n0 + r, gk = k0 + sl * 16;
-        bool ok = gn < N && gk < K;
-        cp_async16(&Bs[stage][sl][r][0], ok ? B + (size_t)gn * K + gk : B, ok);
-      } else {  // slab c / S8_BK of n, row k = c % S8_BK
-        int sl = c / S8_BK, r = c % S8_BK, gk = k0 + r, gn = n0 + sl * 16;
-        bool ok = gn < N && gk < K;
-        cp_async16(&Bs[stage][sl][r][0], ok ? B + (size_t)gk * N + gn : B, ok);
-      }
-    }
-    cp_async_commit();
-  };
-
-  const int nk = (K + S8_BK - 1) / S8_BK;
-  load(0, 0);
-  for (int kt = 0; kt < nk; ++kt) {
-    if (kt + 1 < nk) {
-      load((kt + 1) & 1, (kt + 1) * S8_BK);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const int s = kt & 1;
-#pragma unroll
-    for (int kk = 0; kk < SL; ++kk) {
-      using BLay = typename std::conditional<B_K, wmma::col_major,
-                                             wmma::row_major>::type;
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char, wmma::row_major>
-          a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char, BLay> b[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], &As[s][kk][wm + i * 16][0], 16);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        if constexpr (B_K)
-          wmma::load_matrix_sync(b[j], &Bs[s][kk][wn + j * 16][0], 16);
-        else
-          wmma::load_matrix_sync(b[j], &Bs[s][(wn >> 4) + j][kk * 16][0], 16);
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();  // the stage is refilled by the next iteration's load
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(&Cs[wm + i * 16][wn + j * 16], acc[i][j],
-                              S8_LDC, wmma::mem_row_major);
-  __syncthreads();
-  for (int e = tid; e < S8_BM * S8_BN; e += S8_THREADS) {
-    int r = e / S8_BN, c = e % S8_BN;
-    int gm = m0 + r, gn = n0 + c;
-    bool in = gm < M && gn < N;
-    // the dequantization of _q8_dot: f32(acc) * r[m], then * s[n]
-    float v = in ? epi(gm, gn, static_cast<float>(Cs[r][c]) * ra[gm] * sb[gn])
-                 : 0.0f;
-    if constexpr (Epi::kColSum) Cs[r][c] = __float_as_int(v);
-  }
-  if constexpr (Epi::kColSum) {
-    __syncthreads();
-    if (tid < S8_BN && n0 + tid < N) {
-      float s = 0.0f;
-      for (int r = 0; r < S8_BM; ++r) s += __int_as_float(Cs[r][tid]);
-      atomicAdd(&epi.colsum[n0 + tid], s);
-    }
-  }
+// d += A B for one m64n128k32 int8 step, both operands K-major
+__device__ __forceinline__ void wgmma_m64n128k32_s8(int (&d)[64], uint64_t da,
+                                                    uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
+        "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]),
+        "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
+        "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]),
+        "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(1));
 }
 
-template <bool B_K, class Epi>
+// The operand trait of the int8 products: int8 codes in (TMA moves their
+// bits as uint8), s32 accumulators, K-major operands only, each
+// accumulator dequantized as f32(acc) * ra[m] * sb[n] (gemm_body reads the
+// scales of rows and columns within M and N only).
+struct OpS8 {
+  using T = int8_t;
+  using Acc = int;
+  static constexpr CUtensorMapDataType kMapType =
+      CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  static constexpr bool kScaled = true;
+  struct Scales {
+    const float* ra;  // [M]
+    const float* sb;  // [N]
+  };
+  template <int TA, int TB>
+  __device__ static void mma(int (&d)[64], uint64_t da, uint64_t db) {
+    static_assert(TA == 0 && TB == 0, "int8 wgmma reads K-major operands");
+    wgmma_m64n128k32_s8(d, da, db);
+  }
+  __device__ static float row_scale(const Scales& sc, int m) {
+    return __ldg(&sc.ra[m]);
+  }
+  __device__ static float col_scale(const Scales& sc, int n) {
+    return __ldg(&sc.sb[n]);
+  }
+};
+
+template <class Epi>
+static __global__ void __launch_bounds__(THREADS, 1)
+    gemm_s8_kernel(const __grid_constant__ CUtensorMap tma_a,
+                   const __grid_constant__ CUtensorMap tma_b, int M, int N,
+                   int K, int k_split, int tiles_n, int tiles, int total,
+                   Epi epi, OpS8::Scales sc) {
+  gemm_body<OpS8, true, true>(tma_a, tma_b, M, N, K, k_split, tiles_n, tiles,
+                              total, epi, sc);
+}
+
+// A [M, K] and B [N, K] int8 codes, ra [M] and sb [N] f32 scales. Refuses,
+// before any launch, M, N or K < 1, K not a multiple of 16 (the TMA row
+// pitch is 16 bytes) and a code base that is not 16-byte aligned.
+template <class Epi>
 static inline cudaError_t gemm_s8(const void* A, const void* B,
                                   const float* ra, const float* sb, int M,
                                   int N, int K, Epi epi, cudaStream_t s) {
-  if (K % 16 || (!B_K && N % 16) || M <= 0 || N <= 0 || K <= 0 ||
-      (N + S8_BN - 1) / S8_BN > 65535)
-    return cudaErrorInvalidValue;
-  dim3 grid((M + S8_BM - 1) / S8_BM, (N + S8_BN - 1) / S8_BN);
-  gemm_s8_kernel<B_K, Epi><<<grid, S8_THREADS, 0, s>>>(
-      static_cast<const int8_t*>(A), static_cast<const int8_t*>(B), ra, sb, M,
-      N, K, epi);
-  return cudaGetLastError();
+  return gemm_launch<OpS8, true, true>(
+      gemm_s8_kernel<Epi>, static_cast<const int8_t*>(A),
+      static_cast<const int8_t*>(B), M, N, K, epi, OpS8::Scales{ra, sb}, s,
+      1);
 }
 
 // out = acc + bias[n], f32 (the fc1 pre-activation the GELU quantization

@@ -74,11 +74,11 @@ extern "C" int mlp_block_q8_launch(int device, const void* x, const float* dp,
   const int M = B * N;
   const bf16* xb = static_cast<const bf16*>(x);
   if ((e = q8::ln_q8(xb, ln_w, ln_b, hq, hr, M, C, eps, s))) return e;
-  if ((e = gemm::gemm_s8<true>(hq, w1q, hr, s1, M, Hd, C,
-                               gemm::EpiBiasF32{u, b1, Hd}, s)))
+  if ((e = gemm::gemm_s8(hq, w1q, hr, s1, M, Hd, C,
+                         gemm::EpiBiasF32{u, b1, Hd}, s)))
     return e;
   if ((e = q8::gelu_q8(u, M, Hd, aq, ar, q8::GeluErf{}, s))) return e;
-  return gemm::gemm_s8<true>(
+  return gemm::gemm_s8(
       aq, w2q, ar, s2, M, C, Hd,
       gemm::EpiBiasResidual{static_cast<bf16*>(out), xb, b2, dp, C, N}, s);
 }

@@ -40,9 +40,10 @@
 // max(gelu(max_j u), 0.17) (quant_q8.cuh gelu_q8); fc2 from those codes.
 // mlp_train_bwd_q8dx_launch follows _bwd_kernel_q8dx (:225, via :376): (1)-(6)
 // above with da and dh in int8 against the codes of the dequantized weights
-// quantized again per input channel (the B_K = false layout): da from the
-// codes of the f32 dy * dp, dh from those of the unrounded f32 du (so du is
-// stored in f32 as well as in bf16 for dW1). The weight-gradient products
+// quantized again per input channel, passed as the codes of W^T ([in, out],
+// K-major for int8 wgmma): da from the codes of the f32 dy * dp, dh from
+// those of the unrounded f32 du (so du is stored in f32 as well as in bf16
+// for dW1). The weight-gradient products
 // stay bf16.
 #include "common.cuh"
 #include "gemm_bf16.cuh"
@@ -254,20 +255,20 @@ extern "C" int mlp_train_fwd_q8_launch(
   const int M = B * N;
   const bf16* xb = static_cast<const bf16*>(x);
   if ((e = q8::ln_q8(xb, ln_w, ln_b, hq, hr, M, C, eps, s))) return e;
-  if ((e = gemm::gemm_s8<true>(
-           hq, w1q, hr, s1, M, Hd, C,
-           EpiBiasSaveF32{uf, static_cast<bf16*>(u), b1, Hd}, s)))
+  if ((e = gemm::gemm_s8(hq, w1q, hr, s1, M, Hd, C,
+                         EpiBiasSaveF32{uf, static_cast<bf16*>(u), b1, Hd},
+                         s)))
     return e;
   if ((e = q8::gelu_q8(uf, M, Hd, aq, ar, GeluFromExp{}, s))) return e;
-  return gemm::gemm_s8<true>(
+  return gemm::gemm_s8(
       aq, w2q, ar, s2, M, C, Hd,
       gemm::EpiBiasResidual{static_cast<bf16*>(out), xb, b2, dp, C, N}, s);
 }
 
-// As mlp_train_bwd_launch; wt1 [Hd, C] / wt2 [C, Hd] int8 codes with
-// per-input-channel scales st1 [C] / st2 [Hd]. Extra scratch: duf [M, Hd]
-// f32; aq int8 [M, Hd] and ar f32 [M], the codes and row scales of dy * dp,
-// then of du.
+// As mlp_train_bwd_launch; wt1 [C, Hd] / wt2 [Hd, C] int8 codes of W1^T /
+// W2^T ([in, out]: the product's K contiguous) with per-input-channel
+// scales st1 [C] / st2 [Hd]. Extra scratch: duf [M, Hd] f32; aq int8
+// [M, Hd] and ar f32 [M], the codes and row scales of dy * dp, then of du.
 extern "C" int mlp_train_bwd_q8dx_launch(
     int device, const void* x, const void* dy, const void* u, const float* dp,
     const float* ln_w, const float* ln_b, const void* wt1, const float* st1,
@@ -303,8 +304,8 @@ extern "C" int mlp_train_bwd_q8dx_launch(
   if ((e = gemm::gemm_bf16_weight_grad(dybb, ab, M, C, Hd, dw2, s))) return e;
   // (4): da = deq(q8(dy * dp) W2), du = da * gelu'(u) in f32 and bf16
   if ((e = q8::rows_q8(dyin, dp, N, M, C, aq, ar, s))) return e;
-  if ((e = gemm::gemm_s8<false>(aq, wt2, ar, st2, M, Hd, C,
-                                EpiGeluGradF32{db1, ub, dub, duf, Hd}, s)))
+  if ((e = gemm::gemm_s8(aq, wt2, ar, st2, M, Hd, C,
+                         EpiGeluGradF32{db1, ub, dub, duf, Hd}, s)))
     return e;
   // (5): dW1 from the bf16 du; dh = deq(q8(du) W1)
   if ((e = layer_norm_bf16(xb, ln_w, ln_b, hb, M, C, eps, s))) return e;
@@ -312,8 +313,8 @@ extern "C" int mlp_train_bwd_q8dx_launch(
   if ((e = q8::rows_q8(static_cast<const float*>(duf), nullptr, 1, M, Hd, aq,
                        ar, s)))
     return e;
-  if ((e = gemm::gemm_s8<false>(aq, wt1, ar, st1, M, C, Hd,
-                                gemm::EpiStoreF32{dh, C}, s)))
+  if ((e = gemm::gemm_s8(aq, wt1, ar, st1, M, C, Hd,
+                         gemm::EpiStoreF32{dh, C}, s)))
     return e;
   // (6)
   return train::ln_bwd(xb, dh, dyin, ln_w, static_cast<bf16*>(dx), dls, dlb,

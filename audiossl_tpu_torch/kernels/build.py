@@ -10,9 +10,9 @@ device pointers and the CUDA stream, and returns ``cudaGetLastError()``.
 ``LAUNCHES`` counts the kernel launches of each wrapper; a wrapper adds
 one only where it launched its kernel, so a run can show that its main
 path went through the kernels. It lists the counterparts of the TPU
-kernels only: ``gemm_bf16`` (the block kernels' GEMM template alone) and
-``rcp_check`` (``ops/gemm.py``) launch through :func:`call` and are not
-counted.
+kernels only: ``gemm_bf16`` and ``gemm_s8`` (the block kernels' GEMM
+templates alone) and ``rcp_check`` (``ops/gemm.py``) launch through
+:func:`call` and are not counted.
 """
 from __future__ import annotations
 
@@ -97,6 +97,8 @@ _SIGNATURES = {
     "mlp_train_bwd_q8dx_launch": [_I] + [_P] * 25 + [_I, _I, _I, _I, _F, _P],
     # a, b, out, bias; M, N, K, layout, epilogue, splits
     "gemm_bf16_launch": [_I] + [_P] * 4 + [_I] * 6 + [_P],
+    # a, b, ra, sb, out, bias; M, N, K, epilogue
+    "gemm_s8_launch": [_I] + [_P] * 6 + [_I] * 4 + [_P],
     # mismatches (one zeroed int64)
     "rcp_check_launch": [_I, _P, _P],
 }

@@ -308,7 +308,9 @@ def attn_train_bwd_q8dx(x, dy, qkv, o, r, valid, dp, ls, lb, wt_qkv, st_qkv,
     grad-to-input products do and dh in int8 against wt_qkv [3C, C] /
     wt_proj [C, C], the int8 codes of the dequantized weights quantized
     per input channel (st_qkv / st_proj [C],
-    ``quantize_weight_q8(w, dim=0)``)."""
+    ``quantize_weight_q8(w, dim=0)``). The kernel's int8 products read
+    their weight codes K-major, so it takes those of W_qkv^T [C, 3C] and
+    W_proj^T [C, C] (``[in, out]``), copied here from wt_qkv and wt_proj."""
     if x.device.type == "cpu":
         return attn_train_bwd_q8dx_ref(x, dy, qkv, o, r, valid, dp, ls, lb,
                                        wt_qkv, st_qkv, wt_proj, st_proj,
@@ -341,8 +343,9 @@ def attn_train_bwd_q8dx(x, dy, qkv, o, r, valid, dp, ls, lb, wt_qkv, st_qkv,
                f32(M, H), torch.empty(M, 3 * C, device=dev, dtype=torch.int8),
                f32(M))
     kb.launch("attn_train_bwd_q8dx", dev, *map(kb.ptr, (
-        x, dy, qkv, o, r, validf, dp, ls, lb, wt_qkv, st_qkv, wt_proj,
-        st_proj, dx, dw_qkv, db_qkv, dw_proj, db_proj, dls, dlb, *scratch)),
+        x, dy, qkv, o, r, validf, dp, ls, lb, wt_qkv.t().contiguous(),
+        st_qkv, wt_proj.t().contiguous(), st_proj, dx, dw_qkv, db_qkv,
+        dw_proj, db_proj, dls, dlb, *scratch)),
         B, N, C, H, (C // H) ** -0.5, eps)
     return dx, dls, dlb, dw_qkv, db_qkv, dw_proj, db_proj
 

@@ -217,7 +217,9 @@ def mlp_train_bwd_q8dx(x, dy, u, dp, ls, lb, wt1, st1, wt2, st2,
     """K5q backward (``int8dx``): :func:`mlp_train_bwd` with da and dh in
     int8 against wt1 [Hd, C] / wt2 [C, Hd], the int8 codes of the
     dequantized weights quantized per input channel (st1 [C], st2 [Hd],
-    ``quantize_weight_q8(w, dim=0)``)."""
+    ``quantize_weight_q8(w, dim=0)``). The kernel's int8 products read
+    their weight codes K-major, so it takes those of W1^T [C, Hd] and W2^T
+    [Hd, C] (``[in, out]``), copied here from wt1 and wt2."""
     if x.device.type == "cpu":
         return mlp_train_bwd_q8dx_ref(x, dy, u, dp, ls, lb, wt1, st1, wt2,
                                       st2, eps)
@@ -246,8 +248,9 @@ def mlp_train_bwd_q8dx(x, dy, u, dp, ls, lb, wt1, st1, wt2, st2,
                f32(M, C), torch.empty(M, Hd, device=dev, dtype=torch.int8),
                f32(M))
     kb.launch("mlp_train_bwd_q8dx", dev, *map(kb.ptr, (
-        x, dy, u, dp, ls, lb, wt1, st1, wt2, st2, dx, dw1, db1, dw2, db2, dls,
-        dlb, *scratch)), B, N, C, Hd, eps)
+        x, dy, u, dp, ls, lb, wt1.t().contiguous(), st1,
+        wt2.t().contiguous(), st2, dx, dw1, db1, dw2, db2, dls, dlb,
+        *scratch)), B, N, C, Hd, eps)
     return dx, dls, dlb, dw1, db1, dw2, db2
 
 

@@ -11,13 +11,22 @@ sm_90a) and the CUDA toolkit:
 
 1. prints the card's name and power limit, builds the hand-written CUDA
    kernels from ``audiossl_tpu_torch/csrc`` and prints the build time;
-   then the GEMM phase: the bf16 GEMM template of K2-K5 alone
-   (``ops/gemm.py``), its registers, spills and HGMMA count from the build,
-   each operand layout and epilogue against float64 products of the same
-   bf16 operands at the ATST-Frame base step's products, the ATST-Clip
-   small step's fc1, serving's qkv and a small ragged shape, each main
-   shape timed beside ``torch.matmul`` in bf16 (cuBLAS); and the GELU
-   epilogues' reciprocal against the IEEE division over its domain;
+   then the GEMM phase: the bf16 GEMM template of K2-K5 and the int8 one
+   of K2q-K5q alone (``ops/gemm.py``), each instantiation's registers,
+   spills and ``wgmma`` count from the build (HGMMA for bf16, IGMMA for
+   int8, and no HMMA or IMMA); the bf16 template in each operand layout and
+   epilogue against float64 products of the same bf16 operands at the
+   ATST-Frame base step's products, the ATST-Clip small step's fc1,
+   serving's qkv and a small ragged shape, each main shape timed beside
+   ``torch.matmul`` in bf16 (cuBLAS); the GELU epilogues' reciprocal
+   against the IEEE division over its domain; the int8 template against
+   its plain version on the same codes and scales, bit for bit in f32
+   (bias epilogue within 4e-3), at K5q's fc1, fc2, da and dh and K4q's
+   qkv, proj, do and dh (48,000 rows; the int8dx products against the
+   codes of the transposed weight), the clip fc1 (28,992 rows), serving's
+   qkv with the bias epilogue (2,000 rows) and a 97-row case of each
+   epilogue, each main shape timed beside ``torch._int_mm`` of the same
+   codes in TOP/s and as a share of the int8 peak;
 2. holds each kernel against its plain PyTorch version on the card, with
    its error and both times from CUDA events: K1-K3 at the serving shapes
    (8 clips of 10 s, 250 tokens, width 768); the training mel (TF32 STFT)
@@ -254,12 +263,28 @@ def gemm_operands(layout, m, n, k, gen, dev):
     return a, b, lhs, rhs
 
 
+def _epi_name(mangled):
+    """The epilogue functor's name in a kernel's mangled name: the
+    identifier after the length prefix that ends where the name does."""
+    import re
+
+    for m in re.finditer(r"(\d+)(Epi\w+)", mangled):
+        digits, rest = m.groups()
+        for k in range(1, len(digits) + 1):
+            n = int(digits[-k:])
+            if 3 <= n <= len(rest) and rest[n:n + 1] in ("E", ""):
+                return rest[:n]
+    return mangled
+
+
 def gemm_build_report():
-    """What the compiler made of the GEMM template: each instantiation of
-    ``gemm_bf16_kernel``, its registers, spills and barriers from the
-    build's ``-Xptxas -v`` log and its count of HGMMA (``wgmma``) and HMMA
-    (``mma.sync``, WMMA) instructions in the built library
-    (``cuobjdump -sass``). Fails unless each issues HGMMA and no HMMA."""
+    """What the compiler made of the GEMM templates: each instantiation of
+    ``gemm_bf16_kernel`` and ``gemm_s8_kernel``, its registers, spills and
+    barriers from the build's ``-Xptxas -v`` log and its count of
+    warpgroup (``wgmma``: HGMMA for bf16, IGMMA for int8) and warp-level
+    (``mma.sync``, WMMA: HMMA, IMMA) tensor-core instructions in the built
+    library (``cuobjdump -sass``). Fails unless each issues its ``wgmma``
+    and no warp-level product, with no spills."""
     import re
 
     from audiossl_tpu_torch.kernels import build as kb
@@ -269,35 +294,47 @@ def gemm_build_report():
     log = (lib.parent / f"{digest}.log").read_text().splitlines()
     props = {}
     for i, line in enumerate(log):
-        m = re.search(r"Compiling entry function '(\w*gemm_bf16_kernel\w*)'",
-                      line)
+        m = re.search(r"Compiling entry function "
+                      r"'(\w*gemm_(?:bf16|s8)_kernel\w*)'", line)
         if m:
             props[m.group(1)] = " ".join(s.strip().replace("ptxas info    : ",
                                                            "")
                                          for s in log[i + 2:i + 4])
-    check(bool(props), "the build log lists the GEMM template's kernels")
+    check(any("gemm_bf16_kernel" in n for n in props)
+          and any("gemm_s8_kernel" in n for n in props),
+          "the build log lists both GEMM templates' kernels")
     cuobjdump = os.path.join(os.path.dirname(kb._nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", "-fun", ",".join(props),
                            str(lib)], capture_output=True, text=True,
                           check=True, timeout=300).stdout
+    ops = ("HGMMA", "IGMMA", "HMMA", "IMMA")
     counts, fn = {}, None
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
             fn = m.group(1)
-            counts.setdefault(fn, [0, 0])
+            counts.setdefault(fn, dict.fromkeys(ops, 0))
         elif fn:
-            counts[fn][0] += len(re.findall(r"\bHGMMA\b", line))
-            counts[fn][1] += len(re.findall(r"\bHMMA\b", line))
+            for op in ops:
+                counts[fn][op] += len(re.findall(rf"\b{op}\b", line))
     for name, p in props.items():
-        hg, hm = counts.get(name, (0, 0))
-        # the template arguments A_K, B_K, Epi from the mangled name
-        m = re.search(r"ILb(\d)ELb(\d)E.*?(\d+)(Epi\w+)", name)
-        short = (f"{m.group(1) == '1'}, {m.group(2) == '1'}, "
-                 f"{m.group(4)[:int(m.group(3))]}") if m else name
-        print(f"gemm_bf16_kernel<{short}>: {p}; SASS: {hg} HGMMA, {hm} HMMA")
-        check(hg > 0 and hm == 0, f"gemm_bf16_kernel<{short}> computes with "
-              f"wgmma ({hg} HGMMA) and no mma.sync / WMMA ({hm} HMMA)")
+        n = counts.get(name, dict.fromkeys(ops, 0))
+        int8 = "gemm_s8_kernel" in name
+        if int8:
+            short = f"gemm_s8_kernel<{_epi_name(name)}>"
+        else:  # the template arguments A_K, B_K, Epi
+            m = re.search(r"gemm_bf16_kernelILb(\d)ELb(\d)E", name)
+            short = (f"gemm_bf16_kernel<{m.group(1) == '1'}, "
+                     f"{m.group(2) == '1'}, {_epi_name(name)}>" if m
+                     else name)
+        wg, warp = ("IGMMA", "IMMA") if int8 else ("HGMMA", "HMMA")
+        spills = [int(v) for v in re.findall(r"(\d+) bytes spill", p)]
+        print(f"{short}: {p}; SASS: " + ", ".join(f"{n[o]} {o}" for o in ops))
+        check(n[wg] > 0 and n["HMMA"] + n["IMMA"] == 0,
+              f"{short} computes with wgmma ({n[wg]} {wg}) and no mma.sync /"
+              f" WMMA ({n['HMMA']} HMMA, {n['IMMA']} IMMA)")
+        check(len(spills) == 2 and not any(spills),
+              f"{short} spills nothing ({spills} bytes stored, loaded)")
 
 
 def gemm_checks(dev):
@@ -384,6 +421,75 @@ def gemm_checks(dev):
     bad = reciprocal_mismatches(dev)
     check(bad == 0, f"the GELU epilogues' reciprocal equals 1 / x over every "
           f"float in [1, 2^126] and +inf ({bad} differ)")
+    gemm_s8_checks(dev)
+
+
+def gemm_s8_checks(dev):
+    """The int8 GEMM template of K2q-K5q alone (``ops.gemm.gemm_s8``) on
+    seeded codes and scales, against its plain version on the card (the
+    exact product in float64, then the two scales): the f32 epilogue bit
+    for bit (the int32 sum is exact in any order), the bias epilogue within
+    ``GEMM_BIAS_REL``. At K5q's products at 48,000 rows (fc1, fc2, and the
+    int8dx da = q8(dy dp) W2 and dh = q8(du) W1 against the codes of W2^T
+    and W1^T), K4q's (qkv, proj and their int8dx do and dh), the clip
+    fc1 (28,992 rows), serving's qkv with the bias epilogue (2,000 rows)
+    and a 97-row ragged case of each epilogue; each main shape timed beside
+    ``torch._int_mm`` of the same codes."""
+    from audiossl_tpu_torch.ops.gemm import gemm_s8, gemm_s8_ref
+
+    card_state("int8 GEMM phase")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 22)
+    M, MC = 2 * TRAIN_B * N, 2 * TRAIN_B * CLIP_N
+    # (what, epilogue, M, N, K, b as the transpose of a [K, N] code matrix,
+    # timed)
+    cases = [("K5q fc1", "f32", M, HID, C, False, True),
+             ("K5q fc2", "f32", M, C, HID, False, True),
+             ("K5q da = q8(dy dp) W2", "f32", M, HID, C, True, True),
+             ("K5q dh = q8(du) W1", "f32", M, C, HID, True, True),
+             ("K4q qkv", "f32", M, 3 * C, C, False, True),
+             ("K4q proj", "f32", M, C, C, False, True),
+             ("K4q do = q8(dy dp) W_proj", "f32", M, C, C, True, True),
+             ("K4q dh = q8(dqkv) W_qkv", "f32", M, C, 3 * C, True, True),
+             ("clip fc1", "f32", MC, 4 * CLIP_C, CLIP_C, False, True),
+             ("serving qkv", "bias", B * N, 3 * C, C, False, True),
+             ("small f32", "f32", 97, 200, 256, False, False),
+             ("small bias", "bias", 97, 200, 256, True, False)]
+    def codes(*shape):
+        return torch.randint(-127, 128, shape, generator=gen, device=dev,
+                             dtype=torch.int8)
+
+    for what, epi, m, n, k, transposed, timed in cases:
+        a = codes(m, k)
+        b = codes(k, n).t().contiguous() if transposed else codes(n, k)
+        ra = torch.rand(m, generator=gen, device=dev) * 1e-2 + 1e-4
+        sb = torch.rand(n, generator=gen, device=dev) * 1e-3 + 1e-5
+        bias = (torch.randn(n, generator=gen, device=dev)
+                if epi == "bias" else None)
+        got = gemm_s8(a, b, ra, sb, epi, bias=bias)
+        want = gemm_s8_ref(a, b, ra, sb, epi, bias=bias)
+        differ = int((got != want).sum())
+        r = rel_l2(got, want)
+        label = f"gemm_s8 {epi} ({what}) [{m} x {k}] x [{k} x {n}]"
+        line = f"{label}: {differ} of {got.numel()} differ, rel_l2 {r}"
+        if timed:
+            ops = 2.0 * m * n * k
+            ms = cuda_ms(lambda: gemm_s8(a, b, ra, sb, epi, bias=bias),
+                         iters=10)
+            lib = cuda_ms(lambda: torch._int_mm(a, b.t()), iters=10)
+            line += "".join(
+                f", {who} {t} ms {ops / t / 1e9:.1f} TOP/s "
+                f"({100 * ops / t / 1e-3 / PEAK_OPS['int8']:.1f}% of the "
+                f"int8 peak)" for who, t in (("template", ms),
+                                             ("torch._int_mm", lib)))
+        print(line)
+        check(bool(torch.isfinite(got.float()).all()), f"{label} finite")
+        if epi == "f32":
+            check(differ == 0, f"{label} bit-equal to the plain version "
+                  f"({differ} differ)")
+        else:
+            check(r <= GEMM_BIAS_REL, f"{label} rel L2 {r} <= {GEMM_BIAS_REL}")
+        del a, b, got, want
+    torch.cuda.empty_cache()
 
 
 def kernel_checks(dev):

@@ -36,3 +36,16 @@ def test_chip_smoke_without_a_card_exits_without_a_result():
     assert r.returncode == 2, r.stderr
     assert r.stdout == ""
     assert "no CUDA device" in r.stderr
+
+
+def test_chip_ab_without_a_card_exits_without_running():
+    """``chip_ab.py`` (same-card comparisons of chip_smoke.py's phases)
+    stops before it imports a checkout when no CUDA device is present."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: chip_ab.py would run")
+    r = subprocess.run([sys.executable, str(ROOT / "chip_ab.py"), str(ROOT),
+                        "here", "gemm"], cwd=ROOT, capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode == 2, r.stderr
+    assert r.stdout == ""
+    assert "no CUDA device" in r.stderr

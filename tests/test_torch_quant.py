@@ -104,3 +104,72 @@ def test_check_quant():
         tq.check_quant("int8dx", ("int8",))
     with pytest.raises(ValueError, match="unknown quant mode"):
         tq.check_quant("fp8")
+
+
+def test_transposed_codes_bit_equal():
+    """The int8dx products read the codes of W^T ([in, out], K-major):
+    quantizing the transposed weight per its output channels gives the
+    per-input-channel codes of W transposed, with the same scales, and
+    JAX's ``quantize_weight_q8(w.T)`` transposed."""
+    rng = np.random.RandomState(4)
+    wj = _w(rng, 48, 80)  # the JAX kernel [in, out]
+    w = torch.from_numpy(wj.T.copy())  # torch's [out, in]
+    q, s = tq.quantize_weight_q8(w.t().contiguous())
+    q0, s0 = tq.quantize_weight_q8(w, dim=0)
+    jq, js = jpb.quantize_weight_q8(jnp.asarray(wj.T))
+    assert tuple(q.shape) == (48, 80) and tuple(s.shape) == (48,)
+    assert torch.equal(q, q0.t()) and torch.equal(s, s0)
+    np.testing.assert_array_equal(q.numpy(), np.asarray(jq).T)
+    np.testing.assert_array_equal(s.numpy(), np.asarray(js)[0])
+
+
+@pytest.mark.parametrize("which", ["mlp_train_bwd_q8dx",
+                                   "attn_train_bwd_q8dx"])
+def test_int8dx_launchers_take_the_codes_of_w_transposed(which,
+                                                         monkeypatch):
+    """The int8dx backward wrappers keep their interface (codes of W per
+    input channel, W's layout) and hand the launcher the codes of W^T,
+    [in, out] and contiguous, so that its int8 products read them
+    K-major. Meta activations reach the kernel path; the launch is
+    captured instead of run."""
+    from audiossl_tpu_torch.kernels import build as kb
+    from audiossl_tpu_torch.ops import attn_train, mlp_train
+
+    launched = []
+    monkeypatch.setattr(kb, "require_cuda", lambda *a: None)
+    monkeypatch.setattr(kb, "ptr", lambda t: t)
+    monkeypatch.setattr(kb, "launch",
+                        lambda name, dev, *args: launched.append(args))
+    meta, bf = torch.device("meta"), torch.bfloat16
+    C, Hd = 64, 256
+
+    def t(*shape, dtype=torch.float32):
+        return torch.empty(*shape, device=meta, dtype=dtype)
+
+    rng = np.random.RandomState(5)
+    if which == "mlp_train_bwd_q8dx":
+        w1, w2 = (torch.from_numpy(rng.randn(*s).astype(np.float32))
+                  for s in ((Hd, C), (C, Hd)))
+        (wt1, st1), (wt2, st2) = (tq.quantize_weight_q8(w, dim=0)
+                                  for w in (w1, w2))
+        mlp_train.mlp_train_bwd_q8dx(
+            t(2, 8, C, dtype=bf), t(2, 8, C, dtype=bf), t(2, 8, Hd, dtype=bf),
+            t(2), t(C), t(C), wt1, st1, wt2, st2)
+        want = {6: (w1, (C, Hd)), 8: (w2, (Hd, C))}
+    else:
+        w_qkv, w_proj = (torch.from_numpy(rng.randn(*s).astype(np.float32))
+                         for s in ((3 * C, C), (C, C)))
+        (wt_qkv, st_qkv), (wt_proj, st_proj) = (
+            tq.quantize_weight_q8(w, dim=0) for w in (w_qkv, w_proj))
+        attn_train.attn_train_bwd_q8dx(
+            t(2, 8, C, dtype=bf), t(2, 8, C, dtype=bf),
+            t(2, 8, 3 * C, dtype=bf), t(2, 8, C, dtype=bf), t(2, 8, 2),
+            t(2, 8), t(2), t(C), t(C), wt_qkv, st_qkv, wt_proj, st_proj, 2)
+        want = {9: (w_qkv, (C, 3 * C)), 11: (w_proj, (C, C))}
+    (args,) = launched
+    for i, (w, shape) in want.items():
+        codes, scales = tq.quantize_weight_q8(w.t().contiguous())
+        assert tuple(args[i].shape) == shape and args[i].is_contiguous()
+        assert args[i].dtype == torch.int8
+        assert torch.equal(args[i], codes)
+        assert torch.equal(args[i + 1], scales)
