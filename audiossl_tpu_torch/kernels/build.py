@@ -43,7 +43,6 @@ LAUNCHES = {"mel_db": 0, "attn_block": 0, "mlp_block": 0,
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-_L = ctypes.c_longlong
 _SIGNATURES = {
     # every entry point starts with the device index and ends with the
     # stream; the kernel library links its own CUDA runtime, whose current
@@ -66,15 +65,15 @@ _SIGNATURES = {
     # x, dy, u, dp, ln_w, ln_b, w1, w2, dx, dw1, db1, dw2, db2, dls, dlb,
     # h, dyb, a, du, dh, B, N, C, Hd, eps
     "mlp_train_bwd_launch": [_I] + [_P] * 20 + [_I, _I, _I, _I, _F, _P],
-    # table, n_leaves, n_chunks, lr, wd, m, 1-m, rc1, rc2, b1, 1-b1, b2,
-    # 1-b2, eps
-    "adamw_ema_launch": [_I, _P, _I, _L] + [_F] * 11 + [_P],
+    # table, grads, n_leaves, n_chunks, lr, wd, m, 1-m, rc1, rc2, b1, 1-b1,
+    # b2, 1-b2, eps
+    "adamw_ema_launch": [_I, _P, _P, _I, _I] + [_F] * 11 + [_P],
     # qkv, valid, out, r, dtype, B, N, C, H, scale
     "mha_fwd_launch": [_I] + [_P] * 4 + [_I] * 5 + [_F, _P],
     # qkv, valid, out, r, d_out, dqkv, dor, nd, dtype, B, N, C, H, scale
     "mha_bwd_launch": [_I] + [_P] * 8 + [_I] * 5 + [_F, _P],
-    # x, dy, scale, dx, dscale, dbias, dtype, R, C, eps
-    "ln_pg_bwd_launch": [_I] + [_P] * 6 + [_I] * 3 + [_F, _P],
+    # x, dy, scale, dx, partial, dsb, blocks, dtype, R, C, eps
+    "ln_pg_bwd_launch": [_I] + [_P] * 6 + [_I] * 4 + [_F, _P],
     # x, valid_k, valid_v, dp, ln_w, ln_b, wq_qkv, s_qkv, b_qkv, wq_proj,
     # s_proj, b_proj, out, hq, hr, qkv, o, oq, or; B, N, C, H, scale, eps
     "attn_block_q8_launch": [_I] + [_P] * 19 + [_I, _I, _I, _I, _F, _F, _P],

@@ -7,13 +7,17 @@ Port of ``audiossl_tpu/ops/pallas_ln.py:132 layer_norm``, the norm of
 variance), the f32 affine, the result cast to ``dtype``. The backward is
 K8 (``csrc/ln_pg.cu``): per row it recomputes mu and rstd with the same
 fast variance and gives dx in x's dtype; dscale and dbias are f32 sums over
-all rows (``_bwd_block``). The incoming gradient is cast to x's dtype first,
-as the Pallas path casts it.
+all rows (``_bwd_block``), which the kernel gives as per-block partial sums
+added in a fixed order by a second small launch (the same sums on every
+run). The incoming gradient is cast to x's dtype first, as the Pallas path
+casts it.
 
 :func:`ln_bwd` takes its plain version :func:`ln_bwd_ref` for a CPU tensor
 and launches the kernel for a CUDA tensor.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -49,6 +53,22 @@ def ln_bwd_ref(x, dy, scale, eps: float):
             gf.sum(dim=0))
 
 
+BLOCKS_PER_SM = 2  # blocks of csrc/ln_pg.cu's row kernel on each SM
+ROWS_PER_BLOCK = 8  # rows a block takes at a time, at least (one a warp)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def grid_blocks(device: torch.device, rows: int) -> int:
+    """Blocks of K8's row kernel for ``rows`` rows: a few an SM, none
+    without a row; each writes one row of the partial column sums."""
+    return max(1, min(BLOCKS_PER_SM * _sm_count(device),
+                      -(-rows // ROWS_PER_BLOCK)))
+
+
 def ln_bwd(x, dy, scale, eps: float):
     """x, dy [..., C] in one dtype (f32 or bf16), C <= 1024; scale [C] f32.
     Returns (dx in x's dtype, dscale [C] f32, dbias [C] f32)."""
@@ -62,12 +82,15 @@ def ln_bwd(x, dy, scale, eps: float):
     x2 = x.reshape(-1, C).contiguous()
     g2 = dy.reshape(-1, C).contiguous()
     kb.require_cuda("ln_bwd", x2, g2, scale)
+    blocks = grid_blocks(x.device, x2.shape[0])
     dx = torch.empty_like(x2)
-    ds = torch.empty(C, device=x.device, dtype=torch.float32)
-    db = torch.empty_like(ds)
-    kb.launch("ln_pg_bwd", x.device, *map(kb.ptr, (x2, g2, scale, dx, ds, db)),
+    # each block's column sums, added in a fixed order by the second launch
+    partial = torch.empty(blocks, 2, C, device=x.device, dtype=torch.float32)
+    dsb = torch.empty(2, C, device=x.device, dtype=torch.float32)
+    kb.launch("ln_pg_bwd", x.device,
+              *map(kb.ptr, (x2, g2, scale, dx, partial, dsb)), blocks,
               kb.DTYPE_CODES[x.dtype], x2.shape[0], C, eps)
-    return dx.reshape(x.shape), ds, db
+    return dx.reshape(x.shape), dsb[0], dsb[1]
 
 
 class _LayerNorm(torch.autograd.Function):

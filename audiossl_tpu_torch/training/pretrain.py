@@ -20,15 +20,16 @@ schedules of the step.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional
+import functools
+from typing import Callable, Dict, List, Optional
 
 import torch
 from torch import nn
 
 from audiossl_tpu_torch.models.atst import AudioTransformer
 from audiossl_tpu_torch.models.byol import Projector
-from audiossl_tpu_torch.ops.adamw_ema import (adamw_ema, adamw_ema_ref,
-                                              update_scalars)
+from audiossl_tpu_torch.ops.adamw_ema import (LeafTable, adamw_ema,
+                                              adamw_ema_ref, update_scalars)
 from audiossl_tpu_torch.training.schedules import cosine_schedule
 
 
@@ -83,7 +84,10 @@ class OptimizerConfig:
 class PretrainState:
     """The step count, both branches (f32 master parameters), Adam's
     moments and count per student parameter name, and the generator of
-    every random draw."""
+    every random draw. The update's leaves are paired once, when the state
+    is made: the student's parameters in the moments' order
+    (``leaves``), the teacher's copy of each or None (``teacher_leaves``)
+    and whether each decays (``decay``)."""
     step: int
     student: Branch
     teacher: Branch
@@ -91,6 +95,18 @@ class PretrainState:
     nu: Dict[str, torch.Tensor]
     count: int
     generator: torch.Generator
+    leaves: List[nn.Parameter] = dataclasses.field(init=False, repr=False)
+    teacher_leaves: List[Optional[nn.Parameter]] = dataclasses.field(
+        init=False, repr=False)
+    decay: List[bool] = dataclasses.field(init=False, repr=False)
+
+    def __post_init__(self):
+        params = dict(self.student.named_parameters())
+        t_params = dict(self.teacher.named_parameters())
+        mask = wd_mask(self.student)
+        self.leaves = [params[k] for k in self.mu]
+        self.teacher_leaves = [t_params.get(k) for k in self.mu]
+        self.decay = [mask[k] for k in self.mu]
 
 
 def wd_mask(module: nn.Module) -> Dict[str, bool]:
@@ -128,30 +144,30 @@ def make_pretrain_step(cfg: OptimizerConfig, forward_loss: Callable,
     ``forward_loss(student, teacher, batch, generator, draws)`` returns
     ``(loss, aux)``; ``draws`` (None: drawn from the state's generator)
     lets a caller pass the random numbers in. The state is updated in
-    place. ``plain=True`` takes K7's plain version on any device."""
+    place. ``plain=True`` takes K7's plain version on any device. Outside
+    the model, the step's host work per leaf is collecting the gradients
+    and moments; nothing in the update waits for the device."""
     lr_s, wd_s, ema_s = (cfg.lr_schedule(), cfg.wd_schedule(),
                          cfg.ema_schedule())
-    update = adamw_ema_ref if plain else adamw_ema
+    # K7's device table, kept between steps (rebuilt only for other leaves)
+    update = (adamw_ema_ref if plain
+              else functools.partial(adamw_ema, table=LeafTable()))
 
     def step_fn(state: PretrainState, batch, draws=None):
         lr, wd, m = lr_s(state.step), wd_s(state.step), ema_s(state.step)
         student, teacher = state.student.train(), state.teacher.train()
-        params = dict(student.named_parameters())
-        for p in params.values():
+        for p in state.leaves:
             p.grad = None
         loss, aux = forward_loss(student, teacher, batch, state.generator,
                                  draws)
         loss.backward()
         state.count += 1
-        t_params = dict(teacher.named_parameters())
-        decay = wd_mask(student)
-        names = list(state.mu)
-        ps = [params[k] for k in names]
-        update(ps,
+        update(state.leaves,
                [p.grad if p.grad is not None else torch.zeros_like(p)
-                for p in ps],
-               [state.mu[k] for k in names], [state.nu[k] for k in names],
-               [t_params.get(k) for k in names], [decay[k] for k in names],
+                for p in state.leaves],
+               list(state.mu.values()),
+               [state.nu[k] for k in state.mu], state.teacher_leaves,
+               state.decay,
                update_scalars(lr, wd, m, state.count, cfg.b1, cfg.b2,
                               cfg.eps))
         state.step += 1

@@ -4,7 +4,7 @@ on one CUDA GPU, so that two checkouts (this one and, say, its parent
 commit unpacked with ``git archive`` into a directory ``.gitignore`` lists)
 can be timed in one run, in turns:
 
-    python3 chip_ab.py ROOT LABEL PHASE [PHASE ...]
+    python3 chip_ab.py ROOT LABEL [--profile DIR] PHASE [PHASE ...]
 
 ROOT is the checkout whose package and ``chip_smoke.py`` run (its kernels
 build into ROOT/build); LABEL prefixes every line printed. Phases:
@@ -16,7 +16,13 @@ build into ROOT/build); LABEL prefixes every line printed. Phases:
   shape [8, 250, 768] (``torch.profiler``, 50 calls after 5), which the
   host's speed does not move;
 - ``clip_bf16``, ``clip_f32``, ``frame_bf16``, ``frame_f32``: the
-  training-step paths of ``chip_smoke.py`` (clips/s in turns).
+  training-step paths of ``chip_smoke.py`` (clips/s in turns); after
+  ``--profile DIR`` (before the phases) the three that take one write a
+  profile of one step to DIR/LABEL (``chip_smoke.profile_step``);
+- ``k7``, ``k8``: K7 over the ATST-Frame base student's leaves and K8 at
+  the training shapes, ms per call by CUDA events and on the device (K7
+  also the host's time to issue a call);
+- ``rates``: clips/s of the four steps' kernel paths alone, 5 turns each.
 """
 import os
 import sys
@@ -26,9 +32,28 @@ import numpy as np
 import torch
 
 
-def serving_device(dev, label):
+def device_ms(fn, match=None, iters=50, warmup=5):
+    """Device time per call of ``fn`` by kernel name (``torch.profiler``:
+    self CUDA time of the events whose names hold one of ``match``, or of
+    every event), which the host's speed does not move."""
     from torch.profiler import ProfilerActivity, profile
 
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = {}
+    for e in prof.key_averages():
+        name = e.key.split("(")[0][-60:]
+        if match is None or any(m in e.key for m in match):
+            us[name] = us.get(name, 0.0) + e.self_device_time_total / iters
+    return {k: v / 1e3 for k, v in us.items() if v > 0}
+
+
+def serving_device(dev, label):
     from audiossl_tpu_torch.ops import block_infer as bi
 
     rng = np.random.RandomState(0)
@@ -50,25 +75,114 @@ def serving_device(dev, label):
         bi.attn_block_infer(x, valid, *ln, *attn, 12, dp=dp)
         bi.mlp_block_infer(x, *ln, *mlp, dp=dp)
 
-    for _ in range(5):
-        run()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(50):
-            run()
-        torch.cuda.synchronize()
-    us = {}
-    for e in prof.key_averages():
-        name = e.key.split("(")[0][-60:]
-        us[name] = us.get(name, 0.0) + e.self_device_time_total / 50
-    us = {k: v for k, v in us.items() if v > 0}
+    us = {k: v * 1e3 for k, v in device_ms(run).items()}
     print(f"{label} K2 + K3 device us per call at [8, 250, 768]: total "
           f"{sum(us.values())}; " + ", ".join(
               f"{k} {v}" for k, v in sorted(us.items(), key=lambda kv: -kv[1])))
 
 
+def k7(dev, label, cs):
+    """K7 over the ATST-Frame base student's leaves: ms per call by CUDA
+    events (back to back, the host included), on the device, and the
+    host's time to issue a call. A checkout whose wrapper keeps a leaf
+    table gets one, as its training step does."""
+    import time
+
+    from audiossl_tpu_torch.ops import adamw_ema as ae
+
+    shapes, teacher, decay = cs.student_leaves(dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    r = lambda s, sc: torch.randn(s, device=dev, generator=gen) * sc  # noqa: E731
+    p, g, mu = ([r(s, 0.02) for s in shapes] for _ in range(3))
+    nu = [r(s, 1e-6).abs() for s in shapes]
+    t = [r(s, 0.02) if keep else None for s, keep in zip(shapes, teacher)]
+    sc = ae.update_scalars(8e-5, 0.04, 0.9996, 7, 0.9, 0.999, 1e-6)
+    kw = {"table": ae.LeafTable()} if hasattr(ae, "LeafTable") else {}
+
+    def fn():
+        ae.adamw_ema(p, g, mu, nu, t, decay, sc, **kw)
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        fn()
+    host = (time.perf_counter() - t0) / 10 * 1e3
+    torch.cuda.synchronize()
+    dev_ms = sum(device_ms(fn, ("adamw_ema_kernel",), iters=10).values())
+    print(f"{label} K7 ms per call: events {cs.cuda_ms(fn, iters=10)}, "
+          f"device {dev_ms}, host {host}")
+
+
+def k8(dev, label, cs):
+    """K8 at the f32 and bf16 training shapes: ms per call by CUDA events
+    and on the device."""
+    from audiossl_tpu_torch.ops import layer_norm as ln
+
+    rng = np.random.RandomState(7)
+    for dtype, rows, c in ((torch.float32, 28992, 384),
+                           (torch.float32, 48000, 768),
+                           (torch.bfloat16, 28992, 384),
+                           (torch.bfloat16, 48000, 768)):
+        x = torch.from_numpy((rng.randn(rows, c) * 2 + 0.3).astype(
+            np.float32)).to(dev, dtype)
+        g = torch.from_numpy(rng.randn(rows, c).astype(np.float32)).to(
+            dev, dtype)
+        sc = torch.from_numpy((rng.rand(c) + 0.5).astype(np.float32)).to(dev)
+
+        def fn():
+            ln.ln_bwd(x, g, sc, 1e-6)
+
+        dev_ms = sum(device_ms(fn, ("ln_pg_",), iters=20).values())
+        print(f"{label} K8 [{rows}, {c}] {dtype}: events "
+              f"{cs.cuda_ms(fn, iters=20)} ms, device {dev_ms} ms")
+
+
+def rates(dev, label, cs):
+    """clips/s of the kernel-path training steps alone (no checks, no
+    plain-version step) at the recipes of ``chip_smoke.py``'s step paths:
+    per recipe one warm-up step, then 5 turns of 3 steps, each turn timed
+    to ``torch.cuda.synchronize()``."""
+    import time
+
+    from audiossl_tpu_torch.methods.atst.method import ClipMethod
+    from audiossl_tpu_torch.methods.atstframe.method import (
+        FrameMethod, FramePretrainConfig)
+
+    recipes = {
+        "frame_bf16": (FrameMethod, cs.base_recipe(), 4),
+        "clip_f32": (ClipMethod, cs.clip_recipe("float32"), 8),
+        "clip_bf16": (ClipMethod, cs.clip_recipe("bfloat16"), 9),
+        "frame_f32": (FrameMethod, FramePretrainConfig(arch="base"), 10),
+    }
+    for name, (cls, cfg, seed) in recipes.items():
+        m = cls(cfg, device=dev, seed=cs.SEED)
+        st = m.init_state(seed=cs.SEED)
+        st.step = cfg.optimizer.warmup_steps
+        step = m.make_step()
+        batch = (cs.wav_batch(dev, cfg.out_samples, cs.SEED + seed)
+                 if cls is FrameMethod else
+                 cs.wav_batch(dev, cs.SAMPLES, cs.SEED + seed, short=80000))
+        step(st, batch)
+        torch.cuda.synchronize()
+        out = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            for _ in range(3):
+                step(st, batch)
+            torch.cuda.synchronize()
+            out.append(3 * cs.TRAIN_B / (time.perf_counter() - t0))
+        print(f"{label} {name} clips/s B96: {out}", flush=True)
+        del m, st, step, batch
+        torch.cuda.empty_cache()
+
+
 def main():
     root, label, phases = os.path.abspath(sys.argv[1]), sys.argv[2], sys.argv[3:]
+    profile_dir = None
+    if phases[:1] == ["--profile"]:
+        profile_dir, phases = os.path.join(os.path.abspath(phases[1]),
+                                           label), phases[2:]
     if not torch.cuda.is_available():
         print("chip_ab: no CUDA device; nothing was run", file=sys.stderr)
         return 2
@@ -92,6 +206,10 @@ def main():
                 cs.main_path(dev, cs.write_base_ckpt(workdir))
         elif phase == "serving_device":
             serving_device(dev, label)
+        elif phase in ("k7", "k8", "rates"):
+            {"k7": k7, "k8": k8, "rates": rates}[phase](dev, label, cs)
+        elif profile_dir and phase != "clip_bf16":
+            paths[phase](dev, profile_dir)
         else:
             paths[phase](dev)
         torch.cuda.empty_cache()

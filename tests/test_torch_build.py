@@ -159,5 +159,5 @@ def test_wrappers_raise_for_a_tensor_off_the_cpu_and_cuda(which):
             adamw_ema.adamw_ema(
                 [t(C, C)], [t(C, C)], [t(C, C)], [t(C, C)], [None], [True],
                 adamw_ema.update_scalars(1e-3, 0.04, 0.99, 1, 0.9, 0.999,
-                                         1e-6))
+                                         1e-6), adamw_ema.LeafTable())
     assert kb.LAUNCHES[which] == 0

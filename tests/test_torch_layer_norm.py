@@ -3,8 +3,9 @@
 forward, and the backward (K8's plain version) against ``jax.grad`` through
 the Pallas kernel in interpret mode.
 
-Rows R = 150 and 1000 (neither a multiple of the kernel's row block), C in
-{96, 384}; gradients of sum(sin(y)). f32: rel L2 <= 1e-5; bf16 (x and
+Rows R = 37, 150 and 1000 (none a multiple of the kernel's row block), C
+in {96, 100, 384} (100 bf16 values are not a whole number of 16-byte
+vectors); gradients of sum(sin(y)). f32: rel L2 <= 1e-5; bf16 (x and
 the incoming gradient rounded to bf16 where the Pallas path rounds them):
 dx rel L2 <= 1e-2, dscale/dbias (f32 sums of the same bf16 operands) 1e-4.
 Constant rows (variance 0) stay finite.
@@ -56,7 +57,7 @@ def _port(x, s, b, dtype):
     return [a.detach().float().numpy() for a in (y, xt.grad, st.grad, bt.grad)]
 
 
-@pytest.mark.parametrize("shape", [(3, 50, 96), (1000, 384)])
+@pytest.mark.parametrize("shape", [(3, 50, 96), (1000, 384), (37, 100)])
 def test_layer_norm_matches_pallas_f32(shape):
     x, s, b = _inputs(shape, seed=shape[-1])
     want = _jax(x, s, b, jnp.float32)
@@ -66,8 +67,9 @@ def test_layer_norm_matches_pallas_f32(shape):
         assert _rel(a, w) <= 1e-5, (name, _rel(a, w))
 
 
-def test_layer_norm_matches_pallas_bf16():
-    x, s, b = _inputs((3, 50, 96), seed=1)
+@pytest.mark.parametrize("shape", [(3, 50, 96), (37, 100)])
+def test_layer_norm_matches_pallas_bf16(shape):
+    x, s, b = _inputs(shape, seed=1)
     want = _jax(x, s, b, jnp.bfloat16)
     got = _port(x, s, b, torch.bfloat16)
     for name, a, w, tol in zip(("y", "dx", "dscale", "dbias"), got, want,
@@ -102,3 +104,41 @@ def test_layer_norm_pg_module_is_a_layer_norm():
     np.testing.assert_allclose(ln(x).detach().numpy(),
                                ref(x).detach().numpy(), atol=1e-5)
     assert ln(x.bfloat16()).dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("shape,dtype", [
+    ((192 * 151, 384), torch.float32), ((192 * 250, 768), torch.bfloat16),
+    ((37, 100), torch.bfloat16), ((2, 5, 1000), torch.float32)])
+def test_kernel_path_launch_gets_the_partial_buffer(shape, dtype,
+                                                    monkeypatch):
+    """K8's launcher gets x and dy as [R, C], dx of x's shape and type, one
+    f32 row of column sums [2, C] per block of its grid (two blocks an SM
+    at most, none without a row), and a [2, C] f32 output whose rows are
+    the dscale and dbias returned; no zeroed buffer. Meta tensors reach the
+    kernel path; the launch is captured instead of run."""
+    from audiossl_tpu_torch.kernels import build as kb
+
+    launched = []
+    monkeypatch.setattr(kb, "require_cuda", lambda *a: None)
+    monkeypatch.setattr(kb, "ptr", lambda t: t)
+    monkeypatch.setattr(kb, "launch",
+                        lambda name, dev, *args: launched.append((name, args)))
+    monkeypatch.setattr(tln, "_sm_count", lambda dev: 132)
+    meta = torch.device("meta")
+    x = torch.empty(shape, device=meta, dtype=dtype)
+    C, R = shape[-1], int(np.prod(shape[:-1]))
+    dx, ds, db = tln.ln_bwd(x, torch.empty_like(x),
+                            torch.empty(C, device=meta), 1e-6)
+    (name, args), = launched
+    xa, ga, sa, dxa, partial, dsb, blocks, code, r, c, eps = args
+    assert name == "ln_pg_bwd" and (r, c, eps) == (R, C, 1e-6)
+    assert code == kb.DTYPE_CODES[dtype]
+    assert tuple(xa.shape) == tuple(ga.shape) == tuple(dxa.shape) == (R, C)
+    assert dxa.dtype == dtype and dx.shape == x.shape
+    assert blocks == min(2 * 132, -(-R // 8))
+    assert tuple(partial.shape) == (blocks, 2, C)
+    assert partial.dtype == dsb.dtype == torch.float32
+    assert tuple(dsb.shape) == (2, C)
+    assert ds.shape == db.shape == (C,)
+    assert ds._base is dsb and db._base is dsb
+    assert (ds.storage_offset(), db.storage_offset()) == (0, C)
