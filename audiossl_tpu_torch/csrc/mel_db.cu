@@ -3,98 +3,144 @@
 //
 // Replaces the TPU kernel audiossl_tpu/ops/pallas_mel.py:39 stft_to_mel_db
 // (_mel_db_kernel :28), which per (clip, 256-frame tile) squares the
-// interleaved real/imag STFT in VMEM, multiplies by the [n_mels, F]
-// filterbank on the MXU and takes 10*log10(max(mel, amin)).
+// real/imag STFT in VMEM, multiplies by the dense [n_mels, F] filterbank
+// on the MXU and takes 10*log10(max(mel, amin)).
 //
-// What bounds it on the H100: per 10 s clip it reads the f32 STFT
-// [2*513, 1001] (4.1 MB) and writes the mel [64, 1001] (0.26 MB) for 66
-// MFLOP -- about 16 FLOP per byte, near the f32 (non tensor core) ridge
-// point, so device-memory bandwidth and f32 FMA rate bound it together.
-// The design reads the STFT exactly once and never writes the [B, F, T]
-// power array, which is the traffic the TPU kernel was written to avoid.
+// What bounds it on the H100: the recipe's filterbank (HTK triangles, 513
+// bins, 64 mels) holds 970 non-zeros of 32,832: each mel is one contiguous
+// run of 4-39 bins and no bin feeds more than 2 mels. Done band-sparse, a
+// frame needs ~5 kFLOP against the 4.1 KB of f32 STFT it reads and the
+// 256 bytes of mel it writes: a pure streaming pass, bound by device-memory
+// bandwidth (3.35 TB/s). The [B, F, T] power array never reaches device
+// memory.
 //
-// Design (first, simple version): f32 throughout. One block of 256 threads
-// per (64-frame tile, 64-mel tile, clip); the frequency axis runs in chunks
-// of 32: each chunk's power (re^2 + im^2) and filterbank slice are staged
-// in shared memory (2 x 8 KB; the whole 64 x 513 filterbank, 131 KB, would
-// need dynamic shared memory), then each thread accumulates a 4 x 4
-// (mel x frame) patch. The ragged frame edge (T = 1001) and the last
-// frequency chunk (513 = 16*32 + 1) are masked in the kernel; nothing is
-// padded.
+// Design. The wrapper (ops/mel_db.py) turns the filterbank into a band
+// table once: each mel's band from its first to its last non-zero bin
+// (zeros inside a band kept, so the table gives the filterbank back
+// exactly), flattened into one list of (bin, weight) pairs, mel after mel,
+// a flag on each band's last pair; the mels are cut into groups of about
+// the same number of pairs, so that at 8 clips the grid (group, frame
+// tile, clip) covers the 132 SMs several times. A block owns NF * TT
+// frames of one clip and one group; a thread owns NF frames TT apart, so
+// every warp reads 128 contiguous bytes of an STFT row at a time. A thread
+// walks its group's pairs in turns of U: it issues the turn's 2 * U * NF
+// loads (real and imaginary values of each frame) before any arithmetic
+// (96 bytes a thread: ~96 KB in flight an SM at 8 blocks an SM),
+// then adds fmaf(w, re^2 + im^2, acc) in pair order -- ascending bins
+// within a mel -- into one register a frame, and writes a mel's dB
+// (coalesced along T) where its band ends. Every index into the turn's
+// registers is a compile-time constant. On finite inputs the band sum is
+// the dense sum less terms that are +0 (weights and powers are >= 0). A
+// bin shared by two mels is loaded twice, the second time from L1 or L2
+// (a ring of powers in shared memory that read it once measured slower:
+// its reads sat on the accumulation's chain). The table is read by uniform
+// (warp-broadcast) loads. The row pitch (T = 1001: 4,004 bytes) starts no
+// row on a 16-byte boundary, which rules out float4 loads and TMA; the
+// loads are 4-byte and coalesced. Ragged T is masked per frame; nothing is
+// padded. logf (1 ulp) keeps the dB at the plain version's, at 64 logs a
+// frame against ~1,900 loads.
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int TT = 64;  // frames per block
-constexpr int MT = 64;  // mels per block
-constexpr int FC = 32;  // frequencies per shared-memory chunk
+constexpr int TT = 128;  // threads a block
+constexpr int NF = 2;    // frames a thread, TT apart
+constexpr int U = 6;     // pairs a turn
+constexpr int BIN_MASK = 0xffff;  // a pair's bin; the flags above it
+constexpr int LAST = 1 << 16;     // the pair ends its mel's band
+constexpr int EMPTY = 1 << 17;    // the mel has no band: no term, write amin
 constexpr float LOG10_SCALE = 4.342944819032518f;  // 10 / ln(10)
 
-__global__ void __launch_bounds__(256)
-    mel_db_kernel(const float* __restrict__ stft, const float* __restrict__ fb,
-                  float* __restrict__ out, int F, int T, int n_mels,
-                  float amin) {
-  __shared__ float P[FC][TT];
-  __shared__ float Fb[FC][MT];
-  const int b = blockIdx.z, m0 = blockIdx.y * MT, t0 = blockIdx.x * TT;
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const float* re = stft + (size_t)b * 2 * F * T;
-  const float* im = re + (size_t)F * T;
+// one turn: U pairs' words and weights, and their real and imaginary
+// values at each of the thread's frames
+struct Turn {
+  int e[U];
+  float w[U], x[U][NF], y[U][NF];
+};
 
-  float acc[4][4] = {};
-  for (int f0 = 0; f0 < F; f0 += FC) {
-    for (int e = tid; e < FC * TT; e += 256) {
-      int f = e / TT, t = e % TT, gf = f0 + f, gt = t0 + t;
-      float p = 0.0f;
-      if (gf < F && gt < T) {
-        float x = re[(size_t)gf * T + gt], y = im[(size_t)gf * T + gt];
-        p = x * x + y * y;
-      }
-      P[f][t] = p;
+// issues every load of the turn of pairs [k0, k0 + U) (those below k1)
+__device__ __forceinline__ void load(Turn& c, int k0, int k1,
+                                     const int* __restrict__ pairs,
+                                     const float* __restrict__ weights,
+                                     const float* __restrict__ re,
+                                     const float* __restrict__ im, int T,
+                                     const bool (&in)[NF]) {
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const bool ok = k0 + u < k1;
+    c.e[u] = ok ? __ldg(pairs + k0 + u) : 0;
+    c.w[u] = ok ? __ldg(weights + k0 + u) : 0.0f;
+    const size_t row = (size_t)(c.e[u] & BIN_MASK) * T;
+#pragma unroll
+    for (int j = 0; j < NF; ++j) {
+      c.x[u][j] = ok && in[j] ? __ldg(re + row + j * TT) : 0.0f;
+      c.y[u][j] = ok && in[j] ? __ldg(im + row + j * TT) : 0.0f;
     }
-    for (int e = tid; e < FC * MT; e += 256) {
-      int f = e / MT, m = e % MT, gf = f0 + f, gm = m0 + m;
-      Fb[f][m] = (gf < F && gm < n_mels) ? fb[(size_t)gf * n_mels + gm] : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int f = 0; f < FC; ++f) {
-      float pv[4], fv[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) pv[j] = P[f][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) fv[i] = Fb[f][ty + 16 * i];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(fv[i], pv[j], acc[i][j]);
-    }
-    __syncthreads();
   }
+}
+
+// table: pair0 [n_groups + 1] (each group's first pair), mel0 [n_groups]
+// (its first mel), pairs [n_pairs] (bin | flags), weights [n_pairs] (f32)
+__global__ void __launch_bounds__(TT)
+    mel_db_kernel(const float* __restrict__ stft, const int* __restrict__ table,
+                  float* __restrict__ out, int F, int T, int n_mels,
+                  int n_groups, int n_pairs, float amin) {
+  const int g = blockIdx.x, b = blockIdx.z;
+  const int t = blockIdx.y * TT * NF + threadIdx.x;
+  if (t >= T) return;
+  bool in[NF];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    int m = m0 + ty + 16 * i;
-    if (m >= n_mels) continue;
+  for (int j = 0; j < NF; ++j) in[j] = t + j * TT < T;
+  const int* pair0 = table;
+  const int* mel0 = pair0 + n_groups + 1;
+  const int* pairs = mel0 + n_groups;
+  const float* weights = reinterpret_cast<const float*>(pairs + n_pairs);
+  const float* re = stft + (size_t)b * 2 * F * T + t;
+  const float* im = re + (size_t)F * T;
+  float* o = out + ((size_t)b * n_mels + __ldg(mel0 + g)) * T + t;
+  const int k1 = __ldg(pair0 + g + 1);
+  float acc[NF];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      int t = t0 + tx + 16 * j;
-      if (t < T)
-        out[((size_t)b * n_mels + m) * T + t] =
-            LOG10_SCALE * logf(fmaxf(acc[i][j], amin));
+  for (int j = 0; j < NF; ++j) acc[j] = 0.0f;
+  int k0 = __ldg(pair0 + g);
+  Turn cur;
+  for (; k0 < k1; k0 += U) {
+    load(cur, k0, k1, pairs, weights, re, im, T, in);
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (k0 + u >= k1) break;
+      if (!(cur.e[u] & EMPTY)) {
+#pragma unroll
+        for (int j = 0; j < NF; ++j)  // the power rounded as the plain one's
+          acc[j] = fmaf(cur.w[u],
+                        __fadd_rn(__fmul_rn(cur.x[u][j], cur.x[u][j]),
+                                  __fmul_rn(cur.y[u][j], cur.y[u][j])),
+                        acc[j]);
+      }
+      if (cur.e[u] & LAST) {
+#pragma unroll
+        for (int j = 0; j < NF; ++j) {
+          if (in[j]) o[j * TT] = LOG10_SCALE * logf(fmaxf(acc[j], amin));
+          acc[j] = 0.0f;
+        }
+        o += T;
+      }
     }
   }
 }
 
 }  // namespace
 
-extern "C" int mel_db_launch(int device, const float* stft, const float* fb,
+extern "C" int mel_db_launch(int device, const float* stft, const int* table,
                              float* out, int B, int F, int T, int n_mels,
-                             float amin, void* stream) {
+                             int n_groups, int n_pairs, float amin,
+                             void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return e;
-  dim3 grid((T + TT - 1) / TT, (n_mels + MT - 1) / MT, B);
-  mel_db_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      stft, fb, out, F, T, n_mels, amin);
+  dim3 grid(n_groups, (T + NF * TT - 1) / (NF * TT), B);
+  if (grid.y > 65535 || grid.z > 65535) return cudaErrorInvalidConfiguration;
+  mel_db_kernel<<<grid, TT, 0, static_cast<cudaStream_t>(stream)>>>(
+      stft, table, out, F, T, n_mels, n_groups, n_pairs, amin);
   return cudaGetLastError();
 }
 

@@ -47,8 +47,8 @@ _SIGNATURES = {
     # every entry point starts with the device index and ends with the
     # stream; the kernel library links its own CUDA runtime, whose current
     # device is set from the first argument.
-    # stft, fb, out, B, F, T, n_mels, amin
-    "mel_db_launch": [_I, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    # stft, band table, out, B, F, T, n_mels, n_groups, n_pairs, amin
+    "mel_db_launch": [_I, _P, _P, _P] + [_I] * 6 + [_F, _P],
     # x, valid_k, valid_v, dp, ln_w, ln_b, w_qkv, b_qkv, w_proj, b_proj,
     # out, h, qkv, o, B, N, C, H, scale, eps
     "attn_block_launch": [_I] + [_P] * 14 + [_I, _I, _I, _I, _F, _F, _P],

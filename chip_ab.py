@@ -19,9 +19,10 @@ build into ROOT/build); LABEL prefixes every line printed. Phases:
   training-step paths of ``chip_smoke.py`` (clips/s in turns); after
   ``--profile DIR`` (before the phases) the three that take one write a
   profile of one step to DIR/LABEL (``chip_smoke.profile_step``);
-- ``k7``, ``k8``: K7 over the ATST-Frame base student's leaves and K8 at
-  the training shapes, ms per call by CUDA events and on the device (K7
-  also the host's time to issue a call);
+- ``k1``, ``k7``, ``k8``: K1 at the main paths' STFT shapes, K7 over the
+  ATST-Frame base student's leaves and K8 at the training shapes, ms per
+  call by CUDA events and on the device (K1 and K7 also the host's time to
+  issue a call);
 - ``rates``: clips/s of the four steps' kernel paths alone, 5 turns each.
 """
 import os
@@ -32,25 +33,47 @@ import numpy as np
 import torch
 
 
-def device_ms(fn, match=None, iters=50, warmup=5):
+def device_ms(fn, match=None, iters=50, warmup=5, launches=1):
     """Device time per call of ``fn`` by kernel name (``torch.profiler``:
     self CUDA time of the events whose names hold one of ``match``, or of
-    every event), which the host's speed does not move."""
+    every event), which the host's speed does not move. A window may keep
+    fewer records than launches, so each kernel's time is its mean over
+    the records kept times its launches a call (its records over
+    ``iters``, rounded, at least 1); those must add up to ``launches``
+    when ``match`` is given, and each kernel must keep half its records,
+    else the window is profiled again, twice at most, then refused."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        seen = [e for e in prof.key_averages()
+                if e.self_device_time_total > 0
+                and (match is None or any(m in e.key for m in match))]
+        per_call = [max(1, round(e.count / iters)) for e in seen]
+        if (seen and all(2 * e.count >= iters * n
+                         for e, n in zip(seen, per_call))
+                and (match is None or sum(per_call) == launches)):
+            break
+        print(f"device_ms: {[e.count for e in seen]} records of "
+              f"{match or 'the call'} over {iters} calls; profiling again",
+              flush=True)
+    else:
+        raise RuntimeError(f"the profiler dropped records of {match} in "
+                           "three windows")
     us = {}
-    for e in prof.key_averages():
+    for e, n in zip(seen, per_call):
+        if e.count != iters * n:
+            print(f"device_ms: {e.count} records of {e.key[:60]} over "
+                  f"{iters} calls; timed as their mean", flush=True)
         name = e.key.split("(")[0][-60:]
-        if match is None or any(m in e.key for m in match):
-            us[name] = us.get(name, 0.0) + e.self_device_time_total / iters
-    return {k: v / 1e3 for k, v in us.items() if v > 0}
+        us[name] = us.get(name, 0.0) + e.self_device_time_total / e.count * n
+    return {k: v / 1e3 for k, v in us.items()}
 
 
 def serving_device(dev, label):
@@ -79,6 +102,41 @@ def serving_device(dev, label):
     print(f"{label} K2 + K3 device us per call at [8, 250, 768]: total "
           f"{sum(us.values())}; " + ", ".join(
               f"{k} {v}" for k, v in sorted(us.items(), key=lambda kv: -kv[1])))
+
+
+def k1(dev, label, cs):
+    """K1 at the serving, clip-inference, frame-step and clip-step STFT
+    shapes ([8 or 96, 1026, 1001 or 601]) on the STFT of seeded waveforms:
+    ms per call by CUDA events (back to back, the host included), on the
+    device, and the host's time to issue a call."""
+    import time
+
+    from audiossl_tpu_torch.ops.mel_db import stft_to_mel_db
+    from audiossl_tpu_torch.ops.melspec import MelConfig, mel_filterbank, stft_conv
+
+    rng = np.random.RandomState(11)
+    cfg = MelConfig()
+    fb = mel_filterbank(cfg, dev)
+    for b, frames in ((8, 1001), (8, 601), (96, 1001), (96, 601)):
+        wav = torch.from_numpy((rng.randn(b, (frames - 1) * 160) * 0.1).astype(
+            np.float32)).to(dev)
+        stft = stft_conv(wav, cfg)
+
+        def fn():
+            stft_to_mel_db(stft, fb, cfg.amin)
+
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            fn()
+        host = (time.perf_counter() - t0) / 20 * 1e3
+        torch.cuda.synchronize()
+        dev_ms = sum(device_ms(fn, ("mel_db_kernel",), iters=20).values())
+        print(f"{label} K1 {list(stft.shape)}: events {cs.cuda_ms(fn)} ms, "
+              f"device {dev_ms} ms, host {host} ms")
+        del wav, stft
+        torch.cuda.empty_cache()
 
 
 def k7(dev, label, cs):
@@ -133,7 +191,8 @@ def k8(dev, label, cs):
         def fn():
             ln.ln_bwd(x, g, sc, 1e-6)
 
-        dev_ms = sum(device_ms(fn, ("ln_pg_",), iters=20).values())
+        dev_ms = sum(device_ms(fn, ("ln_pg_",), iters=20,
+                                launches=2).values())
         print(f"{label} K8 [{rows}, {c}] {dtype}: events "
               f"{cs.cuda_ms(fn, iters=20)} ms, device {dev_ms} ms")
 
@@ -206,8 +265,9 @@ def main():
                 cs.main_path(dev, cs.write_base_ckpt(workdir))
         elif phase == "serving_device":
             serving_device(dev, label)
-        elif phase in ("k7", "k8", "rates"):
-            {"k7": k7, "k8": k8, "rates": rates}[phase](dev, label, cs)
+        elif phase in ("k1", "k7", "k8", "rates"):
+            {"k1": k1, "k7": k7, "k8": k8, "rates": rates}[phase](dev, label,
+                                                               cs)
         elif profile_dir and phase != "clip_bf16":
             paths[phase](dev, profile_dir)
         else:

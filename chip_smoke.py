@@ -29,9 +29,15 @@ sm_90a) and the CUDA toolkit:
    epilogue, each main shape timed beside ``torch._int_mm`` of the same
    codes in TOP/s and as a share of the int8 peak;
 2. holds each kernel against its plain PyTorch version on the card, with
-   its error and both times from CUDA events: K1-K3 at the serving shapes
-   (8 clips of 10 s, 250 tokens, width 768; K1 also in device time from
-   the profiler), K2 and K3 at the bf16 frame step's teacher shape (192
+   its error and both times from CUDA events: K1 at the main paths' STFT
+   shapes (serving's 8 and the frame step's 96 clips of 10 s, clip
+   inference's 8 and the clip step's 96 crops of 6 s: [8 or 96, 1026, 1001
+   or 601]), also in device time from the profiler and in the host's time
+   to issue a call, its second and third calls under
+   ``set_sync_debug_mode("error")``, and untimed with a dense random
+   filterbank (one mel all zero) and at 97 frames; K2 and K3 at the
+   serving shapes (8 clips of 10 s, 250 tokens, width 768), K2 and K3 at
+   the bf16 frame step's teacher shape (192
    sequences of 250 tokens, width 768); the training mel (TF32 STFT)
    against the f32 one; K4 and K5, forward and every gradient, at the
    ATST-Frame base step's shapes (192 sequences of 250 tokens, width 768);
@@ -101,6 +107,8 @@ sm_90a) and the CUDA toolkit:
 ``--profile DIR`` also writes a ``torch.profiler`` table and trace of one
 kernel-path step of phases 4, 5, 7 and 8 to DIR.
 
+The STFT shapes the main paths hand K1 are recorded by path and must
+include the shapes K1 was timed at.
 Any failed check raises and exits non-zero. Without a CUDA device, or
 without the package beside it, it exits non-zero and prints no result.
 The last two lines are a JSON summary of the kernels and the result line
@@ -205,24 +213,51 @@ def cuda_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, match=None, iters=10, warmup=3):
+def device_ms(fn, match=None, iters=10, warmup=3, launches=1):
     """Device time per call of ``fn``: the profiler's self CUDA time of the
     kernels whose names hold one of the strings in ``match`` (of every
     device event when None), over ``iters`` calls after ``warmup``. The
-    card's own time, which the host's launch cost does not reach."""
+    card's own time, which the host's launch cost does not reach.
+
+    A profiling window may hold fewer records than launches (on the H100
+    some windows keep 9 of 10 calls' kernels), which a sum over the window
+    divided by ``iters`` would read as a shorter call. So each kernel's
+    time is its mean over the records kept, times its launches a call
+    (its records over ``iters``, rounded, at least 1); those launches must
+    add up to ``launches`` (when ``match`` is given) and each kernel must
+    keep at least half its records, else the window is profiled again,
+    twice at most."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if match is None or any(m in e.key for m in match))
-    check(us > 0, f"the profiler saw device time of {match or 'the call'}")
-    return us / iters / 1e3
+    what = match or "the call"
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        seen = [e for e in prof.key_averages()
+                if e.self_device_time_total > 0
+                and (match is None or any(m in e.key for m in match))]
+        counts = [e.count for e in seen]
+        per_call = [max(1, round(c / iters)) for c in counts]
+        us = sum(e.self_device_time_total / c * n
+                 for e, c, n in zip(seen, counts, per_call))
+        ok = (bool(seen) and all(2 * c >= iters * n
+                                 for c, n in zip(counts, per_call))
+              and (match is None or sum(per_call) == launches))
+        if ok:
+            break
+        print(f"device_ms: {counts} records of {what} over {iters} calls; "
+              "profiling again")
+    check(ok, f"the profiler kept the launches of {what} ({counts} records "
+          f"over {iters} calls)")
+    if sum(counts) != iters * sum(per_call):
+        print(f"device_ms: {counts} records of {what} over {iters} calls; "
+              "timed as the mean over the records kept")
+    return us / 1e3
 
 
 def card_state(label):
@@ -334,17 +369,18 @@ def spills(props):
     return [int(v) for v in re.findall(r"(\d+) bytes spill", props)]
 
 
-def k7_k8_build_report():
-    """Registers and spills of K7's kernel and of each K8 instantiation
-    (element type, vector width V, lanes a row, vectors a lane) and its
-    column-sum kernel, from the build's ``-Xptxas -v`` log.
-    Fails if K7, the column sums or an instantiation the main paths run
+def k1_k7_k8_build_report():
+    """Registers and spills of K1's and K7's kernels and of each K8
+    instantiation (element type, vector width V, lanes a row, vectors a
+    lane) and its column-sum kernel, from the build's ``-Xptxas -v`` log.
+    Fails if K1, K7, the column sums or an instantiation the main paths run
     (widths 384 and 768 in f32 and bf16) spills."""
     import re
 
     main = {("f32", 4, 32, 3), ("f32", 4, 32, 6), ("bf16", 8, 16, 3),
             ("bf16", 8, 32, 3)}
-    props = ptxas_props("adamw_ema_kernel|ln_pg_bwd_kernel|ln_pg_colsum")
+    props = ptxas_props(
+        "mel_db_kernel|adamw_ema_kernel|ln_pg_bwd_kernel|ln_pg_colsum")
     seen = set()
     for name, p in sorted(props.items()):
         m = re.search(r"ln_pg_bwd_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)"
@@ -356,16 +392,17 @@ def k7_k8_build_report():
             held = key in main
             seen.add(key)
         else:
-            short = ("adamw_ema_kernel" if "adamw_ema" in name
-                     else "ln_pg_colsum_kernel")
+            short = next(k for k in ("mel_db_kernel", "adamw_ema_kernel",
+                                     "ln_pg_colsum_kernel") if k in name)
             held = True
         print(f"build: {short}: {p}")
         if held:
             sp = spills(p)
             check(len(sp) == 2 and not any(sp),
                   f"{short} spills nothing ({sp} bytes stored, loaded)")
-    check(main <= seen and any("adamw_ema" in n for n in props),
-          "the build log lists K7 and K8's main-path instantiations")
+    check(main <= seen and all(any(k in n for n in props)
+                               for k in ("mel_db", "adamw_ema")),
+          "the build log lists K1, K7 and K8's main-path instantiations")
 
 
 def gemm_build_report():
@@ -574,39 +611,137 @@ def gemm_s8_checks(dev):
     torch.cuda.empty_cache()
 
 
-def kernel_checks(dev):
-    """K1, K2, K3 against their plain versions at the serving shapes (K1
-    also in device time), and K2 and K3 at the bf16 frame step's teacher
-    shape [192, 250, 768]."""
-    from audiossl_tpu_torch.ops.mel_db import stft_to_mel_db, stft_to_mel_db_ref
+# K1 at the main paths' STFT shapes [B, 2 * 513, T] (the shapes the run
+# records from its launches must include them): serving 8 x 10 s, clip
+# inference 8 x 6 s, the frame step 96 x 10 s, the clip step 96 x 6 s crops
+K1_SHAPES = {"serving": (B, 1026, 1001), "clip_serving": (B, 1026, 601),
+             "frame_bf16": (TRAIN_B, 1026, 1001),
+             "clip_f32": (TRAIN_B, 1026, 601)}
+K1_SEEN = set()  # the STFT shapes handed to K1 on the card (record_k1_shapes)
+
+
+def record_k1_shapes():
+    """Adds the shape of every STFT the mel front end hands K1 on the card
+    to ``K1_SEEN``; the call and its launch count go on as they were."""
+    from audiossl_tpu_torch.ops import melspec
+
+    kernel = melspec.stft_to_mel_db
+
+    def recorded(stft, fb, amin=1e-10):
+        if stft.is_cuda:
+            K1_SEEN.add(tuple(stft.shape))
+        return kernel(stft, fb, amin)
+
+    melspec.stft_to_mel_db = recorded
+
+
+def mel_db_checks(dev):
+    """K1 against its plain version at each shape of ``K1_SHAPES`` (on the
+    STFT of seeded waveforms, the recipe's filterbank), each with its
+    device time (profiler), its time by CUDA events over back-to-back calls
+    (the host included), the host's own time to issue a call, the plain
+    version's time and the bound; its first call for the filterbank builds
+    the band table, the next two run under ``set_sync_debug_mode("error")``;
+    then, untimed, a dense random filterbank with an all-zero mel column
+    and a 97-frame clip. Returns the serving shape's numbers, the largest
+    error of every case and each shape's numbers under ``shapes``."""
+    from audiossl_tpu_torch.ops import mel_db as md
     from audiossl_tpu_torch.ops.melspec import MelConfig, mel_filterbank, stft_conv
 
     rng = np.random.RandomState(SEED)
-    res = {}
     cfg = MelConfig()
-    wav = torch.from_numpy((rng.randn(B, SAMPLES) * 0.1).astype(np.float32))
-    stft = stft_conv(wav.to(dev), cfg)
     fb = mel_filterbank(cfg, dev)
-    got = stft_to_mel_db(stft, fb, cfg.amin)
-    want = stft_to_mel_db_ref(stft, fb, cfg.amin)
-    err = float((got - want).abs().max())
-    print(f"K1 mel_db {tuple(stft.shape)} -> {tuple(got.shape)}: "
-          f"max_abs_err {err} dB, rel_l2 {rel_l2(got, want)}")
-    check(err <= K1_ATOL_DB, f"K1 max abs error {err} <= {K1_ATOL_DB} dB")
-    # power (3 per bin), the filterbank product (2 per bin and mel), dB
-    n_f, n_mels = fb.shape
-    res["mel_db"] = dict(
-        max_abs_err=err,
-        ms=cuda_ms(lambda: stft_to_mel_db(stft, fb, cfg.amin)),
-        device_ms=device_ms(lambda: stft_to_mel_db(stft, fb, cfg.amin),
-                            ("mel_db_kernel",)),
-        plain_ms=cuda_ms(lambda: stft_to_mel_db_ref(stft, fb, cfg.amin)),
-        library_ms=None,
-        **bound(nbytes(stft, fb, got),
-                f32=got.shape[0] * got.shape[-1] * n_f * (3 + 2 * n_mels)))
-    print(f"K1 mel_db: {res['mel_db']['ms']} ms (CUDA events), "
-          f"{res['mel_db']['device_ms']} ms (device), bound "
-          f"{res['mel_db']['bound_ms']} ms")
+    md._TABLES.clear()  # the first call below builds the table
+    words, n_groups, n_pairs = md.band_table(fb.cpu().numpy())
+    groups = list(md.table_groups(words, n_groups, n_pairs))
+    n_terms = sum(int((fl & md.EMPTY == 0).sum()) for _, _, fl, _ in groups)
+    lo = min(int(bins.min()) for _, bins, _, _ in groups)
+    hi = max(int(bins.max()) for _, bins, _, _ in groups)
+    print(f"K1 band table: {n_pairs} pairs ({n_terms} terms) over bins "
+          f"{lo}-{hi} in {n_groups} groups")
+
+    def stft_of(b, samples):
+        wav = torch.from_numpy((rng.randn(b, samples) * 0.1).astype(
+            np.float32)).to(dev)
+        return stft_conv(wav, cfg)
+
+    def held(label, stft, fb_):
+        got = md.stft_to_mel_db(stft, fb_, cfg.amin)
+        want = md.stft_to_mel_db_ref(stft, fb_, cfg.amin)
+        err = float((got - want).abs().max())
+        print(f"K1 mel_db {label} {tuple(stft.shape)} -> {tuple(got.shape)}:"
+              f" max_abs_err {err} dB, rel_l2 {rel_l2(got, want)}")
+        check(bool(torch.isfinite(got).all()), f"K1 {label} finite")
+        check(err <= K1_ATOL_DB, f"K1 {label} max abs error {err} <= "
+              f"{K1_ATOL_DB} dB")
+        return err
+
+    shapes, errs = {}, []
+    for label, shape in K1_SHAPES.items():
+        stft = stft_of(shape[0], (shape[2] - 1) * cfg.hop_length)
+        check(tuple(stft.shape) == shape, f"K1 {label} STFT shape {shape}")
+        errs.append(held(label, stft, fb))
+        if not shapes:
+            table = md._device_table(fb)[0]
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                for _ in range(2):
+                    md.stft_to_mel_db(stft, fb, cfg.amin)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            check(md._device_table(fb)[0] is table, "K1 reused its band table")
+            print("ok: K1's second and third calls made no synchronizing call")
+
+        def kernel():
+            md.stft_to_mel_db(stft, fb, cfg.amin)
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            kernel()
+        host_ms = (time.perf_counter() - t0) / 20 * 1e3
+        torch.cuda.synchronize()
+        n_b, _, n_t = shape
+        # what this filterbank needs: the real and imaginary rows of bins
+        # lo..hi read once, the band table read once, the mel written once;
+        # per frame and term its power (3) and FMA (2)
+        out_bytes = 4 * n_b * fb.shape[1] * n_t
+        r = dict(shape=list(shape), max_abs_err=errs[-1],
+                 ms=cuda_ms(kernel), device_ms=device_ms(kernel,
+                                                         ("mel_db_kernel",)),
+                 host_ms=host_ms,
+                 plain_ms=cuda_ms(lambda: md.stft_to_mel_db_ref(
+                     stft, fb, cfg.amin)),
+                 library_ms=None,
+                 **bound(4 * 2 * (hi - lo + 1) * n_b * n_t + 4 * words.size
+                         + out_bytes, f32=5 * n_terms * n_b * n_t))
+        # the whole STFT and the dense filterbank read instead
+        r["bound_stft_ms"] = bound(nbytes(stft, fb) + out_bytes)["bound_ms"]
+        print(f"K1 mel_db {label} {shape}: device {r['device_ms']} ms, "
+              f"events {r['ms']} ms, host {host_ms} ms to issue a call, "
+              f"plain {r['plain_ms']} ms; bound {r['bound_ms']} ms (bins "
+              f"{lo}-{hi}), {r['bound_stft_ms']} ms (the whole STFT)")
+        shapes[label] = r
+        del stft
+        torch.cuda.empty_cache()
+    # a dense random filterbank with an all-zero mel column (every bin of
+    # every other mel in its band), and a ragged 97-frame clip
+    dense = torch.from_numpy(rng.rand(fb.shape[0], fb.shape[1]).astype(
+        np.float32)).to(dev)
+    dense[:, 5] = 0.0
+    errs.append(held("dense filterbank", stft_of(B, SAMPLES), dense))
+    errs.append(held("97 frames", stft_of(2, 96 * cfg.hop_length), fb))
+    return {"mel_db": dict(shapes["serving"], max_abs_err=max(errs),
+                           shapes=shapes)}
+
+
+def kernel_checks(dev):
+    """K1 (``mel_db_checks``), K2 and K3 against their plain versions at the
+    serving shapes, and K2 and K3 at the bf16 frame step's teacher shape
+    [192, 250, 768]."""
+    rng = np.random.RandomState(SEED)
+    res = mel_db_checks(dev)
 
     def t(*shape, s=1.0, off=0.0, dtype=torch.float32):
         a = (rng.randn(*shape) * s + off).astype(np.float32)
@@ -1239,7 +1374,7 @@ def ln_kernel_checks(dev):
 
         r = res[label]
         r.update(ms=cuda_ms(kernel, iters=10),
-                 device_ms=device_ms(kernel, ("ln_pg_",)),
+                 device_ms=device_ms(kernel, ("ln_pg_",), launches=2),
                  plain_ms=cuda_ms(lambda: ln.ln_bwd_ref(x, g, sc, 1e-6),
                                   iters=10),
                  library_ms=cuda_ms(lib, iters=10),
@@ -1375,9 +1510,16 @@ def main_path(dev, path):
                                               load_model)
     from audiossl_tpu_torch.kernels import build as kb
 
+    from audiossl_tpu_torch.ops import mel_db as md
+    from audiossl_tpu_torch.ops.melspec import mel_filterbank
+
     fused = load_model(path, fused=True, device=dev)
     plain = load_model(path, fused=False, device=dev)
     wav8, wav1 = serving_audio()
+    # as in a fresh process: serving builds its filterbank (under its
+    # inference mode) and K1's band table itself
+    mel_filterbank.cache_clear()
+    md._TABLES.clear()
 
     torch.cuda.synchronize()
     kb.reset_launches()
@@ -1387,6 +1529,8 @@ def main_path(dev, path):
     torch.cuda.synchronize()
     launches = dict(kb.LAUNCHES)
     print(f"main path launches (3 forwards): {launches}")
+    check([e[0].is_inference() for e in md._TABLES.values()] == [True],
+          "serving built one filterbank, an inference tensor, and its table")
     check(launches["mel_db"] >= 3, "mel kernel launched in every forward")
     check(launches["attn_block"] == 3 * 12 and launches["mlp_block"] == 3 * 12,
           "12 attention and 12 MLP block launches per forward")
@@ -2032,7 +2176,7 @@ def main():
     t0 = time.perf_counter()
     kb.library()
     print(f"kernel build + load: {time.perf_counter() - t0:.1f} s")
-    k7_k8_build_report()
+    k1_k7_k8_build_report()
 
     gemm_checks(dev)
     res = kernel_checks(dev)
@@ -2050,12 +2194,19 @@ def main():
         res[name]["clip"] = r
     for name, r in d128_checks(dev).items():
         res[name]["d128"] = r
-    paths = {}
+    paths, k1_seen = {}, {}
+    record_k1_shapes()
+
+    def run_path(name, fn):
+        K1_SEEN.clear()
+        paths[name] = fn()
+        k1_seen[name] = sorted(K1_SEEN)
+
     with tempfile.TemporaryDirectory() as workdir:
         path = write_base_ckpt(workdir)
-        paths["serving"] = main_path(dev, path)
-        paths["serving_int8"] = q8_serving_path(dev, path)
-    paths["clip_serving"] = clip_infer_path(dev)
+        run_path("serving", lambda: main_path(dev, path))
+        run_path("serving_int8", lambda: q8_serving_path(dev, path))
+    run_path("clip_serving", lambda: clip_infer_path(dev))
     for name, fn in (("frame_bf16", lambda: frame_bf16_path(dev, args.profile)),
                      ("clip_f32", lambda: clip_f32_path(dev, args.profile)),
                      ("clip_bf16", lambda: clip_bf16_path(dev)),
@@ -2066,7 +2217,12 @@ def main():
                      ("clip_int8dx", lambda: clip_q8_path(dev, "int8dx")),
                      ("clip_int8", lambda: clip_q8_path(dev, "int8"))):
         torch.cuda.empty_cache()
-        paths[name] = fn()
+        run_path(name, fn)
+    print(f"K1 STFT shapes by path: {k1_seen}")
+    for name, shape in K1_SHAPES.items():
+        check(shape in k1_seen[name],
+              f"K1 timed at a shape the {name} path ran, {shape}")
+    res["mel_db"]["path_shapes"] = k1_seen
 
     sources = {
         "mel_db": ("mel_db.cu", "audiossl_tpu/ops/pallas_mel.py:39"),

@@ -2,7 +2,9 @@
 replaced by a stand-in script, so the parallel compile, the link, the
 log and the hashed library name are exercised here; the CUDA sources
 themselves compile only on the card (``chip_smoke.py``)."""
+import ctypes
 import os
+import re
 import stat
 
 import pytest
@@ -67,6 +69,21 @@ def test_missing_nvcc_raises(tmp_path, monkeypatch):
     monkeypatch.setattr(kb, "BUILD_DIR", tmp_path / "build")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         kb.build()
+
+
+@pytest.mark.parametrize("name", sorted(kb._SIGNATURES))
+def test_signatures_match_the_c_entry_points(name):
+    """Each ctypes argument list matches its C declaration in csrc, one
+    type per parameter (a pointer, an int or a float), so a launcher whose
+    parameters changed (such as ``mel_db_launch``'s band table, group and
+    pair counts) cannot be called with a stale list."""
+    src = "\n".join(p.read_text() for p in sorted(kb.CSRC.glob("*.cu")))
+    decl = re.search(rf'extern "C" int {name}\(([^)]*)\)', src)
+    assert decl, f"{name} is declared in csrc"
+    kinds = [ctypes.c_void_p if "*" in p else
+             ctypes.c_float if p.split()[-2:-1] == ["float"] else ctypes.c_int
+             for p in (q.strip() for q in decl.group(1).split(","))]
+    assert kinds == kb._SIGNATURES[name]
 
 
 @pytest.mark.parametrize("which", ["mel_db", "attn_block", "mlp_block",
