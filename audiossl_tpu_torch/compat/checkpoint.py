@@ -1,9 +1,13 @@
 """Weights into the port: reference checkpoints and the JAX package's params.
 
 * :func:`load_pretrain_checkpoint` reads a reference pretraining
-  Lightning ``.ckpt`` and returns the encoder's state dict under the
-  reference names the port's modules use (counterpart of
-  ``audiossl_tpu/compat/torch_import.py:201``);
+  Lightning ``.ckpt`` and returns the encoder's state dict as stored
+  (counterpart of ``audiossl_tpu/compat/torch_import.py:201``);
+* :func:`encoder_state_from_torch` maps such a state dict onto the port's
+  encoder as JAX's importer reads it (``torch_import.py:48
+  encoder_params_from_torch``): either patch-embed layout, optional
+  ``cls_token`` / ``prompt_embed``, unknown keys ignored; and
+  :func:`load_encoder_state` loads it into an encoder;
 * :func:`state_dict_from_flax` turns the JAX package's
   ``AudioTransformer`` param tree (numpy arrays) into the port's state
   dict, the inverse of ``torch_import.encoder_params_from_torch``;
@@ -155,6 +159,77 @@ def _tree_np(tree):
     if isinstance(tree, Mapping):
         return {k: _tree_np(v) for k, v in tree.items()}
     return np.asarray(tree)
+
+
+def encoder_state_from_torch(sd: Mapping[str, torch.Tensor], depth: int,
+                             use_cls: bool) -> Dict[str, torch.Tensor]:
+    """A reference AST / FrameAST state dict (scoped to the encoder) -> the
+    port's encoder state dict, reading the keys JAX's
+    ``encoder_params_from_torch`` reads and no others:
+
+    * the patch embedding from the Linear layout
+      (``patch_embed.patch_embed.*``) or the Conv2d one with kernel =
+      stride (``patch_embed.proj.*``, weight [D, 1, ph, pw] reshaped to
+      [D, ph*pw]: features in (ph, pw) order, the port's patch order);
+    * ``pos_embed``, ``mask_embed``, and ``cls_token`` / ``prompt_embed``
+      when present;
+    * blocks 0..depth-1 (``qkv.bias`` when present);
+    * the final norm from ``norm.*`` or ``norm_frame.*``, under the name
+      the port's encoder gives it (``norm`` when ``use_cls``, else
+      ``norm_frame``).
+
+    Other keys are ignored, as JAX ignores them. A missing patch
+    embedding, embedding or block key raises ``KeyError``."""
+    g = dict(sd)
+    out: Dict[str, torch.Tensor] = {}
+    if "patch_embed.patch_embed.weight" in g:
+        out["patch_embed.patch_embed.weight"] = g[
+            "patch_embed.patch_embed.weight"]
+        out["patch_embed.patch_embed.bias"] = g["patch_embed.patch_embed.bias"]
+    elif "patch_embed.proj.weight" in g:  # Conv2d, kernel == stride
+        w = g["patch_embed.proj.weight"]
+        out["patch_embed.patch_embed.weight"] = w.reshape(w.shape[0], -1)
+        out["patch_embed.patch_embed.bias"] = g["patch_embed.proj.bias"]
+    else:
+        raise KeyError("no patch embed weights found")
+    out["pos_embed"] = g["pos_embed"]
+    out["mask_embed"] = g["mask_embed"]
+    for name in ("cls_token", "prompt_embed"):
+        if name in g:
+            out[name] = g[name]
+    names = ["norm1.weight", "norm1.bias", "norm2.weight", "norm2.bias",
+             "attn.qkv.weight", "attn.proj.weight", "attn.proj.bias",
+             "mlp.fc1.weight", "mlp.fc1.bias", "mlp.fc2.weight",
+             "mlp.fc2.bias"]
+    for i in range(depth):
+        b = f"blocks.{i}."
+        for name in names:
+            out[b + name] = g[b + name]
+        if b + "attn.qkv.bias" in g:
+            out[b + "attn.qkv.bias"] = g[b + "attn.qkv.bias"]
+    norm = "norm" if use_cls else "norm_frame"
+    for src in ("norm", "norm_frame"):
+        if src + ".weight" in g:
+            out[norm + ".weight"] = g[src + ".weight"]
+            out[norm + ".bias"] = g[src + ".bias"]
+            break
+    return out
+
+
+def load_encoder_state(encoder: torch.nn.Module,
+                       sd: Mapping[str, torch.Tensor],
+                       assign: bool = False) -> None:
+    """Load a reference encoder state dict into the port's
+    ``AudioTransformer`` through :func:`encoder_state_from_torch`. Mapped
+    keys the encoder has no place for (``prompt_embed``, which the port's
+    encoder does not hold, or a clip checkpoint's ``cls_token`` in a
+    frame encoder) are dropped, as flax leaves unused params alone; a key
+    the encoder needs and the file lacks raises. ``assign=True`` takes the
+    tensors themselves (an encoder built on the meta device)."""
+    mapped = encoder_state_from_torch(sd, encoder.depth, encoder.use_cls)
+    own = encoder.state_dict()
+    encoder.load_state_dict({k: v for k, v in mapped.items() if k in own},
+                            assign=assign)
 
 
 def load_pretrain_checkpoint(path: str, which: str = "teacher"):

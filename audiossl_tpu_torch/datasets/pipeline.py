@@ -1,0 +1,128 @@
+"""Host-side input pipeline: packed records -> padded numpy batches (the
+port's own copy of ``audiossl_tpu/datasets/pipeline.py``; the same order
+and padding).
+
+The host does only IO and pad/stack; the mel and everything after it run
+on the device. A worker thread with a small thread pool prepares batches
+ahead, so host IO overlaps device work. An error while loading a record
+is raised by the iteration, not swallowed: a split never ends early.
+
+Batches are dicts of numpy arrays with static shapes:
+  wav   [B, pad_samples] float32 or int16 (zero-padded)
+  valid [B]              int32   valid sample counts
+  label [B] / [B, C]     labels
+"""
+from __future__ import annotations
+
+import queue
+import threading
+from concurrent.futures import ThreadPoolExecutor
+from typing import Iterator
+
+import numpy as np
+
+_THREADS = 8   # record loads in flight for one batch
+_PREFETCH = 2  # batches prepared ahead of the consumer
+
+
+class _Failed:
+    """The worker's exception, carried to the consumer."""
+
+    def __init__(self, exc: BaseException):
+        self.exc = exc
+
+
+class BatchLoader:
+    """Iterable over padded batches of a map-style dataset.
+
+    dataset must implement __len__ and __getitem__ -> (wav, label).
+    drop_last=True gives every batch the same shape. ``shuffle`` draws
+    the order from ``np.random.RandomState(seed)``.
+    """
+
+    def __init__(self, dataset, batch_size: int, pad_samples: int,
+                 shuffle: bool = True, drop_last: bool = True,
+                 seed: int = 0, wav_dtype=np.float32):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.pad_samples = pad_samples
+        self.shuffle = shuffle
+        self.drop_last = drop_last
+        self.seed = seed
+        # int16 emit halves host->device batch bytes; dequantized with the
+        # same /32768 scale, int16-stored samples are bitwise-identical to
+        # the float path. float32-returning datasets are re-quantized to
+        # 16 bits (source audio is 16-bit PCM in practice).
+        self.wav_dtype = np.dtype(wav_dtype)
+
+    def __len__(self):
+        n = len(self.dataset)
+        if self.drop_last:
+            return n // self.batch_size
+        return (n + self.batch_size - 1) // self.batch_size
+
+    def _load_one(self, idx: int):
+        wav, label = self.dataset[idx][:2]
+        wav = np.asarray(wav, np.float32).reshape(-1)
+        n = min(len(wav), self.pad_samples)
+        out = np.zeros(self.pad_samples, self.wav_dtype)
+        if self.wav_dtype == np.int16:
+            out[:n] = np.clip(wav[:n] * 32768.0, -32768, 32767)
+        else:
+            out[:n] = wav[:n]
+        return out, n, label
+
+    def _make_batch(self, pool, indices):
+        rows = list(pool.map(self._load_one, indices))
+        labels = [r[2] for r in rows]
+        return {
+            "wav": np.stack([r[0] for r in rows]),
+            "valid": np.asarray([r[1] for r in rows], np.int32),
+            "label": (np.stack(labels) if isinstance(labels[0], np.ndarray)
+                      else np.asarray(labels)),
+        }
+
+    def __iter__(self) -> Iterator[dict]:
+        order = np.arange(len(self.dataset))
+        if self.shuffle:
+            np.random.RandomState(self.seed).shuffle(order)
+        chunks = [order[i * self.batch_size:(i + 1) * self.batch_size]
+                  for i in range(len(self))]
+
+        q: "queue.Queue" = queue.Queue(maxsize=_PREFETCH)
+        stop = threading.Event()
+
+        def put(item) -> bool:
+            # gives up once the consumer has stopped, so no thread is left
+            # blocked on a full queue
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    pass
+            return False
+
+        def worker():
+            try:
+                with ThreadPoolExecutor(_THREADS) as pool:
+                    for c in chunks:
+                        if not put(self._make_batch(pool, c)):
+                            return
+            except BaseException as e:  # re-raised by the consumer
+                put(_Failed(e))
+                return
+            put(None)
+
+        t = threading.Thread(target=worker, daemon=True)
+        t.start()
+        try:
+            while True:
+                b = q.get()
+                if b is None:
+                    return
+                if isinstance(b, _Failed):
+                    raise b.exc
+                yield b
+        finally:
+            stop.set()

@@ -22,7 +22,10 @@ from typing import Optional, Tuple
 
 import torch
 
-from audiossl_tpu_torch.compat.checkpoint import load_pretrain_checkpoint
+from audiossl_tpu_torch.compat.checkpoint import (
+    load_encoder_state,
+    load_pretrain_checkpoint,
+)
 from audiossl_tpu_torch.kernels.build import resolve_device
 from audiossl_tpu_torch.models.atst import (
     AudioTransformer,
@@ -65,7 +68,9 @@ def load_model(ckpt_path: str, arch: Optional[str] = None,
                device="cuda", quant: str = "none") -> EmbeddingModel:
     """Load atstframe_{tiny,small,base} weights from a reference PyTorch
     Lightning checkpoint (.ckpt) onto ``device`` (the card unless the
-    caller asks for the CPU; without a card that raises).
+    caller asks for the CPU; without a card that raises). Either
+    patch-embed layout loads, and keys the encoder does not read are
+    ignored (``compat.checkpoint.encoder_state_from_torch``).
 
     ``arch`` defaults to the checkpoint's ``hyper_parameters["arch"]``,
     else "base". ``fused=True`` builds the encoder JAX's
@@ -94,7 +99,7 @@ def load_model(ckpt_path: str, arch: Optional[str] = None,
     enc = _ARCHS[arch](spec_w=CHUNK_FRAMES, fused=fused, device=device,
                        dtype=torch.bfloat16 if fused else torch.float32,
                        infer_quant=quant)
-    enc.load_state_dict(sd)
+    load_encoder_state(enc, sd)
     enc.requires_grad_(False)
     return EmbeddingModel(encoder=enc.eval())
 

@@ -6,14 +6,21 @@ frame-level one (``use_cls=False``, reference
 token, final norm ``norm_frame``) and the clip-level one (``use_cls=True``,
 reference ``audiossl/models/atst/audio_transformer.py`` AST: a CLS token
 before the patches, final norm ``norm``, the pretraining forward returns
-the normed CLS token). No prompt tokens, no block averaging, "cut"
-position embeddings. Parameter names are the reference's, so a reference
-state dict loads with ``load_state_dict``.
+the normed CLS token, or with ``avg=True`` the mean of the last 8 blocks'
+CLS token). No prompt tokens and no data2vec block averaging. Position
+embeddings are "cut" (the first tokens' rows) or, with
+``pos_type="interpolate"``, the patch grid resized bicubically to the
+input's. Parameter names are the reference's, so a reference state dict
+loads with ``load_state_dict``.
 
 The inference passes (:meth:`AudioTransformer.get_intermediate_layers`)
 compute in ``dtype`` from the patch projection on, as the JAX encoder
 does: a clip encoder prepends the CLS token, and the blocks mask keys
-with the valid token counts, CLS included. ``fused=True`` runs the blocks
+with the valid token counts, CLS included. The clip encoder's downstream
+API (:meth:`AudioTransformer.cls_avg_layers`,
+:meth:`AudioTransformer.get_intermediate_layers_chunks`, as the linear
+probe runs it) and :meth:`AudioTransformer.get_last_selfattention` are
+JAX's, quirks included. ``fused=True`` runs the blocks
 through the inference block kernels (``ops/block_infer.py``) with the four
 matmul weights of every block held in ``dtype``, and normalizes with
 ``LayerNormPG``; with ``dtype=torch.bfloat16`` that is the encoder JAX's
@@ -67,6 +74,7 @@ from audiossl_tpu_torch.models.transformer import (
     length_to_attn_mask,
     length_to_token_mask,
 )
+from audiossl_tpu_torch.ops.interpolate import resize_bicubic
 from audiossl_tpu_torch.ops.quant import check_quant
 
 
@@ -115,15 +123,21 @@ class AudioTransformer(nn.Module):
                  dtype: torch.dtype = torch.float32,
                  fused_attention: bool = False, fused_infer: bool = False,
                  plain: bool = False, use_cls: bool = False,
-                 infer_quant: str = "none", train_quant: str = "none"):
+                 infer_quant: str = "none", train_quant: str = "none",
+                 pos_type: str = "cut"):
         """Parameters are drawn on the CPU from ``generator`` (seed 0 when
         None) as the reference initializes them, then moved to
-        ``device``. ``dtype`` is the compute dtype of both passes;
-        ``fused`` the inference route; ``fused_attention``,
+        ``device``; ``device="meta"`` gives the shapes and draws nothing.
+        ``dtype`` is the compute dtype of both passes; ``fused`` the
+        inference route; ``fused_attention``,
         ``fused_infer``, ``plain`` and the quant options configure the
         pretraining forward (module docstring); ``use_cls`` makes the
-        clip-level encoder."""
+        clip-level encoder; ``pos_type`` is "cut" or "interpolate"."""
         super().__init__()
+        if pos_type not in ("cut", "interpolate"):
+            raise ValueError(f"unknown pos_type {pos_type!r}")
+        self.pos_type = pos_type
+        self.spec_h, self.spec_w = spec_h, spec_w
         device = resolve_device(device)
         self.infer_quant = check_quant(infer_quant, ("int8",))
         self.train_quant = check_quant(train_quant)
@@ -167,6 +181,8 @@ class AudioTransformer(nn.Module):
         # ``norm_frame``
         self._norm_name = "norm" if use_cls else "norm_frame"
         self.add_module(self._norm_name, norm)
+        if device.type == "meta":  # shapes only: nothing is drawn
+            return
         # built on the meta device, so nothing draws from the global RNG
         self.to_empty(device="cpu")
         self.reset_parameters(generator)
@@ -211,6 +227,20 @@ class AudioTransformer(nn.Module):
             return plen
         return plen + 1
 
+    def _interpolated_pos(self, h: int, w: int) -> torch.Tensor:
+        """pos_type="interpolate": the position embeddings [1, 1 + h0*w0, D]
+        with the patch grid resized bicubically from the checkpoint's
+        (align_corners=False) to the h x w mel's, in f32 (JAX's
+        ``_interpolated_pos``, ``audiossl_tpu/models/atst.py:146``)."""
+        H0, W0 = self.spec_h // self.patch_h, self.spec_w // self.patch_w
+        h0, w0 = h // self.patch_h, w // self.patch_w
+        if h0 * w0 == H0 * W0 and h == self.spec_h and w == self.spec_w:
+            return self.pos_embed
+        grid = self.pos_embed[:, 1:].reshape(1, H0, W0, self.embed_dim)
+        grid = resize_bicubic(grid.permute(0, 3, 1, 2), h0, w0)
+        grid = grid.permute(0, 2, 3, 1).reshape(1, -1, self.embed_dim)
+        return torch.cat([self.pos_embed[:, :1], grid], dim=1)
+
     def prepare_tokens(self, mel: torch.Tensor,
                        length: Optional[torch.Tensor] = None,
                        mask_index: Optional[torch.Tensor] = None,
@@ -220,8 +250,8 @@ class AudioTransformer(nn.Module):
         projection (its product, then its bias, each rounded to ``dtype``,
         as flax's ``Dense``), with ``apply_mask`` the tokens of
         ``mask_index`` [B, Np] (bool) replaced by ``mask_embed``, a clip
-        encoder's CLS token before the patches (N = Np + 1), and the cut
-        position embeddings."""
+        encoder's CLS token before the patches (N = Np + 1), and the
+        position embeddings of ``pos_type``."""
         dt = self.dtype
         B, F, T = mel.shape
         lin = self.patch_embed.patch_embed
@@ -235,11 +265,12 @@ class AudioTransformer(nn.Module):
         if mask_index is not None and apply_mask:
             m = mask_index[:, :, None].to(dt)
             x = (1.0 - m) * x + m * self.mask_embed.to(dt)
+        pos = (self.pos_embed[:, :Np + 1] if self.pos_type == "cut"
+               else self._interpolated_pos(F, T))
         if self.use_cls:
             cls = self.cls_token.to(dt).expand(B, 1, self.embed_dim)
-            return (torch.cat([cls, x], dim=1)
-                    + self.pos_embed[:, :Np + 1].to(dt)), plen
-        return x + self.pos_embed[:, 1: Np + 1].to(dt), plen
+            return torch.cat([cls, x], dim=1) + pos.to(dt), plen
+        return x + pos[:, 1:].to(dt), plen
 
     def run_blocks(self, x, lengths, collect_from: Optional[int] = None):
         """Run all blocks of an inference pass over tokens x [B, N, D] with
@@ -266,16 +297,25 @@ class AudioTransformer(nn.Module):
     # ----------------------------- pretrain path -------------------- #
     def forward(self, mel: torch.Tensor, length: Optional[torch.Tensor] = None,
                 mask_index: Optional[torch.Tensor] = None,
-                apply_mask: bool = True, dps: Optional[torch.Tensor] = None):
+                apply_mask: bool = True, dps: Optional[torch.Tensor] = None,
+                avg: bool = False):
         """Pretraining forward: mel [B, F, T], frame counts [B], token mask
         [B, Np] (bool), dps [depth, 2, B] drop-path keep multipliers or
         None. With ``apply_mask`` the masked tokens are replaced by
         ``mask_embed`` (the student). Frame level: returns (frames [B, Np,
         D] in ``dtype``, sel [B, Np] = mask & valid, or the validity when
         there is no mask). Clip level: returns the final norm of the CLS
-        token [B, D] in ``dtype`` (reference AST.forward)."""
+        token [B, D] in ``dtype`` (reference AST.forward); with ``avg`` the
+        mean of the raw CLS token of the last 8 blocks' outputs (the
+        reference's blocks i > depth - 9), not normed."""
         x, plen = self.prepare_tokens(mel, length, mask_index, apply_mask)
-        x = self._train_blocks(x, self._attn_lengths(plen), dps)
+        avg = avg and self.use_cls
+        x, collected = self._train_blocks(
+            x, self._attn_lengths(plen), dps,
+            self.depth - 8 if avg else None)
+        if avg:  # jnp.mean: an f32 mean, rounded
+            return (torch.stack(collected).float().mean(dim=0)[:, 0]
+                    .to(x.dtype))
         if self.use_cls:
             return _norm(self.final_norm, x)[:, 0]
         frames = _norm(self.final_norm, x)
@@ -288,19 +328,27 @@ class AudioTransformer(nn.Module):
             sel = mask_index & sel
         return frames, sel
 
-    def _train_blocks(self, x, lengths, dps):
+    def _train_blocks(self, x, lengths, dps,
+                      collect_from: Optional[int] = None):
         """The blocks of the pretraining forward by the route of the module
-        docstring; lengths [B] are the valid token counts or None."""
+        docstring; lengths [B] are the valid token counts or None. Returns
+        (x, the outputs of the blocks >= collect_from)."""
         B, N, _ = x.shape
+        collected = []
+
+        def collect(i, h):
+            if collect_from is not None and i >= collect_from:
+                collected.append(h)
         if self._route == "block_kernels" and (
                 self.fused_infer or not self.training):
             # imported here: ops.block_infer imports models.transformer
             from audiossl_tpu_torch.ops.block_infer import encoder_blocks_infer
 
             return encoder_blocks_infer(self.blocks, x, lengths,
-                                        self.num_heads, self.eps, dps=dps,
+                                        self.num_heads, self.eps,
+                                        collect_from, dps=dps,
                                         dtype=x.dtype, plain=self.plain,
-                                        quant=self.infer_quant)[0]
+                                        quant=self.infer_quant)
         if self._route != "block_kernels":
             # module path; Block(fused_attention=True) on the K6/K8 route
             mask = (None if lengths is None
@@ -308,7 +356,8 @@ class AudioTransformer(nn.Module):
             for i, blk in enumerate(self.blocks):
                 x = blk(x, mask, None if dps is None else (dps[i, 0],
                                                            dps[i, 1]))
-            return x
+                collect(i, x)
+            return x, collected
         from audiossl_tpu_torch.ops.attn_train import fused_attn_block
         from audiossl_tpu_torch.ops.mlp_train import fused_mlp_block
 
@@ -330,7 +379,22 @@ class AudioTransformer(nn.Module):
                 x, dp2, blk.norm2.weight, blk.norm2.bias, blk.mlp.fc1.weight,
                 blk.mlp.fc1.bias, blk.mlp.fc2.weight, blk.mlp.fc2.bias,
                 self.eps, self.plain, self.train_quant)
-        return x
+            collect(i, x)
+        return x, collected
+
+    def get_last_selfattention(self, mel: torch.Tensor,
+                               length: Optional[torch.Tensor] = None):
+        """The softmax attention map [B, H, N, N] of the last block (JAX's
+        ``get_last_selfattention``, ``audiossl_tpu/models/atst.py:379``):
+        the ``Block`` modules with the additive mask, as JAX runs them,
+        not the inference block kernels."""
+        x, plen = self.prepare_tokens(mel, length, apply_mask=False)
+        lengths = self._attn_lengths(plen)
+        mask = (None if lengths is None
+                else length_to_attn_mask(lengths, x.shape[1]))
+        for blk in self.blocks[:-1]:
+            x = blk(x, mask)
+        return self.blocks[-1](x, mask, return_attention=True)
 
     def get_intermediate_layers(self, mel: torch.Tensor,
                                 length: Optional[torch.Tensor] = None,
@@ -369,6 +433,74 @@ class AudioTransformer(nn.Module):
         return torch.cat(outs, dim=-1)
 
 
+    def cls_avg_layers(self, mel: torch.Tensor,
+                       length: Optional[torch.Tensor] = None, n: int = 1):
+        """Per block of the last n, the final norm's CLS token and the mean
+        of the patch tokens after it (JAX's ``cls_avg_layers``,
+        ``audiossl_tpu/models/atst.py:422``; reference ``get_cls_avg``) ->
+        (cls [n, B, D], avg [n, B, D]) in the blocks' dtype. The mean sums
+        the first ``plen`` patches and divides by ``plen + 1e-6``, so a
+        ``length`` beyond the mel's frames divides by more patches than it
+        holds, as in JAX; a frame encoder's cls is zero."""
+        x, plen = self.prepare_tokens(mel, length, apply_mask=False)
+        _, collected = self.run_blocks(x, self._attn_lengths(plen),
+                                       collect_from=self.depth - n)
+        cls_list, avg_list = [], []
+        for h in collected:
+            norm_h = _norm(self.final_norm, h)
+            if self.use_cls:
+                cls_list.append(norm_h[:, 0])
+                body = norm_h[:, 1:]
+            else:
+                cls_list.append(torch.zeros_like(norm_h[:, 0]))
+                body = norm_h
+            if plen is None:  # jnp.mean: an f32 mean, rounded
+                avg_list.append(body.float().mean(dim=1).to(body.dtype))
+                continue
+            mask = length_to_token_mask(plen, body.shape[1])
+            total = (body.float() * mask[:, :, None]).sum(dim=1)
+            count = plen[:, None].to(body.dtype) + 1e-6
+            avg_list.append(total.to(body.dtype) / count)
+        return torch.stack(cls_list), torch.stack(avg_list)
+
+    def get_intermediate_layers_chunks(self, mel: torch.Tensor,
+                                       length: Optional[torch.Tensor] = None,
+                                       n: int = 1, chunk_len: int = 601,
+                                       avgpool: bool = True):
+        """Clip-level inference over long audio (JAX's
+        ``get_intermediate_layers_chunks``, ``audiossl_tpu/models/atst.py:
+        447``): the mel [B, F, T] cut into ``T // chunk_len + 1`` chunks of
+        ``chunk_len`` frames (so T a multiple of ``chunk_len`` gives an
+        all-padding last chunk), all encoded in one batch by
+        :meth:`cls_avg_layers`, then each block's CLS and mean averaged over
+        the chunks a clip marks: the first when it holds a frame, a later
+        one when it holds more than ``chunk_len // 2``. Each chunk's length
+        ``max(length - k * chunk_len, 0)`` is not clamped to the chunk, as
+        in the reference, so the first chunk of a clip longer than one
+        chunk divides its mean by more patches than it holds. Returns
+        [B, 2*n*D] (the CLS of each block, then the means) with
+        ``avgpool``, else [B, n*D]."""
+        B, F, T = mel.shape
+        nc = T // chunk_len + 1
+        if length is None:
+            length = torch.full((B,), T, dtype=torch.int64)
+        length = torch.as_tensor(length, device=mel.device).long()
+        melp = torch.nn.functional.pad(mel, (0, nc * chunk_len - T))
+        chunks = melp.reshape(B, F, nc, chunk_len).permute(0, 2, 1, 3)
+        ks = torch.arange(nc, device=mel.device)
+        cur = torch.clamp(length[:, None] - ks[None, :] * chunk_len, min=0)
+        mark = torch.where(ks[None, :] == 0, cur > 0, cur > chunk_len // 2)
+        cls, avg = self.cls_avg_layers(
+            chunks.reshape(B * nc, F, chunk_len), cur.reshape(-1), n=n)
+        w = mark.to(cls.dtype)[None, :, :, None]
+        denom = w.sum(dim=2)
+        outs = []
+        for t in (cls, avg) if avgpool else (cls,):
+            t = (t.reshape(n, B, nc, -1) * w).sum(dim=2) / denom  # [n, B, D]
+            outs.append(torch.cat(list(t), dim=-1))
+        return torch.cat(outs, dim=-1)
+
+
 def _arch(embed_dim, depth, num_heads, use_cls, **kw):
     return AudioTransformer(embed_dim=embed_dim, depth=depth,
                             num_heads=num_heads, use_cls=use_cls, **kw)
@@ -387,6 +519,10 @@ def ast_base(**kw):
     return _arch(768, 12, 12, True, **kw)
 
 
+def ast_large(**kw):
+    return _arch(1024, 24, 16, True, **kw)
+
+
 def frame_ast_tiny(**kw):
     """Tiny tier for CPU tests (not in the reference)."""
     return _arch(64, 2, 2, False, **kw)
@@ -398,3 +534,7 @@ def frame_ast_small(**kw):
 
 def frame_ast_base(**kw):
     return _arch(768, 12, 12, False, **kw)
+
+
+def frame_ast_large(**kw):
+    return _arch(1024, 24, 16, False, **kw)

@@ -7,6 +7,7 @@ torch's: eps 1e-5, running statistics updated with momentum 0.1 from the
 *unbiased* variance (with the masked row count n), normalization by the
 *biased* batch variance in training; statistics and normalization in f32
 over an input of any dtype, the output in the input's dtype.
+``affine=False`` (the linear probe's head) holds no scale and bias.
 """
 from __future__ import annotations
 
@@ -18,12 +19,14 @@ from torch import nn
 
 class BatchNorm1d(nn.Module):
     def __init__(self, features: int, momentum: float = 0.1,
-                 eps: float = 1e-5, device=None):
+                 eps: float = 1e-5, device=None, affine: bool = True):
         super().__init__()
         self.momentum = momentum
         self.eps = eps
-        self.weight = nn.Parameter(torch.ones(features, device=device))
-        self.bias = nn.Parameter(torch.zeros(features, device=device))
+        self.affine = affine
+        if affine:
+            self.weight = nn.Parameter(torch.ones(features, device=device))
+            self.bias = nn.Parameter(torch.zeros(features, device=device))
         self.register_buffer("running_mean",
                              torch.zeros(features, device=device))
         self.register_buffer("running_var",
@@ -55,4 +58,6 @@ class BatchNorm1d(nn.Module):
                 self.running_var.copy_((1 - self.momentum) * self.running_var
                                        + self.momentum * unbiased)
         y = (xf - mean) / torch.sqrt(var + self.eps)
-        return (y * self.weight + self.bias).to(x.dtype)
+        if self.affine:
+            y = y * self.weight + self.bias
+        return y.to(x.dtype)

@@ -141,11 +141,14 @@ class Attention(nn.Module):
         self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias, device=device)
         self.proj = nn.Linear(dim, dim, device=device)
 
-    def forward(self, x, attn_mask=None):
+    def forward(self, x, attn_mask=None, return_attention: bool = False):
+        """``return_attention``: the softmax map [B, H, N, N] of the module
+        path with the additive mask, never a kernel's (JAX's
+        ``Attention(return_attention=True)``)."""
         B, N, C = x.shape
         H = self.num_heads
         d = C // H
-        if self.fused_attention:
+        if self.fused_attention and not return_attention:
             # imported here: ops.mha imports the kernel build
             from audiossl_tpu_torch.ops.mha import fused_mha
 
@@ -160,6 +163,8 @@ class Attention(nn.Module):
         if attn_mask is not None:
             attn = attn + attn_mask.to(attn.dtype)
         attn = attn.softmax(dim=-1)
+        if return_attention:
+            return attn
         out = torch.einsum("bhnm,bmhd->bnhd", attn, v).reshape(B, N, C)
         return _linear(self.proj, out)
 
@@ -198,9 +203,15 @@ class Block(nn.Module):
         self.mlp = Mlp(dim, int(dim * mlp_ratio), device=device)
 
     def forward(self, x, attn_mask=None,
-                dp: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+                dp: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                return_attention: bool = False):
         """dp: the keep multipliers [B] of the attention and the MLP
-        residual branch (training), or None."""
+        residual branch (training), or None. ``return_attention``: the
+        attention's softmax map [B, H, N, N] of ``norm1(x)`` instead of the
+        block's output (reference ``Block.forward(return_attention=True)``)."""
+        if return_attention:
+            return self.attn(_norm(self.norm1, x), attn_mask,
+                             return_attention=True)
         dp1, dp2 = (None, None) if dp is None else dp
         x = x + drop_path(self.attn(_norm(self.norm1, x), attn_mask), dp1)
         return x + drop_path(self.mlp(_norm(self.norm2, x)), dp2)

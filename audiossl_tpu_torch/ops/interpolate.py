@@ -1,10 +1,14 @@
-"""Bicubic sampling for the RandomResizeCrop augmentation (PyTorch port).
+"""Bicubic resampling (PyTorch port of ``audiossl_tpu/ops/interpolate.py``).
 
-Port of the parts of ``audiossl_tpu/ops/interpolate.py`` that the
-pretraining steps run: the Keys cubic convolution weights with A = -0.75
-(torch's choice) and per-sample bicubic sampling at traced coordinates with
-per-sample edge clamps (the crop box), as separable gathers: along the
-frequency axis only (the freq warp), or along time and then frequency.
+The Keys cubic convolution weights with A = -0.75 (torch's choice) and
+edge-clamped taps, as separable gathers, for two users:
+
+* :func:`resize_bicubic`, a static-shape resize for the position
+  embeddings of ``pos_type="interpolate"`` (reference
+  ``F.interpolate(mode='bicubic')``, align_corners=False);
+* per-sample bicubic sampling at traced coordinates with per-sample edge
+  clamps (the crop box) for the RandomResizeCrop augmentation: along the
+  frequency axis only (the freq warp), or along time and then frequency.
 """
 from __future__ import annotations
 
@@ -66,3 +70,33 @@ def sample_bicubic_2d(canvas: torch.Tensor, ys: torch.Tensor,
         contrib = tap * wx[:, None, :, m]
         acc = contrib if acc is None else acc + contrib
     return sample_bicubic_rows(acc, ys, y_lo, y_hi)
+
+
+def resize_bicubic(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """Resize the last two axes of x to (out_h, out_w) as the JAX
+    function does with align_corners=False (torch's bicubic source
+    coordinates, taps clamped to the edges): along H, then along W."""
+    *_, H, W = x.shape
+
+    def coords(in_n, out_n):
+        i = torch.arange(out_n, dtype=torch.float32, device=x.device)
+        return (i + 0.5) * (in_n / out_n) - 0.5
+
+    y = _sample_axis(x, coords(H, out_h), x.ndim - 2)
+    return _sample_axis(y, coords(W, out_w), x.ndim - 1)
+
+
+def _sample_axis(x: torch.Tensor, coords: torch.Tensor, axis: int):
+    """Sampling along ``axis`` at coordinates [O] shared by every row."""
+    n = x.shape[axis]
+    f = torch.floor(coords)
+    w = _cubic_weights(coords - f)  # [O, 4]
+    base = f.long()
+    shape = [1] * x.ndim
+    shape[axis] = coords.shape[0]
+    out = None
+    for m, off in enumerate((-1, 0, 1, 2)):
+        tap = torch.index_select(x, axis, torch.clamp(base + off, 0, n - 1))
+        contrib = tap * w[:, m].reshape(shape)
+        out = contrib if out is None else out + contrib
+    return out

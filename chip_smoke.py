@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """GPU smoke check of the PyTorch port: the serving path of ATST-Frame
-base (bf16 and int8) and the pretraining steps of ATST-Frame base (bf16,
-f32 and the int8 recipes) and ATST-Clip small (f32, bf16 and the int8
-recipes).
+base (bf16 and int8), the linear probe at ATST-Clip and ATST-Frame base
+width, and the pretraining steps of ATST-Frame base (bf16, f32 and the
+int8 recipes) and ATST-Clip small (f32, bf16 and the int8 recipes).
 
 Run from the repository root on a machine with one CUDA GPU (Hopper,
 sm_90a) and the CUDA toolkit:
@@ -32,7 +32,8 @@ sm_90a) and the CUDA toolkit:
    its error and both times from CUDA events: K1 at the main paths' STFT
    shapes (serving's 8 and the frame step's 96 clips of 10 s, clip
    inference's 8 and the clip step's 96 crops of 6 s: [8 or 96, 1026, 1001
-   or 601]), also in device time from the profiler and in the host's time
+   or 601]; the probes' 64 crops of 12 s: [64, 1026, 1201]), also in
+   device time from the profiler and in the host's time
    to issue a call, its second and third calls under
    ``set_sync_debug_mode("error")``, and untimed with a dense random
    filterbank (one mel all zero) and at 97 frames; K2 and K3 at the
@@ -76,7 +77,19 @@ sm_90a) and the CUDA toolkit:
    ``load_model(fused=True)``; then the clip encoder's inference path at
    ATST-Clip small width (``get_intermediate_layers`` of 8 ragged 6 s
    crops, the CLS token first, through K1-K3 in bf16) against its f32
-   module path;
+   module path; then the linear probe, ``python -m
+   audiossl_tpu_torch.downstream.train_freeze``'s ``main``, once with a
+   seeded random ATST-Clip base and once with an ATST-Frame base encoder
+   written as reference ``.ckpt`` files, on one seeded ``audioset_b`` pack
+   (527 labels; 256 train, 64 valid and 64 test tone clips of 1-12 s,
+   some longer than one 6 s chunk), 12 s crops, 64 clips a batch, 20
+   epochs: K1 once per extraction batch and no block kernel (f32 encoders,
+   the module route), the first 8 test clips' embeddings against the same
+   extractor on the CPU, the clip checkpoint's Linear and Conv2d
+   patch-embed layouts bit-equal on the card, ``result.json`` (mAP, finite
+   in [0, 1]) and at most 10 kept heads, the probe's ACC branch on the
+   frame embeddings; extraction clips/s by split (without the run's first
+   batch) and the probe's seconds;
 4. ATST-Frame training: one step of ``FrameMethod`` at the ATST-Frame base
    recipe (``bench.py:358-378``, B=96 clips of 10 s, bf16, seeded weights
    and waveforms) through the kernels K1-K5, K7 and K8, checking the launch
@@ -613,10 +626,14 @@ def gemm_s8_checks(dev):
 
 # K1 at the main paths' STFT shapes [B, 2 * 513, T] (the shapes the run
 # records from its launches must include them): serving 8 x 10 s, clip
-# inference 8 x 6 s, the frame step 96 x 10 s, the clip step 96 x 6 s crops
+# inference 8 x 6 s, the frame step 96 x 10 s, the clip step 96 x 6 s crops,
+# the probes' extraction batches 64 x 12 s
 K1_SHAPES = {"serving": (B, 1026, 1001), "clip_serving": (B, 1026, 601),
              "frame_bf16": (TRAIN_B, 1026, 1001),
-             "clip_f32": (TRAIN_B, 1026, 601)}
+             "clip_f32": (TRAIN_B, 1026, 601),
+             "probe_clip": (64, 1026, 1201)}
+# paths that hand K1 the shape another path's entry times
+K1_SAME_SHAPE = {"probe_frame": "probe_clip"}
 K1_SEEN = set()  # the STFT shapes handed to K1 on the card (record_k1_shapes)
 
 
@@ -1698,6 +1715,213 @@ def clip_infer_path(dev):
     return launches
 
 
+# The linear probe (``downstream/train_freeze.py``) at ATST-Clip and
+# ATST-Frame base width: an audioset_b pack of tone clips of 1-12 s, 12 s
+# crops, 64 clips a batch, 20 epochs of the probe
+PROBE_SPLITS = (("train", 256), ("valid", 64), ("test", 64))
+PROBE_B, PROBE_CROP_S, PROBE_EPOCHS = 64, 12.0, 20
+PROBE_ARCH, PROBE_BLOCKS = "base", 12  # the encoder, its blocks read
+PROBE_ATOL, PROBE_COS = 2e-4, 0.99999  # f32 card vs f32 CPU, TF32 off
+
+
+def write_probe_pack(workdir):
+    """The seeded ``audioset_b`` pack both probe paths read (527 labels,
+    multi-label, tone clips of 1-12 s); returns its directory."""
+    from audiossl_tpu_torch.datasets import (PackedAudioDataset,
+                                             write_synthetic_pack)
+
+    data = os.path.join(workdir, "audioset_b")
+    t0 = time.perf_counter()
+    for i, (split, n) in enumerate(PROBE_SPLITS):
+        write_synthetic_pack(data, split, n, min_s=1.0, max_s=12.0,
+                             num_labels=527, multi_label=True,
+                             seed=SEED + 20 + i, kind="tones")
+    reader = PackedAudioDataset(data, "test").reader
+    long = sum(reader.num_samples(i) > 6 * 16000 for i in range(len(reader)))
+    print(f"probe pack written in {time.perf_counter() - t0:.1f} s; "
+          f"{long} of {len(reader)} test clips longer than 6 s")
+    check(long > 0, "some probe clips are longer than one 6 s chunk")
+    return data
+
+
+def write_probe_ckpts(workdir, kind):
+    """A seeded random ATST-Clip (``kind="clip"``, 1001 frames) or
+    ATST-Frame (601 frames) encoder of ``PROBE_ARCH`` as a reference-layout
+    ``.ckpt`` with the Linear patch embedding, and for the clip encoder a
+    second file with the Conv2d one ([D, 1, 64, 4]); returns their paths
+    and the encoder's width in frames."""
+    from audiossl_tpu_torch.downstream.train_freeze import _MAKERS
+
+    spec_w = 1001 if kind == "clip" else 601
+    sd = _MAKERS[(kind, PROBE_ARCH)](
+        spec_w=spec_w, device="cpu",
+        generator=torch.Generator().manual_seed(SEED + 21)).state_dict()
+    paths = [os.path.join(workdir, f"{kind}_base.ckpt")]
+    layouts = [sd]
+    if kind == "clip":
+        w = sd["patch_embed.patch_embed.weight"]
+        conv = {k: v for k, v in sd.items()
+                if not k.startswith("patch_embed.")}
+        conv["patch_embed.proj.weight"] = w.reshape(w.shape[0], 1, 64, 4)
+        conv["patch_embed.proj.bias"] = sd["patch_embed.patch_embed.bias"]
+        paths.append(os.path.join(workdir, f"{kind}_base_conv.ckpt"))
+        layouts.append(conv)
+    for path, layout in zip(paths, layouts):
+        torch.save({"state_dict": {f"model.teacher.encoder.{k}": v
+                                   for k, v in layout.items()}}, path)
+    return paths, spec_w
+
+
+def extraction_breakdown(extract, batch, label):
+    """Where an extraction batch's time goes: the extractor on one batch
+    (the host's copy to the card included) to ``synchronize()``, the mean
+    of 3 calls after one, and its device time by kernel from the profiler,
+    the GEMMs (cuBLAS f32) and K1 grouped, the rest by name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    extract(batch["wav"], batch["valid"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        extract(batch["wav"], batch["valid"])
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / 3 * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        extract(batch["wav"], batch["valid"])
+        torch.cuda.synchronize()
+    kernels = {e.key: e.self_device_time_total / 1e3
+               for e in prof.key_averages() if e.self_device_time_total > 0}
+    gemm = sum(t for k, t in kernels.items() if "gemm" in k.lower())
+    k1 = sum(t for k, t in kernels.items() if "mel_db" in k)
+    rest = sorted(((t, k) for k, t in kernels.items()
+                   if "gemm" not in k.lower() and "mel_db" not in k),
+                  reverse=True)
+    print(json.dumps({f"{label}_batch_of_{len(batch['valid'])}": {
+        "wall_ms": wall, "device_ms": sum(kernels.values()),
+        "gemm_ms": gemm, "k1_ms": k1,
+        "rest_top": [[k[:60], t] for t, k in rest[:6]]}}))
+
+
+def probe_path(dev, workdir, data, kind):
+    """``train_freeze.main`` at base width on the card: a reference
+    ``.ckpt``, 12 s central crops, the mel through K1 once a batch, the
+    chunked frozen f32 encoder (module route, no block kernel), the
+    probe's 20 epochs on the cached embeddings and ``result.json``; the
+    first 8 test clips' embeddings against the same extractor on the CPU;
+    the clip checkpoint's two patch-embed layouts bit-equal on the card;
+    for the frame encoder also the probe's ACC branch on its embeddings.
+    Returns the launch counts of ``main``."""
+    from audiossl_tpu_torch.datasets import BatchLoader, PackedAudioDataset
+    from audiossl_tpu_torch.downstream import train_freeze
+    from audiossl_tpu_torch.downstream.embedding import (
+        make_clip_extractor, make_frame_extractor)
+    from audiossl_tpu_torch.downstream.linear import (LinearProbeConfig,
+                                                      train_linear_probe)
+    from audiossl_tpu_torch.kernels import build as kb
+
+    paths, spec_w = write_probe_ckpts(workdir, kind)
+    out = os.path.join(workdir, f"probe_{kind}")
+    argv = ["--pretrained_ckpt_path", paths[0], "--data_path", data,
+            "--dataset_name", "audioset_b", "--model_type", kind,
+            "--arch", PROBE_ARCH, "--n_last_blocks", str(PROBE_BLOCKS),
+            "--train_len", str(PROBE_CROP_S),
+            "--batch_size", str(PROBE_B), "--max_epochs", str(PROBE_EPOCHS),
+            "--save_path", out, "--device", str(dev)]
+    record = {}
+    torch.cuda.synchronize()
+    kb.reset_launches()
+    t0 = time.perf_counter()
+    res = train_freeze.main(argv, record=record)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kb.LAUNCHES)
+    rec = record[0]
+    n_batches = sum(len(t) for t in rec["timings"].values())
+    print(f"probe_{kind} launches: {launches}; {n_batches} extraction "
+          f"batches; main took {wall:.2f} s")
+    check(n_batches == sum(-(-n // PROBE_B) for _, n in PROBE_SPLITS),
+          f"probe_{kind}: every split extracted in batches of {PROBE_B}")
+    check(launches["mel_db"] == n_batches,
+          f"probe_{kind}: K1 launched once per extraction batch "
+          f"({launches['mel_db']} of {n_batches})")
+    check(not any(v for k, v in launches.items() if k != "mel_db"),
+          f"probe_{kind}: no other kernel launched (f32 module route)")
+
+    # clips/s by split, to the host (so to the device's end), without the
+    # run's first batch (cuBLAS set-up, the filterbank and K1's table)
+    batches = [(split, n, t) for split, ts in rec["timings"].items()
+               for n, t in ts][1:]
+    rates = {}
+    for split, _ in PROBE_SPLITS:
+        n = sum(b[1] for b in batches if b[0] == split)
+        t = sum(b[2] for b in batches if b[0] == split)
+        rates[split] = n / t
+    print(json.dumps({f"probe_{kind}_extract_clips_per_s": rates,
+                      "first_batch_s": rec["timings"]["train"][0][1],
+                      "probe_s": rec["probe_s"], "main_s": wall,
+                      "k1_launches": launches["mel_db"]}))
+
+    with open(os.path.join(out, "result.json")) as f:
+        result = json.load(f)
+    check(result == res and result["metric"] == "mAP"
+          and result["folds"] == 1, f"probe_{kind} result.json {result}")
+    for key in ("val", "test"):
+        check(np.isfinite(result[key]) and 0.0 <= result[key] <= 1.0,
+              f"probe_{kind} {key} mAP {result[key]} finite in [0, 1]")
+    with open(os.path.join(out, "fold0", "top", "index.json")) as f:
+        saved = json.load(f)["scores"]
+    check(0 < len(saved) <= 10, f"probe_{kind}: {len(saved)} heads kept "
+          "(at most 10)")
+
+    # the first test batch; its first 8 clips, card (main's cache) against
+    # the CPU
+    batch = next(iter(BatchLoader(PackedAudioDataset(data, "test"), PROBE_B,
+                                  pad_samples=int(PROBE_CROP_S * 16000),
+                                  shuffle=False, drop_last=False)))
+    first8 = {k: v[:8] for k, v in batch.items()}
+
+    def extractor(path, device):
+        enc = train_freeze.load_encoder(path, kind, PROBE_ARCH,
+                                        spec_w=spec_w, device=device)
+        if kind == "clip":
+            return make_clip_extractor(enc, crop_len_s=PROBE_CROP_S,
+                                       n_blocks=PROBE_BLOCKS)
+        return make_frame_extractor(enc, crop_len_s=PROBE_CROP_S,
+                                    n_blocks=PROBE_BLOCKS)
+
+    card = torch.from_numpy(rec["embeddings"]["test"][0][:8])
+    cpu = extractor(paths[0], "cpu")(first8["wav"], first8["valid"])
+    err = float((card - cpu).abs().max())
+    cos = float(row_cos(card, cpu).min())
+    print(f"probe_{kind} embeddings {tuple(card.shape)}, card vs CPU: max "
+          f"abs diff {err}, lowest row cosine {cos}")
+    check(err <= PROBE_ATOL and cos >= PROBE_COS,
+          f"probe_{kind} card embeddings match the CPU (<= {PROBE_ATOL}, "
+          f"cosine >= {PROBE_COS})")
+    if kind == "clip":
+        a, b = (extractor(p, dev)(first8["wav"], first8["valid"])
+                for p in paths)
+        check(torch.equal(a, b), "probe_clip: the Linear and Conv2d "
+              "patch-embed checkpoints give bit-equal embeddings on the card")
+    extraction_breakdown(extractor(paths[0], dev), batch,
+                         f"probe_{kind}")
+    if kind == "frame":
+        (tr, _), (va, _), (te, _) = (rec["embeddings"][s]
+                                     for s, _ in PROBE_SPLITS)
+        rng = np.random.RandomState(SEED + 22)
+        acc = train_linear_probe(
+            tr, rng.randint(10, size=len(tr)), va,
+            rng.randint(10, size=len(va)), te, rng.randint(10, size=len(te)),
+            LinearProbeConfig(batch_size=PROBE_B, max_epochs=5,
+                              lr_scale=PROBE_B / 256.0), device=dev)
+        print(f"probe_frame ACC branch (10 seeded classes): val "
+              f"{acc['val_metric']}, test {acc['test_metric']}")
+        check(np.isfinite(acc["test_metric"])
+              and 0.0 <= acc["test_metric"] <= 1.0,
+              "probe_frame: the probe's ACC branch gives a finite accuracy")
+    return launches
+
+
 def train_mel_check(dev):
     """The training mel (``stft_precision="default"``: TF32 STFT on the
     card) against the f32 serving mel on the same crops."""
@@ -2207,6 +2431,11 @@ def main():
         run_path("serving", lambda: main_path(dev, path))
         run_path("serving_int8", lambda: q8_serving_path(dev, path))
     run_path("clip_serving", lambda: clip_infer_path(dev))
+    with tempfile.TemporaryDirectory() as workdir:
+        data = write_probe_pack(workdir)
+        for kind in ("clip", "frame"):
+            run_path(f"probe_{kind}",
+                     lambda: probe_path(dev, workdir, data, kind))
     for name, fn in (("frame_bf16", lambda: frame_bf16_path(dev, args.profile)),
                      ("clip_f32", lambda: clip_f32_path(dev, args.profile)),
                      ("clip_bf16", lambda: clip_bf16_path(dev)),
@@ -2219,7 +2448,8 @@ def main():
         torch.cuda.empty_cache()
         run_path(name, fn)
     print(f"K1 STFT shapes by path: {k1_seen}")
-    for name, shape in K1_SHAPES.items():
+    for name, shape in list(K1_SHAPES.items()) + [
+            (p, K1_SHAPES[q]) for p, q in K1_SAME_SHAPE.items()]:
         check(shape in k1_seen[name],
               f"K1 timed at a shape the {name} path ran, {shape}")
     res["mel_db"]["path_shapes"] = k1_seen

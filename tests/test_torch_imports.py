@@ -1,5 +1,6 @@
-"""The port stands without JAX, and its kernel wrappers launch nothing for
-a CPU tensor (they take their plain versions)."""
+"""The port stands without JAX (and its probe slice without pandas and
+PyYAML), and its kernel wrappers launch nothing for a CPU tensor (they take
+their plain versions)."""
 import subprocess
 import sys
 from pathlib import Path
@@ -16,7 +17,8 @@ ROOT = Path(__file__).resolve().parents[1]
 def test_port_imports_without_jax():
     code = (
         "import sys\n"
-        "for m in ('jax', 'jaxlib', 'flax', 'optax'):\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'pandas',\n"
+        "          'yaml'):\n"
         "    sys.modules[m] = None\n"
         "import audiossl_tpu_torch, audiossl_tpu_torch.embedding\n"
         "import audiossl_tpu_torch.ops, audiossl_tpu_torch.models\n"
@@ -25,6 +27,13 @@ def test_port_imports_without_jax():
         "import audiossl_tpu_torch.ops.mha, audiossl_tpu_torch.ops.layer_norm\n"
         "import audiossl_tpu_torch.ops.quant\n"
         "import audiossl_tpu_torch.compat.checkpoint\n"
+        "import audiossl_tpu_torch.datasets\n"
+        "import audiossl_tpu_torch.downstream.train_freeze\n"
+        "import audiossl_tpu_torch.downstream.train_freeze_config\n"
+        "import audiossl_tpu_torch.downstream.linear\n"
+        "import audiossl_tpu_torch.downstream.embedding\n"
+        "import audiossl_tpu_torch.training.checkpoint\n"
+        "import audiossl_tpu_torch.models.heads\n"
         "from audiossl_tpu_torch import load_model, get_scene_embedding\n"
         "bad = [m for m in sys.modules if m.split('.')[0] == 'audiossl_tpu']\n"
         "assert not bad, bad\n"
