@@ -110,16 +110,20 @@ def branch_state_from_flax(params: Mapping,
                            ) -> Dict[str, torch.Tensor]:
     """A JAX ``Branch`` (encoder + projector [+ predictor]) param
     tree and its ``batch_stats`` -> the port's ``Branch`` state dict:
-    ``encoder.*`` under the serving names, ``head.projector.*`` and
+    ``encoder.*`` under the serving names, ``head.projector.*`` (or the
+    data2vec student's ``head.projector_linear.*``) and
     ``head.predictor.*``. With ``batch_stats`` None only the parameters
     are mapped (a tree of Adam moments has the params' structure)."""
     out = {f"encoder.{k}": v
            for k, v in state_dict_from_flax(params["encoder"]).items()}
     stats = (batch_stats or {}).get("head", {})
     for name, p in params.get("head", {}).items():
-        if name not in ("projector", "predictor"):
+        if name == "projector_linear":
+            _dense(p, "head.projector_linear", out)
+        elif name in ("projector", "predictor"):
+            _head_from_flax(p, stats.get(name, {}), f"head.{name}", out)
+        else:
             raise KeyError(f"head group {name!r} is not ported")
-        _head_from_flax(p, stats.get(name, {}), f"head.{name}", out)
     return out
 
 

@@ -21,6 +21,8 @@ import io
 import json
 import os
 import struct
+from typing import Optional
+
 import numpy as np
 
 MAGIC = b"ARDS0001"
@@ -113,15 +115,35 @@ class PackedReader:
             bytes(self._mm[lo: lo + _HEADER.size]))
         return wav_bytes // np.dtype(_DTYPES[code]).itemsize // max(ch, 1)
 
+    def dtype_code(self, i: int) -> int:
+        """Record i's stored sample dtype: 0=int16, 1=float32."""
+        lo = int(self.offsets[i])
+        return _HEADER.unpack(bytes(self._mm[lo: lo + _HEADER.size]))[2]
+
+    def all_int16(self, probe: int = 256) -> bool:
+        """True when every probed record stores int16 samples (the headers
+        of up to ``probe`` evenly spaced records): the pretraining loaders
+        then emit int16 batches, which the step scales by 1/32768 exactly
+        as the float path does."""
+        n = len(self)
+        if n == 0:
+            return False
+        idx = np.unique(np.linspace(0, n - 1, min(probe, n)).astype(int))
+        return all(self.dtype_code(int(i)) == 0 for i in idx)
+
 
 class PackedAudioDataset:
-    """Reference ``LMDBDataset`` equivalent over a .ards pack: the records
-    in the order of a seeded permutation, as the reference's keys
-    (lmdb.py:33-38)."""
+    """Reference ``LMDBDataset`` equivalent over a .ards pack.
 
-    def __init__(self, path: str, split: str = "train"):
+    The keys are the first ``subset`` entries of a permutation of the
+    records drawn from ``RandomState(seed)`` (lmdb.py:33-38), so an epoch
+    is ``subset`` records long."""
+
+    def __init__(self, path: str, split: str = "train",
+                 subset: Optional[int] = None, seed: int = 1234):
         self.reader = PackedReader(os.path.join(path, f"{split}.ards"))
-        self.keys = np.random.RandomState(1234).permutation(len(self.reader))
+        keys = np.random.RandomState(seed).permutation(len(self.reader))
+        self.keys = keys if subset is None else keys[:subset]
 
     def __len__(self):
         return len(self.keys)

@@ -10,19 +10,18 @@ is raised by the iteration, not swallowed: a split never ends early.
 Batches are dicts of numpy arrays with static shapes:
   wav   [B, pad_samples] float32 or int16 (zero-padded)
   valid [B]              int32   valid sample counts
-  label [B] / [B, C]     labels
+  label [B] / [B, C]     labels (with ``include_labels``)
 """
 from __future__ import annotations
 
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Iterator
+from typing import Callable, Generator, Iterator
 
 import numpy as np
 
-_THREADS = 8   # record loads in flight for one batch
-_PREFETCH = 2  # batches prepared ahead of the consumer
+PREFETCH = 2  # batches a loader prepares ahead of its consumer
 
 
 class _Failed:
@@ -32,23 +31,76 @@ class _Failed:
         self.exc = exc
 
 
+def prefetched(produce: Callable[[], Generator]) -> Iterator:
+    """Iterate over the generator ``produce()`` run on a worker thread, at
+    most ``PREFETCH`` items ahead of the consumer. The worker's exception
+    is raised by the iteration; when the consumer stops early the worker
+    stops at its next item and is joined, so no read runs on into the next
+    epoch."""
+    q: "queue.Queue" = queue.Queue(maxsize=PREFETCH)
+    stop = threading.Event()
+
+    def put(item) -> bool:
+        # gives up once the consumer has stopped, so no thread is left
+        # blocked on a full queue
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                pass
+        return False
+
+    def worker():
+        items = produce()
+        try:
+            for item in items:
+                if not put(item):
+                    return
+            put(None)
+        except BaseException as e:  # re-raised by the consumer
+            put(_Failed(e))
+        finally:
+            items.close()
+
+    t = threading.Thread(target=worker, daemon=True)
+    t.start()
+    try:
+        while True:
+            b = q.get()
+            if b is None:
+                return
+            if isinstance(b, _Failed):
+                raise b.exc
+            yield b
+    finally:
+        stop.set()
+        t.join(timeout=60)
+
+
 class BatchLoader:
     """Iterable over padded batches of a map-style dataset.
 
     dataset must implement __len__ and __getitem__ -> (wav, label).
     drop_last=True gives every batch the same shape. ``shuffle`` draws
-    the order from ``np.random.RandomState(seed)``.
+    the order from ``np.random.RandomState(seed + epoch)``. ``num_threads``
+    records load at once, ``PREFETCH`` batches are prepared ahead of the
+    consumer.
     """
 
     def __init__(self, dataset, batch_size: int, pad_samples: int,
                  shuffle: bool = True, drop_last: bool = True,
-                 seed: int = 0, wav_dtype=np.float32):
+                 seed: int = 0, num_threads: int = 8, epoch: int = 0,
+                 include_labels: bool = True, wav_dtype=np.float32):
         self.dataset = dataset
         self.batch_size = batch_size
         self.pad_samples = pad_samples
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.seed = seed
+        self.num_threads = num_threads
+        self.epoch = epoch
+        self.include_labels = include_labels
         # int16 emit halves host->device batch bytes; dequantized with the
         # same /32768 scale, int16-stored samples are bitwise-identical to
         # the float path. float32-returning datasets are re-quantized to
@@ -74,55 +126,25 @@ class BatchLoader:
 
     def _make_batch(self, pool, indices):
         rows = list(pool.map(self._load_one, indices))
-        labels = [r[2] for r in rows]
-        return {
-            "wav": np.stack([r[0] for r in rows]),
-            "valid": np.asarray([r[1] for r in rows], np.int32),
-            "label": (np.stack(labels) if isinstance(labels[0], np.ndarray)
-                      else np.asarray(labels)),
-        }
+        batch = {"wav": np.stack([r[0] for r in rows]),
+                 "valid": np.asarray([r[1] for r in rows], np.int32)}
+        if self.include_labels:
+            labels = [r[2] for r in rows]
+            batch["label"] = (np.stack(labels)
+                              if isinstance(labels[0], np.ndarray)
+                              else np.asarray(labels))
+        return batch
 
     def __iter__(self) -> Iterator[dict]:
         order = np.arange(len(self.dataset))
         if self.shuffle:
-            np.random.RandomState(self.seed).shuffle(order)
+            np.random.RandomState(self.seed + self.epoch).shuffle(order)
         chunks = [order[i * self.batch_size:(i + 1) * self.batch_size]
                   for i in range(len(self))]
 
-        q: "queue.Queue" = queue.Queue(maxsize=_PREFETCH)
-        stop = threading.Event()
+        def produce():
+            with ThreadPoolExecutor(self.num_threads) as pool:
+                for c in chunks:
+                    yield self._make_batch(pool, c)
 
-        def put(item) -> bool:
-            # gives up once the consumer has stopped, so no thread is left
-            # blocked on a full queue
-            while not stop.is_set():
-                try:
-                    q.put(item, timeout=0.1)
-                    return True
-                except queue.Full:
-                    pass
-            return False
-
-        def worker():
-            try:
-                with ThreadPoolExecutor(_THREADS) as pool:
-                    for c in chunks:
-                        if not put(self._make_batch(pool, c)):
-                            return
-            except BaseException as e:  # re-raised by the consumer
-                put(_Failed(e))
-                return
-            put(None)
-
-        t = threading.Thread(target=worker, daemon=True)
-        t.start()
-        try:
-            while True:
-                b = q.get()
-                if b is None:
-                    return
-                if isinstance(b, _Failed):
-                    raise b.exc
-                yield b
-        finally:
-            stop.set()
+        return prefetched(produce)

@@ -192,8 +192,7 @@ class ClipMethod:
                 infer_quant=cfg.teacher_quant, **kw),
             predictor=False, hidden_dim=hd, out_dim=od)
         with torch.no_grad():
-            self.student.head.projector.reset_parameters(gen)
-            self.student.head.predictor.reset_parameters(gen)
+            self.student.head.reset_parameters(gen)
         self.student.to(self.device)
         self.teacher.to(self.device).requires_grad_(False)
         self.depth = self.student.encoder.depth

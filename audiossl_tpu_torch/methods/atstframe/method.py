@@ -46,8 +46,10 @@ _ARCHS = {"tiny": frame_ast_tiny, "small": frame_ast_small,
 class FramePretrainConfig:
     """The JAX package's ``FramePretrainConfig`` (defaults = the published
     recipe, reference methods/atstframe/train_base.sh), plus the encoders'
-    ``drop_path_rate`` (the JAX encoders' default, 0.1). Not ported: the
-    data2vec variant (``avg_blocks``) and interpolated positions."""
+    ``drop_path_rate`` (the JAX encoders' default, 0.1). ``avg_blocks`` > 0
+    is the data2vec variant: a student with a linear projector and no
+    predictor against a teacher whose target is the mean of its last
+    ``avg_blocks`` instance-normalized block outputs, with no head."""
     arch: str = "small"
     sr: int = 16000
     anchor_len: float = 10.0
@@ -61,6 +63,8 @@ class FramePretrainConfig:
     mask_len: int = 5
     min_mask_len: int = 2
     mixup_ratio: float = 0.4
+    avg_blocks: int = 0
+    pos_type: str = "cut"
     patch_h: int = 64
     patch_w: int = 4
     optimizer: OptimizerConfig = OptimizerConfig()
@@ -182,22 +186,25 @@ class FrameMethod:
         # drawn on the CPU, then moved to the device with the heads
         kw = dict(spec_h=cfg.mel.n_mels, spec_w=cfg.out_frames,
                   patch_h=cfg.patch_h, patch_w=cfg.patch_w, dtype=dtype,
-                  plain=plain, device="cpu")
+                  plain=plain, device="cpu", pos_type=cfg.pos_type)
         hd, od = (128, 32) if cfg.arch == "tiny" else (4096, 256)
         enc = _ARCHS[cfg.arch]
+        d2v = cfg.avg_blocks > 0
         self.student = Branch(
             enc(generator=gen, fused_attention=cfg.fused_attention,
                 train_quant=cfg.student_quant, **kw),
-            predictor=True, hidden_dim=hd, out_dim=od)
+            predictor=not d2v, hidden_dim=hd, out_dim=od,
+            projector="linear" if d2v else "mlp")
         # the teacher is never differentiated: in bf16 the inference block
         # kernels (their stochastic depth keeps the train-mode teacher)
         self.teacher = Branch(
             enc(generator=gen, fused_infer=cfg.fused_attention,
-                infer_quant=cfg.teacher_quant, **kw),
-            predictor=False, hidden_dim=hd, out_dim=od)
+                infer_quant=cfg.teacher_quant, avg_blocks=cfg.avg_blocks,
+                **kw),
+            predictor=False, hidden_dim=hd, out_dim=od,
+            projector="none" if d2v else "mlp")
         with torch.no_grad():
-            self.student.head.projector.reset_parameters(gen)
-            self.student.head.predictor.reset_parameters(gen)
+            self.student.head.reset_parameters(gen)
         self.student.to(self.device)
         self.teacher.to(self.device).requires_grad_(False)
         self.depth = self.student.encoder.depth

@@ -7,8 +7,10 @@ token, final norm ``norm_frame``) and the clip-level one (``use_cls=True``,
 reference ``audiossl/models/atst/audio_transformer.py`` AST: a CLS token
 before the patches, final norm ``norm``, the pretraining forward returns
 the normed CLS token, or with ``avg=True`` the mean of the last 8 blocks'
-CLS token). No prompt tokens and no data2vec block averaging. Position
-embeddings are "cut" (the first tokens' rows) or, with
+CLS token). No prompt tokens. The frame encoder's ``avg_blocks`` (the
+data2vec teacher) replaces the final norm by the mean of the last
+``avg_blocks`` block outputs, each instance-normalized over the tokens.
+Position embeddings are "cut" (the first tokens' rows) or, with
 ``pos_type="interpolate"``, the patch grid resized bicubically to the
 input's. Parameter names are the reference's, so a reference state dict
 loads with ``load_state_dict``.
@@ -124,7 +126,7 @@ class AudioTransformer(nn.Module):
                  fused_attention: bool = False, fused_infer: bool = False,
                  plain: bool = False, use_cls: bool = False,
                  infer_quant: str = "none", train_quant: str = "none",
-                 pos_type: str = "cut"):
+                 pos_type: str = "cut", avg_blocks: int = 0):
         """Parameters are drawn on the CPU from ``generator`` (seed 0 when
         None) as the reference initializes them, then moved to
         ``device``; ``device="meta"`` gives the shapes and draws nothing.
@@ -132,11 +134,15 @@ class AudioTransformer(nn.Module):
         inference route; ``fused_attention``,
         ``fused_infer``, ``plain`` and the quant options configure the
         pretraining forward (module docstring); ``use_cls`` makes the
-        clip-level encoder; ``pos_type`` is "cut" or "interpolate"."""
+        clip-level encoder; ``pos_type`` is "cut" or "interpolate";
+        ``avg_blocks`` > 0 makes a frame encoder's pretraining forward
+        return the data2vec target (:func:`block_average`); it then holds
+        no final norm."""
         super().__init__()
         if pos_type not in ("cut", "interpolate"):
             raise ValueError(f"unknown pos_type {pos_type!r}")
         self.pos_type = pos_type
+        self.avg_blocks = avg_blocks
         self.spec_h, self.spec_w = spec_h, spec_w
         device = resolve_device(device)
         self.infer_quant = check_quant(infer_quant, ("int8",))
@@ -177,6 +183,10 @@ class AudioTransformer(nn.Module):
         norm = (nn.LayerNorm(embed_dim, eps=eps, device=meta)
                 if self._route == "module" and not fused
                 else LayerNormPG(embed_dim, eps, meta, plain))
+        if avg_blocks > 0 and not use_cls:
+            # the data2vec target takes the final norm's place: no norm, as
+            # JAX's encoder then holds no norm parameters
+            norm = None
         # the reference names: AST's final norm is ``norm``, FrameAST's
         # ``norm_frame``
         self._norm_name = "norm" if use_cls else "norm_frame"
@@ -307,18 +317,25 @@ class AudioTransformer(nn.Module):
         there is no mask). Clip level: returns the final norm of the CLS
         token [B, D] in ``dtype`` (reference AST.forward); with ``avg`` the
         mean of the raw CLS token of the last 8 blocks' outputs (the
-        reference's blocks i > depth - 9), not normed."""
+        reference's blocks i > depth - 9), not normed. A frame encoder with
+        ``avg_blocks`` returns :func:`block_average` of its last
+        ``avg_blocks`` block outputs in place of the final norm's."""
         x, plen = self.prepare_tokens(mel, length, mask_index, apply_mask)
         avg = avg and self.use_cls
+        collect_from = None
+        if avg:
+            collect_from = self.depth - 8
+        elif not self.use_cls and self.avg_blocks > 0:
+            collect_from = self.depth - self.avg_blocks
         x, collected = self._train_blocks(
-            x, self._attn_lengths(plen), dps,
-            self.depth - 8 if avg else None)
+            x, self._attn_lengths(plen), dps, collect_from)
         if avg:  # jnp.mean: an f32 mean, rounded
             return (torch.stack(collected).float().mean(dim=0)[:, 0]
                     .to(x.dtype))
         if self.use_cls:
             return _norm(self.final_norm, x)[:, 0]
-        frames = _norm(self.final_norm, x)
+        frames = (block_average(collected) if self.avg_blocks > 0
+                  else _norm(self.final_norm, x))
         B, Np = frames.shape[:2]
         if plen is not None:
             sel = length_to_token_mask(plen, Np)
@@ -499,6 +516,23 @@ class AudioTransformer(nn.Module):
             t = (t.reshape(n, B, nc, -1) * w).sum(dim=2) / denom  # [n, B, D]
             outs.append(torch.cat(list(t), dim=-1))
         return torch.cat(outs, dim=-1)
+
+
+def block_average(collected) -> torch.Tensor:
+    """The data2vec teacher's target (JAX ``models/atst.py:352-361``): each
+    block output [B, N, D] instance-normalized over all N tokens (biased
+    variance, eps 1e-5), then their mean. Rounded where JAX rounds: each
+    output's mean and variance taken in f32 (the variance about the f32
+    mean) and rounded to the blocks' dtype, the normalization in that
+    dtype, the mean of the normalized outputs taken in f32 and rounded."""
+    outs = []
+    for h in collected:
+        hf = h.float()
+        mu = hf.mean(dim=1, keepdim=True)
+        var = (hf - mu).square().mean(dim=1, keepdim=True).to(h.dtype)
+        eps = torch.tensor(1e-5, dtype=h.dtype)
+        outs.append((h - mu.to(h.dtype)) / torch.sqrt(var + eps))
+    return torch.stack(outs).float().mean(dim=0).to(collected[0].dtype)
 
 
 def _arch(embed_dim, depth, num_heads, use_cls, **kw):

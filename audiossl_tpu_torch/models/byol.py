@@ -50,17 +50,42 @@ class MLPHead(nn.Module):
 
 
 class Projector(nn.Module):
-    """The MLP projector and, for the student, the MLP predictor."""
+    """The projector (``"mlp"``: an :class:`MLPHead`; ``"linear"``: a
+    Linear of the embedding width with bias, the data2vec student's,
+    named ``projector_linear``; ``"none"``) and, for the student, the MLP
+    predictor. The linear projector computes and returns ``dtype`` as
+    flax's ``Dense`` does (its product, then its bias, each rounded)."""
 
     def __init__(self, embed_dim: int, predictor: bool = True,
-                 hidden_dim: int = 4096, out_dim: int = 256, device=None):
+                 hidden_dim: int = 4096, out_dim: int = 256, device=None,
+                 projector: str = "mlp"):
         super().__init__()
-        self.projector = MLPHead(embed_dim, hidden_dim, out_dim, device)
+        if projector not in ("mlp", "linear", "none"):
+            raise ValueError(f"unknown projector {projector!r}")
+        self.projector = (MLPHead(embed_dim, hidden_dim, out_dim, device)
+                          if projector == "mlp" else None)
+        self.projector_linear = (nn.Linear(embed_dim, embed_dim,
+                                           device=device)
+                                 if projector == "linear" else None)
         self.predictor = (MLPHead(out_dim, hidden_dim, out_dim, device)
                           if predictor else None)
 
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """flax's Dense init: lecun normal weights, zero bias."""
+        for head in (self.projector, self.predictor):
+            if head is not None:
+                head.reset_parameters(generator)
+        if self.projector_linear is not None:
+            lecun_normal_(self.projector_linear.weight, generator)
+            self.projector_linear.bias.zero_()
+
     def forward(self, x, mask=None, dtype=torch.float32):
-        x = self.projector(x, mask, dtype)
+        if self.projector is not None:
+            x = self.projector(x, mask, dtype)
+        elif self.projector_linear is not None:
+            lin = self.projector_linear
+            x = x.to(dtype) @ lin.weight.to(dtype).t() + lin.bias.to(dtype)
         if self.predictor is not None:
             x = self.predictor(x, mask, dtype)
         return x

@@ -1,26 +1,185 @@
-"""Top-k checkpoints on a validation metric (PyTorch port of
-``TopKKeeper`` in ``audiossl_tpu/training/checkpoint.py``).
+"""Checkpoints (PyTorch port of ``audiossl_tpu/training/checkpoint.py``):
+the pretraining runner's periodic checkpoints with crash-restart resume,
+and the downstream drivers' top-k checkpoints. Both save with
+``torch.save`` into ``state.pt`` files; the JAX package saves orbax
+directories instead.
 
-Reference: Lightning ``ModelCheckpoint(save_top_k=10, monitor="val_*",
-mode="max")`` in the downstream drivers
-(``methods/atst/downstream/train_freeze.py:117-124``). Each ``update``
-saves a state dict with ``torch.save`` under ``<dir>/top/<tag>/state.pt``
-when it ranks in the current top 10 and removes the worst; ``index.json``
-(the JAX package's layout: ``{"mode": "max", "scores": {tag: metric}}``)
-makes the set survive a restart. The JAX package saves orbax directories
-instead.
+* :class:`CheckpointManager`: the reference's Lightning
+  ``ModelCheckpoint`` + ``last.ckpt`` auto-resume (reference
+  ``methods/atst/train.py:25-35``), with the JAX package's orbax
+  ``CheckpointManager`` semantics: which steps are saved and kept.
+* :class:`TopKKeeper`: Lightning ``ModelCheckpoint(save_top_k=10,
+  monitor="val_*", mode="max")`` in the downstream drivers
+  (``methods/atst/downstream/train_freeze.py:117-124``).
 """
 from __future__ import annotations
 
 import json
 import os
 import shutil
-from typing import Dict, Mapping
+import threading
+import time
+from typing import Dict, List, Mapping, Optional
 
 import torch
 
 STATE_FILE = "state.pt"
 TOP_K = 10
+
+
+def host_state(state) -> dict:
+    """A copy on the host of everything a ``PretrainState`` holds: the step
+    and Adam's count, both branches' state dicts (BatchNorm statistics
+    included), the moments by parameter name and the generator's state.
+    Synchronous: the step goes on changing the state in place."""
+    def host(t):
+        return t.detach().to("cpu", copy=True)
+
+    return {"step": int(state.step), "count": int(state.count),
+            "student": {k: host(v) for k, v in
+                        state.student.state_dict().items()},
+            "teacher": {k: host(v) for k, v in
+                        state.teacher.state_dict().items()},
+            "mu": {k: host(v) for k, v in state.mu.items()},
+            "nu": {k: host(v) for k, v in state.nu.items()},
+            "generator": state.generator.get_state()}
+
+
+@torch.no_grad()
+def load_host_state(state, saved: Mapping) -> None:
+    """Copy ``saved`` (from :func:`host_state`) into ``state`` in place:
+    the parameters, buffers and moments keep their tensors, so the state's
+    paired leaves and K7's device leaf table stay valid."""
+    if set(saved["mu"]) != set(state.mu):
+        raise KeyError("the checkpoint's moments are not this state's: "
+                       f"{sorted(set(saved['mu']) ^ set(state.mu))[:8]}")
+    state.student.load_state_dict(saved["student"])
+    state.teacher.load_state_dict(saved["teacher"])
+    for k in state.mu:
+        state.mu[k].copy_(saved["mu"][k])
+        state.nu[k].copy_(saved["nu"][k])
+    state.step, state.count = int(saved["step"]), int(saved["count"])
+    state.generator.set_state(saved["generator"])
+
+
+class CheckpointManager:
+    """Periodic pretraining checkpoints under ``<dir>/<step>/state.pt``.
+
+    The JAX package's orbax manager decides what is saved and kept, and so
+    does this one: the first save of an empty directory is taken at any
+    step; after it a save is taken when ``force`` or when its step is past
+    the latest and a multiple of ``save_interval_steps``; a step already
+    kept is never saved again; the ``max_to_keep`` latest saves are kept.
+
+    ``save`` copies the state to the host before it returns and writes
+    the copy on a background thread; an error of that write is raised by
+    the next ``save`` or ``wait``. A write goes into ``<step>.tmp`` and is
+    renamed into place when complete, so a crash mid-write leaves nothing
+    ``restore_latest`` reads; leftover ``.tmp`` directories are removed
+    when a manager opens the directory. ``last_copy_ms`` and
+    ``write_s`` (step -> seconds) record what the saves took.
+    """
+
+    def __init__(self, directory: str, save_interval_steps: int = 1000,
+                 max_to_keep: int = 3):
+        self.dir = os.path.abspath(os.path.expanduser(directory))
+        self.save_interval_steps = save_interval_steps
+        self.max_to_keep = max_to_keep
+        os.makedirs(self.dir, exist_ok=True)
+        steps = []
+        for name in os.listdir(self.dir):
+            path = os.path.join(self.dir, name)
+            if name.endswith(".tmp"):
+                shutil.rmtree(path, ignore_errors=True)
+            elif name.isdigit() and os.path.exists(
+                    os.path.join(path, STATE_FILE)):
+                steps.append(int(name))
+        # in the order saved, as orbax keeps them
+        self._steps: List[int] = sorted(steps)
+        self._thread: Optional[threading.Thread] = None
+        self._pending = None  # (step, steps it drops) of the write in flight
+        self._error: Optional[BaseException] = None
+        self.last_copy_ms: Optional[float] = None
+        self.write_s: Dict[int, float] = {}
+
+    def all_steps(self) -> List[int]:
+        return list(self._steps)
+
+    @property
+    def latest_step(self) -> Optional[int]:
+        return self._steps[-1] if self._steps else None
+
+    def should_save(self, step: int) -> bool:
+        if not self._steps:
+            return True
+        return (step > self._steps[-1]
+                and step % self.save_interval_steps == 0)
+
+    def save(self, step: int, state, force: bool = False) -> bool:
+        """Save the ``PretrainState`` as ``step`` if the rules above take
+        it; returns whether it did. Waits for the previous write first."""
+        self.wait()
+        if step in self._steps or not (force or self.should_save(step)):
+            return False
+        t0 = time.perf_counter()
+        saved = host_state(state)
+        self.last_copy_ms = (time.perf_counter() - t0) * 1e3
+        self._steps.append(step)
+        drop = self._steps[:-self.max_to_keep] if self.max_to_keep else []
+        del self._steps[:len(drop)]
+        self._pending = (step, drop)
+        self._thread = threading.Thread(target=self._write,
+                                        args=(step, saved, drop))
+        self._thread.start()
+        return True
+
+    def _write(self, step: int, saved: dict, drop: List[int]) -> None:
+        try:
+            t0 = time.perf_counter()
+            final = os.path.join(self.dir, str(step))
+            tmp = final + ".tmp"
+            shutil.rmtree(tmp, ignore_errors=True)
+            os.makedirs(tmp)
+            torch.save(saved, os.path.join(tmp, STATE_FILE))
+            os.replace(tmp, final)
+            for old in drop:
+                shutil.rmtree(os.path.join(self.dir, str(old)),
+                              ignore_errors=True)
+            self.write_s[step] = time.perf_counter() - t0
+            print(f"checkpoint step {step}: written in "
+                  f"{self.write_s[step]:.3f} s", flush=True)
+        except BaseException as e:  # raised by the next save or wait
+            self._error = e
+
+    def restore_latest(self, state):
+        """Copy the latest checkpoint into ``state`` in place
+        (:func:`load_host_state`) and return it; None when there is none.
+        The file is read with ``weights_only=True``."""
+        self.wait()
+        step = self.latest_step
+        if step is None:
+            return None
+        saved = torch.load(os.path.join(self.dir, str(step), STATE_FILE),
+                           map_location="cpu", weights_only=True)
+        load_host_state(state, saved)
+        return state
+
+    def wait(self) -> None:
+        """Wait for the write in flight; raise its error, if it had one
+        (the failed step is then not kept, and the steps it would have
+        dropped are kept again)."""
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            step, drop = self._pending
+            self._steps.remove(step)
+            self._steps[:0] = drop
+            raise err
+
+    def close(self) -> None:
+        self.wait()
 
 
 class TopKKeeper:

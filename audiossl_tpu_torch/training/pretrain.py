@@ -35,21 +35,25 @@ from audiossl_tpu_torch.training.schedules import cosine_schedule
 
 class Branch(nn.Module):
     """encoder + projector (+ predictor): the reference MultiCropWrapper
-    over equal-width crops. The teacher's encoder keeps the serving
+    over equal-width crops. ``projector`` is "mlp", "linear" or "none"
+    (:class:`Projector`). The teacher's encoder keeps the serving
     state-dict names under ``encoder.``."""
 
     def __init__(self, encoder: AudioTransformer, predictor: bool = True,
-                 hidden_dim: int = 4096, out_dim: int = 256):
+                 hidden_dim: int = 4096, out_dim: int = 256,
+                 projector: str = "mlp"):
         super().__init__()
         self.encoder = encoder
         self.head = Projector(encoder.embed_dim, predictor, hidden_dim,
-                              out_dim, device=encoder.pos_embed.device)
+                              out_dim, device=encoder.pos_embed.device,
+                              projector=projector)
 
     def forward(self, mel, length=None, mask_index=None, apply_mask=True,
                 dps: Optional[torch.Tensor] = None):
         """Frame encoder: -> (head output [B, T, out_dim] f32, selection
         mask [B, T]). Clip encoder: -> head output of the CLS embeddings
-        [B, out_dim] f32."""
+        [B, out_dim] f32. Without an MLP head (the data2vec branches) the
+        output is in the encoder's dtype, as in JAX."""
         out = self.encoder(mel, length, mask_index, apply_mask, dps)
         if self.encoder.use_cls:
             return self.head(out, None, self.encoder.dtype)

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """GPU smoke check of the PyTorch port: the serving path of ATST-Frame
 base (bf16 and int8), the linear probe at ATST-Clip and ATST-Frame base
-width, and the pretraining steps of ATST-Frame base (bf16, f32 and the
-int8 recipes) and ATST-Clip small (f32, bf16 and the int8 recipes).
+width, the pretraining steps of ATST-Frame base (bf16, f32 and the int8
+recipes) and ATST-Clip small (f32, bf16 and the int8 recipes), and the
+pretraining CLIs with their run loop, checkpoints and crash-restart.
 
 Run from the repository root on a machine with one CUDA GPU (Hopper,
 sm_90a) and the CUDA toolkit:
@@ -32,7 +33,8 @@ sm_90a) and the CUDA toolkit:
    its error and both times from CUDA events: K1 at the main paths' STFT
    shapes (serving's 8 and the frame step's 96 clips of 10 s, clip
    inference's 8 and the clip step's 96 crops of 6 s: [8 or 96, 1026, 1001
-   or 601]; the probes' 64 crops of 12 s: [64, 1026, 1201]), also in
+   or 601]; the probes' 64 crops of 12 s: [64, 1026, 1201]; the clip
+   CLI's 96 crops of 9 s: [96, 1026, 901]), also in
    device time from the profiler and in the host's time
    to issue a call, its second and third calls under
    ``set_sync_debug_mode("error")``, and untimed with a dense random
@@ -43,7 +45,8 @@ sm_90a) and the CUDA toolkit:
    against the f32 one; K4 and K5, forward and every gradient, at the
    ATST-Frame base step's shapes (192 sequences of 250 tokens, width 768);
    K2-K5 at the ATST-Clip small step's (192 sequences of 151 tokens,
-   width 384, 6 heads; errors only); K6, forward and backward, in
+   width 384, 6 heads; errors only) and at the clip CLI's (226 tokens, 9 s
+   crops); K6, forward and backward, in
    f32 at the ATST-Clip small step's shape (192 sequences of 151 tokens,
    width 384, 6 heads) and at the ATST-Frame base one ([192, 250, 768],
    12 heads), and in bf16 at [192, 250, 768], each beside
@@ -51,14 +54,16 @@ sm_90a) and the CUDA toolkit:
    and untimed in both dtypes at [16, 97, 256] with 8 heads of 32, with a
    sequence that has no valid key; K8 in f32 and bf16 at [192 * 151, 384] and
    [192 * 250, 768], in device time too beside aten's LayerNorm backward,
-   and untimed at 97 rows of widths 100, 200, 1000 and 1023; K7 over the
+   and untimed in bf16 at [192 * 226, 384] and at 97 rows of widths 100,
+   200, 1000 and 1023; K7 over the
    full parameter set of the ATST-Frame base student branch through a
    kept leaf table, bit for bit against its plain version, its second and
    third calls under ``set_sync_debug_mode("error")``, in CUDA-event,
    device and host time, and untimed over leaves of odd lengths; the int8
    kernels K2q and K3q at [8, 250, 768], [192, 250, 768] and
    [192, 151, 384], K4q and K5q (int8 forward, int8dx
-   backward) at [192, 250, 768] and [192, 151, 384], each also against its
+   backward) at [192, 250, 768], [192, 151, 384] and [192, 226, 384],
+   each also against its
    float kernel, which a kernel that skipped quantizing would sit next
    to; K2 and K2q at head dim 128 ([8, 97, 512], 4 heads; errors only).
    Every kernel's bound (bytes or operations over the card's peak rates)
@@ -116,12 +121,49 @@ sm_90a) and the CUDA toolkit:
    the bf16 step; then, untimed, with ``student_quant="int8"`` (the
    K4q/K5q forward, the K4/K5 backward);
 9. ATST-Clip training, int8: the bf16 recipe of phase 6 with the int8
-   teacher and each int8 student, untimed, held as phase 6 is.
+   teacher and each int8 student, untimed, held as phase 6 is; then the
+   data2vec variant of phase 4 (``avg_blocks=8``: the teacher's K2/K3
+   collect its last 8 block outputs, the student has a linear projector
+   whose bf16 output puts the loss in bf16, as in JAX), untimed, held as
+   phase 6 is.
+10. the frame CLI's run loop (``pretrain_frame_cli``, timed): a seeded int16
+   pack of 480 tone clips of 2-10 s (~90 MB, 5 batches an epoch); the
+   method built by ``methods/atstframe/train.py``'s ``build_method`` from
+   the arguments of ``recipes/torch_atst_frame_base.sh`` (ATST-Frame base,
+   bf16) at B=96, 2 warm-up steps of 12, a checkpoint every 6;
+   ``run_pretraining`` through the native loader, logging every 3 steps:
+   launches (12 x phase 4's), finite losses, a teacher that moved, clips/s
+   by interval (the median of intervals 2-4 is the CLI's rate) beside the
+   bare step's on a resident batch in the same process, each save's
+   blocking host copy and background write, peak memory; then the last
+   checkpoint restored into a fresh method (every tensor equal, the
+   generator's state included) and one step from each state on the same
+   batch and draws (loss and leaves: bit-equal reported, cosine >=
+   0.99999 held), beside a control with no save or restore (one step from
+   each of two states built alike): where the control is bit-equal, the
+   restored step must be too; the run's clips/s over all its steps, saves
+   included;
+11. crash-restart, untimed: ``python -m audiossl_tpu_torch.methods.
+   atstframe.train`` at the recipe's arguments, B=96, 8 steps, a
+   checkpoint every 3, killed (SIGKILL) once its step-3 checkpoint exists;
+   run again it resumes from step 3 (or 6), ends at step 8 and keeps at
+   most 3 steps, 8 the latest; a third run takes no step and saves
+   nothing;
+12. the other CLIs, untimed, 3 steps each at B=96 with launch counts
+   checked: ATST-Clip small through ``methods/atst/train.py`` in bf16
+   (``recipes/torch_atst_clip_small.sh``; K1 2, K2-K5 12, K7 1, K8 1 a
+   step), the data2vec variant (``--avg_blocks 8``: the teacher's K2/K3
+   collect its last 8 block outputs) and the int8 recipe
+   (``--teacher_quant int8 --student_quant int8dx``: K2q-K5q) of the
+   frame CLI.
 ``--profile DIR`` also writes a ``torch.profiler`` table and trace of one
 kernel-path step of phases 4, 5, 7 and 8 to DIR.
 
-The STFT shapes the main paths hand K1 are recorded by path and must
-include the shapes K1 was timed at.
+The shape of every launch of K1-K6 and K8 is recorded (``LAUNCH_SHAPE``):
+every shape a main path launches must have been compared with the plain
+version in phase 2 (K1 compares any other STFT shape after the paths),
+and the STFT shapes each path hands K1 must include the one it was timed
+at.
 Any failed check raises and exits non-zero. Without a CUDA device, or
 without the package beside it, it exits non-zero and prints no result.
 The last two lines are a JSON summary of the kernels and the result line
@@ -154,6 +196,7 @@ MEL_TF32_ATOL = 2e-3  # TF32 vs f32 STFT, normalized mel: the JAX package's
 # documented ~2e-3 for its 1-pass bf16 training STFT (TF32 keeps 2 more bits)
 CLIP_N, CLIP_C, CLIP_H = 151, 384, 6  # ATST-Clip small, 6 s crops: 150
 # patches and the CLS token, width 384, 6 heads of 64
+CLI_CLIP_N = 226  # the clip CLI's 9 s crops (recipes/torch_atst_clip_small.sh)
 MHA_F32_REL = 1e-4  # f32 kernel vs f32 plain (K6, K8): f32 FMA sums in
 # another order
 STEP_LOSS_REL = 1e-2  # kernel vs plain step: bf16 at the same rounding
@@ -624,32 +667,78 @@ def gemm_s8_checks(dev):
     torch.cuda.empty_cache()
 
 
-# K1 at the main paths' STFT shapes [B, 2 * 513, T] (the shapes the run
-# records from its launches must include them): serving 8 x 10 s, clip
-# inference 8 x 6 s, the frame step 96 x 10 s, the clip step 96 x 6 s crops,
-# the probes' extraction batches 64 x 12 s
+# K1 at the main paths' STFT shapes [B, 2 * 513, T], timed: serving 8 x
+# 10 s, clip inference 8 x 6 s, the frame step 96 x 10 s, the clip step 96 x
+# 6 s crops, the probes' extraction batches 64 x 12 s, the clip CLI's 96 x
+# 9 s crops; any other shape a main path hands K1 is compared after the
+# paths (``k1_compare``)
 K1_SHAPES = {"serving": (B, 1026, 1001), "clip_serving": (B, 1026, 601),
              "frame_bf16": (TRAIN_B, 1026, 1001),
              "clip_f32": (TRAIN_B, 1026, 601),
-             "probe_clip": (64, 1026, 1201)}
+             "probe_clip": (64, 1026, 1201),
+             "pretrain_clip_cli": (TRAIN_B, 1026, 901)}
 # paths that hand K1 the shape another path's entry times
 K1_SAME_SHAPE = {"probe_frame": "probe_clip"}
-K1_SEEN = set()  # the STFT shapes handed to K1 on the card (record_k1_shapes)
+# The shape of each launch, as its comparison with the plain version must
+# have covered it: K1's STFT [B, 2F, T]; K2-K5 and K2q-K5q (tokens, width,
+# heads or hidden width: the batch only sizes the grid); K6 (dtype,
+# tokens, width, heads); K8 (dtype, rows, width). The integers a wrapper
+# hands ``kb.launch`` after the pointers, in the order of its C entry
+# point; K7 is not recorded (its leaf table is checked at the base
+# student's leaves and at odd ones).
+_BLOCK = lambda a: tuple(a[1:4])  # noqa: E731  (B, N, C, H or Hd)
+LAUNCH_SHAPE = {
+    "mel_db": lambda a: (a[0], 2 * a[1], a[2]),
+    "mha_fwd": lambda a: (a[0], *a[2:5]), "mha_bwd": lambda a: (a[0], *a[2:5]),
+    "ln_pg_bwd": lambda a: tuple(a[1:4]),
+    **{k: _BLOCK for k in (
+        "attn_block", "mlp_block", "attn_train_fwd", "attn_train_bwd",
+        "mlp_train_fwd", "mlp_train_bwd", "attn_block_q8", "mlp_block_q8",
+        "attn_train_fwd_q8", "attn_train_bwd_q8dx", "mlp_train_fwd_q8",
+        "mlp_train_bwd_q8dx")}}
+LAUNCH_SEEN = {}  # kernel -> the shapes of its launches on the card since
+# the last clear (record_launch_shapes)
 
 
-def record_k1_shapes():
-    """Adds the shape of every STFT the mel front end hands K1 on the card
-    to ``K1_SEEN``; the call and its launch count go on as they were."""
-    from audiossl_tpu_torch.ops import melspec
+def record_launch_shapes():
+    """Adds the shape (``LAUNCH_SHAPE``) of every launch of K1-K6 and K8 to
+    ``LAUNCH_SEEN``; the launch and its count go on as they were."""
+    from audiossl_tpu_torch.kernels import build as kb
 
-    kernel = melspec.stft_to_mel_db
+    launch = kb.launch
 
-    def recorded(stft, fb, amin=1e-10):
-        if stft.is_cuda:
-            K1_SEEN.add(tuple(stft.shape))
-        return kernel(stft, fb, amin)
+    def recorded(name, device, *args):
+        if name in LAUNCH_SHAPE:
+            ints = [a for a in args if type(a) is int]
+            LAUNCH_SEEN.setdefault(name, set()).add(LAUNCH_SHAPE[name](ints))
+        return launch(name, device, *args)
 
-    melspec.stft_to_mel_db = recorded
+    kb.launch = recorded
+
+
+def k1_compare(dev, shape):
+    """K1 against its plain version, untimed, on the STFT of seeded
+    waveforms at ``shape`` [B, 1026, T] (the recipe's filterbank); returns
+    the largest error."""
+    from audiossl_tpu_torch.ops import mel_db as md
+    from audiossl_tpu_torch.ops.melspec import MelConfig, mel_filterbank, stft_conv
+
+    cfg = MelConfig()
+    rng = np.random.RandomState(SEED + 40)
+    wav = torch.from_numpy((rng.randn(shape[0], (shape[2] - 1)
+                                      * cfg.hop_length) * 0.1).astype(
+        np.float32)).to(dev)
+    stft = stft_conv(wav, cfg)
+    check(tuple(stft.shape) == tuple(shape), f"K1 STFT shape {shape}")
+    fb = mel_filterbank(cfg, dev)
+    got = md.stft_to_mel_db(stft, fb, cfg.amin)
+    want = md.stft_to_mel_db_ref(stft, fb, cfg.amin)
+    err = float((got - want).abs().max())
+    print(f"K1 mel_db {tuple(shape)} (a main path's shape, untimed): "
+          f"max_abs_err {err} dB, rel_l2 {rel_l2(got, want)}")
+    check(bool(torch.isfinite(got).all()) and err <= K1_ATOL_DB,
+          f"K1 {tuple(shape)} finite, max abs error {err} <= {K1_ATOL_DB} dB")
+    return err
 
 
 def mel_db_checks(dev):
@@ -1140,11 +1229,12 @@ def library_mm(products, dev):
     return cuda_ms(lambda: [torch.matmul(a, b) for a, b in pairs], iters=10)
 
 
-def clip_block_checks(dev):
+def clip_block_checks(dev, n):
     """K2-K5, and K4q/K5q (int8 forward, int8dx backward), against their
     plain versions at the ATST-Clip small step's shapes: 192 sequences of
-    151 tokens (the CLS token and 150 patches), width 384, 6 heads, hidden
-    1536, bf16 (K2q/K3q there: ``q8_infer_checks``)."""
+    ``n`` tokens (the CLS token and the patches: 151 for 6 s crops, 226 for
+    the CLI's 9 s), width 384, 6 heads, hidden 1536, bf16 (K2q/K3q at 151
+    tokens: ``q8_infer_checks``)."""
     rng = np.random.RandomState(SEED + 11)
     S = 2 * TRAIN_B
 
@@ -1152,18 +1242,17 @@ def clip_block_checks(dev):
         a = (rng.randn(*shape) * s + off).astype(np.float32)
         return torch.from_numpy(a).to(dev, dtype)
 
-    x = t(S, CLIP_N, CLIP_C, dtype=torch.bfloat16)
-    ragged = [CLIP_N, 126, 77, 1]
-    lengths = torch.tensor([ragged[i // 4 % 4] if i % 4 == 1 else CLIP_N
+    x = t(S, n, CLIP_C, dtype=torch.bfloat16)
+    ragged = [n, 126, 77, 1]
+    lengths = torch.tensor([ragged[i // 4 % 4] if i % 4 == 1 else n
                             for i in range(S)], device=dev)
-    valid = (torch.arange(CLIP_N, device=dev)[None]
-             < lengths[:, None]).float()
+    valid = (torch.arange(n, device=dev)[None] < lengths[:, None]).float()
     dp = torch.tensor([(1.0, 0.0, 1 / 0.9)[i % 3] for i in range(S)],
                       device=dev)
     res = infer_block_checks(t, x, valid, dp, CLIP_H, 4 * CLIP_C,
                              timed=False)
     for quant in (None, "int8dx"):
-        res.update(train_kernel_checks(dev, CLIP_N, CLIP_C, CLIP_H,
+        res.update(train_kernel_checks(dev, n, CLIP_C, CLIP_H,
                                        4 * CLIP_C, timed=False, quant=quant))
     return res
 
@@ -1341,7 +1430,8 @@ def ln_kernel_checks(dev):
     """K8 against its plain version in f32 and bf16 at the rows of the
     ATST-Clip small step ([192 * 151, 384]) and of the ATST-Frame base step
     ([192 * 250, 768]), timed by CUDA events and in device time beside
-    aten's LayerNorm backward; then untimed at 97 rows of widths 100, 200,
+    aten's LayerNorm backward; then untimed in bf16 at the rows of the clip
+    CLI's step ([192 * 226, 384]) and at 97 rows of widths 100, 200,
     1000 and 1023 (16-byte vectors that do not fill the lanes, single
     elements where a row is not a whole number of 16-byte vectors). The
     first case is the one the summary line reports at its top level."""
@@ -1353,7 +1443,9 @@ def ln_kernel_checks(dev):
     cases = [("f32", f32, S * CLIP_N, CLIP_C, MHA_F32_REL, True),
              ("f32_frame", f32, S * N, C, MHA_F32_REL, True),
              ("bf16_clip", bf, S * CLIP_N, CLIP_C, BLOCK_REL_L2, True),
-             ("bf16", bf, S * N, C, BLOCK_REL_L2, True)]
+             ("bf16", bf, S * N, C, BLOCK_REL_L2, True),
+             ("bf16_clip_cli", bf, S * CLI_CLIP_N, CLIP_C, BLOCK_REL_L2,
+              False)]
     cases += [(f"{n}_97x{c}", dt, 97, c, tol, False) for c in (100, 200,
                                                                 1000, 1023)
               for n, dt, tol in (("f32", f32, MHA_F32_REL),
@@ -2031,7 +2123,7 @@ def leaf_cos(a, b, skip):
 def step_path(dev, label, make_method, batch, want, loss_rel, grad_cos,
               profile_dir=None, make_ref=None, rival=None, timed=True,
               ref_margins=(REF_MEDIAN_MARGIN, REF_MIN_MARGIN),
-              grad_floor=None):
+              grad_floor=None, bn_projector=True):
     """One step of ``make_method(plain=False)`` through the kernels (launch
     counts, finite loss, a teacher that moved), the same step from the same
     state and draws through every plain version (``make_method(True)``),
@@ -2045,7 +2137,10 @@ def step_path(dev, label, make_method, batch, want, loss_rel, grad_cos,
     the plain version's on either side, and the two paths to a median leaf
     cosine of ``grad_cos`` and a lowest of ``grad_floor`` where given.
     ``rival`` (label, method factory) adds another method's kernel-path
-    step to the turns; ``timed=False`` leaves the turns out."""
+    step to the turns; ``timed=False`` leaves the turns out. Behind a
+    BatchNorm projector the student's final norm bias has no gradient in
+    exact arithmetic (``ZERO_GRAD_REL``); ``bn_projector=False`` (the
+    data2vec student's linear projector) holds it as any other leaf."""
     runs = {}
     for plain in (False, True):
         method = make_method(plain)
@@ -2078,7 +2173,8 @@ def step_path(dev, label, make_method, batch, want, loss_rel, grad_cos,
     ploss = float(pout["loss"])
     rel = abs(loss - ploss) / abs(ploss)
     zero_grad = f"encoder.{method.student.encoder._norm_name}.bias"
-    cos, unused, norms = leaf_cos(state, pstate, {zero_grad})
+    skip = {zero_grad} if bn_projector else set()
+    cos, unused, norms = leaf_cos(state, pstate, skip)
     worst = min(cos, key=cos.get)
     print(f"{label} plain-path step loss {ploss}: rel diff {rel}; gradient "
           f"cosine min {cos[worst]} ({worst}), median "
@@ -2104,7 +2200,7 @@ def step_path(dev, label, make_method, batch, want, loss_rel, grad_cos,
         rloss = float(rmethod.make_step()(rstate, batch, draws)["loss"])
         stats = {}
         for name, st, lo in (("kernel", state, loss), ("plain", pstate, ploss)):
-            c = leaf_cos(st, rstate, {zero_grad})[0]
+            c = leaf_cos(st, rstate, skip)[0]
             low = sorted(c, key=c.get)[:3]
             stats[name] = (float(np.median(list(c.values()))), c[low[0]])
             print(f"{label} {name} path vs the f32 plain step (loss {rloss}):"
@@ -2119,9 +2215,10 @@ def step_path(dev, label, make_method, batch, want, loss_rel, grad_cos,
               f"{label}: lowest leaf cosine to the f32 step {kmin} within "
               f"{ref_margins[1]} of the plain path's {pmin}")
         del rmethod, rstate
-    check(norms[zero_grad] <= ZERO_GRAD_REL * max(norms.values()),
-          f"{label}: {zero_grad} gradient (zero in exact arithmetic) <= "
-          f"{ZERO_GRAD_REL} of the largest leaf's on both paths")
+    if bn_projector:
+        check(norms[zero_grad] <= ZERO_GRAD_REL * max(norms.values()),
+              f"{label}: {zero_grad} gradient (zero in exact arithmetic) <= "
+              f"{ZERO_GRAD_REL} of the largest leaf's on both paths")
 
     if not timed:
         return launches
@@ -2160,15 +2257,35 @@ def frame_bf16_path(dev, profile_dir=None):
     from audiossl_tpu_torch.methods.atstframe.method import FrameMethod
 
     cfg = base_recipe()
-    want = {k: 12 for k in ("attn_train_fwd", "attn_train_bwd",
-                            "mlp_train_fwd", "mlp_train_bwd", "attn_block",
-                            "mlp_block")}
-    want.update(mel_db=1, adamw_ema=1, ln_pg_bwd=1)
     return step_path(
         dev, "frame_bf16",
         lambda plain: FrameMethod(cfg, device=dev, seed=SEED, plain=plain),
-        wav_batch(dev, cfg.out_samples, SEED + 4), want, STEP_LOSS_REL,
-        STEP_GRAD_COS, profile_dir)
+        wav_batch(dev, cfg.out_samples, SEED + 4), bf16_want(1),
+        STEP_LOSS_REL, STEP_GRAD_COS, profile_dir)
+
+
+def frame_d2v_path(dev):
+    """The data2vec variant of the ATST-Frame base step (``avg_blocks=8``)
+    at B=96 in bf16, untimed: the teacher's K2/K3 collect its last 8 block
+    outputs, whose instance-normalized mean is the target; the student has
+    a linear projector and no predictor. Its projector returns bf16, so
+    its normalization and loss run in bf16, as JAX's do (a loss near 2
+    lands on bf16's steps of 2^-6 there), and that rounding dominates the
+    gradient: it is held as the clip bf16 step is, both paths against the
+    same step in f32."""
+    import dataclasses
+
+    from audiossl_tpu_torch.methods.atstframe.method import FrameMethod
+
+    cfg = dataclasses.replace(base_recipe(), avg_blocks=8)
+    ref_cfg = dataclasses.replace(cfg, dtype="float32")
+    return step_path(
+        dev, "frame_bf16_d2v",
+        lambda plain: FrameMethod(cfg, device=dev, seed=SEED, plain=plain),
+        wav_batch(dev, cfg.out_samples, SEED + 17), bf16_want(1),
+        STEP_LOSS_REL, None, timed=False, bn_projector=False,
+        make_ref=lambda: FrameMethod(ref_cfg, device=dev, seed=SEED,
+                                     plain=True))
 
 
 def clip_f32_path(dev, profile_dir=None):
@@ -2196,14 +2313,11 @@ def clip_bf16_path(dev):
     from audiossl_tpu_torch.methods.atst.method import ClipMethod
 
     cfg, ref_cfg = clip_recipe("bfloat16"), clip_recipe("float32")
-    want = {k: 12 for k in ("attn_train_fwd", "attn_train_bwd",
-                            "mlp_train_fwd", "mlp_train_bwd", "attn_block",
-                            "mlp_block")}
-    want.update(mel_db=2, adamw_ema=1, ln_pg_bwd=1)
     return step_path(
         dev, "clip_bf16",
         lambda plain: ClipMethod(cfg, device=dev, seed=SEED, plain=plain),
-        wav_batch(dev, SAMPLES, SEED + 9, short=80000), want, STEP_LOSS_REL,
+        wav_batch(dev, SAMPLES, SEED + 9, short=80000), bf16_want(2),
+        STEP_LOSS_REL,
         None,
         make_ref=lambda: ClipMethod(ref_cfg, device=dev, seed=SEED,
                                     plain=True))
@@ -2237,6 +2351,17 @@ def q8_recipe(recipe, student_quant):
 
     return dataclasses.replace(recipe, teacher_quant="int8",
                                student_quant=student_quant)
+
+
+def bf16_want(mel):
+    """Launches per step of a bf16 step on the block kernels (12 blocks):
+    K4/K5 for the student, K2/K3 for the teacher, K8 for the student's
+    final norm, ``mel`` K1 and one K7."""
+    want = {k: 12 for k in ("attn_train_fwd", "attn_train_bwd",
+                            "mlp_train_fwd", "mlp_train_bwd", "attn_block",
+                            "mlp_block")}
+    want.update(mel_db=mel, adamw_ema=1, ln_pg_bwd=1)
+    return want
 
 
 def q8_want(student_quant, mel):
@@ -2344,6 +2469,351 @@ def clip_q8_path(dev, student_quant):
         timed=False)
 
 
+CLI_PACK_N = 480  # tone clips of 2-10 s: 5 batches of TRAIN_B an epoch
+CLI_STEPS, CLI_CKPT, CLI_LOG = 12, 6, 3  # the timed CLI run
+CLI_UNTIMED_STEPS = 3
+CRASH_STEPS, CRASH_CKPT = 8, 3
+RESTORE_COS = 0.99999  # a step from a restored state, if not bit-equal
+
+
+class Tee:
+    """stdout that also keeps what was written (the runner's lines)."""
+
+    def __init__(self, out):
+        self.out, self.parts = out, []
+
+    def write(self, s):
+        self.out.write(s)
+        self.parts.append(s)
+        return len(s)
+
+    def flush(self):
+        self.out.flush()
+
+    def text(self):
+        return "".join(self.parts)
+
+
+def write_cli_pack(workdir):
+    """The seeded int16 pack the CLI phases read: ``CLI_PACK_N`` tone clips
+    of 2-10 s (~90 MB, 5 batches of ``TRAIN_B`` an epoch)."""
+    from audiossl_tpu_torch.datasets import write_synthetic_pack
+
+    data = os.path.join(workdir, "pretrain_pack")
+    t0 = time.perf_counter()
+    write_synthetic_pack(data, "train", CLI_PACK_N, min_s=2.0, max_s=10.0,
+                         seed=SEED + 30, kind="tones")
+    mb = os.path.getsize(os.path.join(data, "train.ards")) / 1e6
+    print(f"pretraining pack written in {time.perf_counter() - t0:.1f} s: "
+          f"{CLI_PACK_N} clips, {mb:.1f} MB")
+    return data
+
+
+def recipe_argv(name, data, save):
+    """(module, arguments) of the ``python -m`` command of
+    ``recipes/<name>``, with its ``$DATA`` and ``$SAVE``."""
+    import shlex
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, "recipes", name)) as f:
+        text = f.read().replace("\\\n", " ")
+    line = next(ln for ln in text.splitlines()
+                if ln.strip().startswith("python"))
+    argv = shlex.split(line)
+    check(argv[1] == "-m", f"{name} runs a module")
+    args = [{"$DATA": data, "$SAVE": save}.get(a, a) for a in argv[3:]]
+    return argv[2], args
+
+
+def state_tensors(state):
+    """Every tensor of a ``PretrainState`` by name, and its step, count
+    and generator state."""
+    out = {f"student.{k}": v for k, v in state.student.state_dict().items()}
+    out.update({f"teacher.{k}": v
+                for k, v in state.teacher.state_dict().items()})
+    out.update({f"mu.{k}": v for k, v in state.mu.items()})
+    out.update({f"nu.{k}": v for k, v in state.nu.items()})
+    out["generator"] = state.generator.get_state()
+    out["step"] = torch.tensor(state.step)
+    out["count"] = torch.tensor(state.count)
+    return out
+
+
+def step_differences(a, b):
+    """The tensors of states ``a`` and ``b`` that differ (``state_tensors``
+    names) and the lowest cosine between a pair of them (floating, not all
+    zero)."""
+    a, b = state_tensors(a), state_tensors(b)
+
+    def cos(x, y):  # no eps floor: Adam's nu holds values near 1e-12
+        x, y = x.double().flatten(), y.double().flatten()
+        return float(x @ y / (x.norm() * y.norm()))
+
+    differ = [k for k in a if not torch.equal(a[k], b[k])]
+    low = min(cos(a[k], b[k]) for k in a
+              if a[k].is_floating_point() and a[k].abs().max() > 0)
+    return differ, low
+
+
+def pretrain_frame_cli_path(dev, workdir, data):
+    """The frame CLI's run loop at ATST-Frame base, B = 96, bf16: the
+    method built by ``build_method`` from ``recipes/
+    torch_atst_frame_base.sh``'s arguments, ``run_pretraining`` for
+    ``CLI_STEPS`` steps through the native loader with checkpoints every
+    ``CLI_CKPT``; its launches, clips/s by interval beside the bare step's,
+    each save's host copy and write, peak memory; then the last checkpoint
+    restored into a fresh method (every tensor equal) and one step from
+    each state on the same batch and draws. Returns the run's launches."""
+    import contextlib
+    import re
+    import shutil
+
+    from audiossl_tpu_torch.datasets import PackedAudioDataset
+    from audiossl_tpu_torch.kernels import build as kb
+    from audiossl_tpu_torch.methods.atstframe import train as ft
+    from audiossl_tpu_torch.training.checkpoint import CheckpointManager
+    from audiossl_tpu_torch.training.runner import run_pretraining
+
+    save = os.path.join(workdir, "frame_cli")
+    module, argv = recipe_argv("torch_atst_frame_base.sh", data, save)
+    check(module == ft.__name__, f"the frame recipe runs {ft.__name__}")
+    args = ft.build_parser().parse_args(argv + [
+        "--batch_size_per_device", str(TRAIN_B), "--warmup_steps", "2",
+        "--max_steps", str(CLI_STEPS), "--ckpt_interval", str(CLI_CKPT)])
+    check(args.dtype == "bfloat16" and args.arch == "base"
+          and args.device == "cuda", "the frame CLI's defaults: bf16 on the "
+          "card, at base width")
+    method = ft.build_method(args)
+    dataset = PackedAudioDataset(data, "train", subset=args.subset)
+    t_name = f"encoder.blocks.{method.depth - 1}.mlp.fc2.weight"
+    init = dict(method.student.named_parameters())[t_name].detach().clone()
+
+    tee = Tee(sys.stdout)
+    torch.cuda.synchronize()
+    kb.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        state = run_pretraining(
+            method, dataset, batch_size_per_device=args.batch_size_per_device,
+            max_steps=args.max_steps, save_path=args.save_path,
+            ckpt_interval=args.ckpt_interval, log_interval=CLI_LOG,
+            seed=args.seed, clip_len_s=args.clip_len)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kb.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    out = tee.text()
+    check(state.step == CLI_STEPS, f"the frame CLI ran to step {CLI_STEPS}")
+    check("loader: native" in out, "the frame CLI took the native loader")
+    check_launches("pretrain_frame_cli", launches,
+                   {k: n * CLI_STEPS for k, n in bf16_want(1).items()})
+    steps = [(int(m.group(1)), m.group(2)) for m in
+             re.finditer(r"^step (\d+) (.*)$", out, re.M)]
+    vals = [dict(kv.split("=") for kv in rest.split()) for _, rest in steps]
+    rates = [float(v["clips_per_sec"]) for v in vals]
+    losses = [float(v["loss"]) for v in vals]
+    check([s for s, _ in steps] == list(range(CLI_LOG, CLI_STEPS + 1,
+                                              CLI_LOG)),
+          f"a log line every {CLI_LOG} steps")
+    check(all(np.isfinite(losses)), f"the frame CLI's losses {losses} finite")
+    moved = float((dict(state.teacher.named_parameters())[t_name]
+                   - init).abs().max())
+    check(moved > 0.0, f"pretrain_frame_cli: the teacher moved ({t_name} max "
+          f"change {moved})")
+    copies = {int(s): float(ms) for s, ms in re.findall(
+        r"^checkpoint step (\d+): host copy ([\d.]+) ms$", out, re.M)}
+    writes = {int(s): float(x) for s, x in re.findall(
+        r"^checkpoint step (\d+): written in ([\d.]+) s$", out, re.M)}
+    want_saves = list(range(CLI_CKPT, CLI_STEPS + 1, CLI_CKPT))
+    check(sorted(copies) == sorted(writes) == want_saves,
+          f"checkpoints at steps {want_saves}")
+    cli_rate = float(np.median(rates[1:4]))
+
+    # the last checkpoint into a fresh method: every tensor equal
+    fresh = ft.build_method(args)
+    rstate = fresh.init_state(args.seed)
+    mgr = CheckpointManager(os.path.join(save, "ckpt"), args.ckpt_interval)
+    check(mgr.latest_step == CLI_STEPS and mgr.all_steps() == want_saves,
+          f"kept steps {mgr.all_steps()}, the latest {mgr.latest_step}")
+    t1 = time.perf_counter()
+    mgr.restore_latest(rstate)
+    restore_s = time.perf_counter() - t1
+    a, b = state_tensors(state), state_tensors(rstate)
+    check(a.keys() == b.keys(), "the restored state holds the same tensors")
+    unequal = [k for k in a if not torch.equal(a[k].cpu(), b[k].cpu())]
+    check(not unequal, f"every restored tensor (of {len(a)}, the generator "
+          f"state included) equal to the run's: unequal {unequal[:5]}")
+    # one step from each on the same batch and draws
+    batch = wav_batch(dev, method.cfg.out_samples, SEED + 31)
+    draws = method.draw(torch.Generator(device=dev).manual_seed(SEED),
+                        TRAIN_B)
+    run_step, rstep = method.make_step(), fresh.make_step()
+    la = float(run_step(state, batch, draws)["loss"])
+    lb = float(rstep(rstate, batch, draws)["loss"])
+    differ, low = step_differences(state, rstate)
+    bit_equal = la == lb and not differ
+    print(f"pretrain_frame_cli: the step after restore: loss {la} / {lb}, "
+          f"bit-equal {bit_equal} ({len(differ)} tensors differ: "
+          f"{differ[:6]}), lowest leaf cosine {low}")
+    del fresh, rstate, rstep
+    torch.cuda.empty_cache()
+    # the control: one step from each of two states built alike (no save,
+    # no restore), on the same batch and draws
+    pair = []
+    for _ in range(2):
+        m = ft.build_method(args)
+        st = m.init_state(args.seed)
+        st.step = CLI_STEPS
+        pair.append((m, st))
+    a, b = state_tensors(pair[0][1]), state_tensors(pair[1][1])
+    check(all(torch.equal(a[k].cpu(), b[k].cpu()) for k in a),
+          "the control's two states start equal")
+    del a, b
+    lc = [float(m.make_step()(st, batch, draws)["loss"]) for m, st in pair]
+    cdiffer, clow = step_differences(pair[0][1], pair[1][1])
+    control_equal = lc[0] == lc[1] and not cdiffer
+    print(f"pretrain_frame_cli: control, one step from each of two equal "
+          f"states: loss {lc[0]} / {lc[1]}, bit-equal {control_equal} "
+          f"({len(cdiffer)} tensors differ: {cdiffer[:6]}), lowest leaf "
+          f"cosine {clow}; {len(set(differ) & set(cdiffer))} of the "
+          f"restored step's {len(differ)} differing tensors differ here too")
+    del pair
+    torch.cuda.empty_cache()
+    check(bit_equal or not control_equal, "the step from the restored state "
+          "is bit-equal to the run's wherever two equal states step alike")
+    check(abs(la - lb) <= 1e-5 * abs(la) and low >= RESTORE_COS,
+          f"the step from the restored state matches the run's (loss rel "
+          f"1e-5, every leaf cosine >= {RESTORE_COS})")
+
+    # the bare step on a resident batch, in the same process
+    run_step(state, batch)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(3):
+        run_step(state, batch)
+    torch.cuda.synchronize()
+    bare = 3 * TRAIN_B / (time.perf_counter() - t1)
+    print(json.dumps({"pretrain_frame_cli": {
+        "loader": re.search(r"^loader: (.*)$", out, re.M).group(1),
+        "clips_per_s_by_interval": rates, "cli_clips_per_s": cli_rate,
+        "bare_step_clips_per_s": bare, "cli_over_bare": cli_rate / bare,
+        "host_copy_ms": copies, "write_s": writes, "restore_s": restore_s,
+        "peak_gib": peak, "wall_s": wall, "losses": losses,
+        "restored_step_bit_equal": bit_equal,
+        "restored_step_tensors_differing": len(differ),
+        "control_step_bit_equal": control_equal,
+        "control_step_tensors_differing": len(cdiffer),
+        "cli_clips_per_s_whole_run": CLI_STEPS * TRAIN_B / wall}}))
+    del method, state, run_step
+    torch.cuda.empty_cache()
+    shutil.rmtree(save)
+    return launches
+
+
+def crash_restart_path(workdir, data):
+    """``python -m ...atstframe.train`` at the recipe's arguments, B = 96,
+    killed (SIGKILL) once its step-3 checkpoint exists; run again it must
+    resume from step 3 (or 6), end at step 8 and keep at most 3 steps,
+    8 the latest; a third run takes no step."""
+    import shutil
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    save = os.path.join(workdir, "frame_crash")
+    module, argv = recipe_argv("torch_atst_frame_base.sh", data, save)
+    cmd = [sys.executable, "-m", module, *argv,
+           "--batch_size_per_device", str(TRAIN_B), "--warmup_steps", "2",
+           "--max_steps", str(CRASH_STEPS), "--ckpt_interval",
+           str(CRASH_CKPT)]
+    ckpt = os.path.join(save, "ckpt")
+    first = os.path.join(ckpt, str(CRASH_CKPT), "state.pt")
+    logs = []
+
+    def run(i, kill_when=None):
+        log = os.path.join(workdir, f"crash_run{i}.log")
+        logs.append(log)
+        t0 = time.perf_counter()
+        with open(log, "w") as f:
+            p = subprocess.Popen(cmd, cwd=root, stdout=f,
+                                 stderr=subprocess.STDOUT)
+            try:
+                while p.poll() is None:
+                    if kill_when is not None and os.path.exists(kill_when):
+                        p.kill()
+                        break
+                    if time.perf_counter() - t0 > 400:
+                        raise RuntimeError(f"crash run {i} took over 400 s")
+                    time.sleep(0.1)
+            finally:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+        with open(log) as f:
+            text = f.read()
+        steps = sorted(int(n) for n in os.listdir(ckpt) if n.isdigit())
+        print(f"crash run {i}: exit {p.returncode} after "
+              f"{time.perf_counter() - t0:.1f} s; kept steps {steps}; "
+              f"{[ln for ln in text.splitlines() if ln.startswith(('resumed', 'run ended', 'checkpoint'))]}")
+        return p.returncode, text, steps
+
+    rc, _, _ = run(1, kill_when=first)
+    check(rc == -9, f"the first run was killed (exit {rc})")
+    rc, text, steps = run(2)
+    check(rc == 0, "the second run ended")
+    check(f"resumed from step {CRASH_CKPT}\n" in text
+          or f"resumed from step {2 * CRASH_CKPT}\n" in text,
+          "the second run resumed from the first run's checkpoint")
+    check(f"run ended at step {CRASH_STEPS}:" in text,
+          f"the second run ended at step {CRASH_STEPS}")
+    check(len(steps) <= 3 and steps[-1] == CRASH_STEPS,
+          f"at most 3 steps kept, {CRASH_STEPS} the latest: {steps}")
+    mtime = os.path.getmtime(os.path.join(ckpt, str(CRASH_STEPS), "state.pt"))
+    rc, text, steps3 = run(3)
+    check(rc == 0 and f"resumed from step {CRASH_STEPS}\n" in text
+          and f"run ended at step {CRASH_STEPS}: 0 steps taken" in text
+          and steps3 == steps and mtime == os.path.getmtime(
+              os.path.join(ckpt, str(CRASH_STEPS), "state.pt")),
+          "a third run at max_steps takes no step and saves nothing")
+    shutil.rmtree(save)
+
+
+def cli_untimed_path(dev, data, recipe, extra, want):
+    """``main`` of a recipe's CLI module for ``CLI_UNTIMED_STEPS`` steps at
+    B = 96 with ``extra`` flags and no checkpoints; its launches checked
+    against ``want`` per step and the student's parameters finite."""
+    import contextlib
+    import importlib
+
+    from audiossl_tpu_torch.kernels import build as kb
+
+    module, argv = recipe_argv(recipe, data, "")
+    i = argv.index("--save_path")
+    del argv[i:i + 2]
+    cli = importlib.import_module(module)
+    label = " ".join([f"{module.rsplit('.', 2)[-2]} CLI", *extra])
+    tee = Tee(sys.stdout)
+    torch.cuda.synchronize()
+    kb.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        state = cli.main(argv + [
+            "--batch_size_per_device", str(TRAIN_B), "--warmup_steps", "2",
+            "--max_steps", str(CLI_UNTIMED_STEPS), *extra])
+    torch.cuda.synchronize()
+    launches = dict(kb.LAUNCHES)
+    print(f"{label}: {CLI_UNTIMED_STEPS} steps in "
+          f"{time.perf_counter() - t0:.1f} s")
+    check("loader: native" in tee.text(), f"{label} took the native loader")
+    check_launches(label, launches,
+                   {k: v * CLI_UNTIMED_STEPS for k, v in want.items()})
+    check(all(bool(torch.isfinite(p).all())
+              for p in state.student.parameters()),
+          f"{label}: the student's parameters are finite")
+    del state
+    torch.cuda.empty_cache()
+    return launches
+
+
 def profile_step(step, state, batch, out_dir, label):
     """One kernel-path step under torch.profiler: a table of device time
     by kernel and a chrome trace in out_dir."""
@@ -2401,6 +2871,7 @@ def main():
     kb.library()
     print(f"kernel build + load: {time.perf_counter() - t0:.1f} s")
     k1_k7_k8_build_report()
+    record_launch_shapes()
 
     gemm_checks(dev)
     res = kernel_checks(dev)
@@ -2414,17 +2885,19 @@ def main():
                     [len(s) >= 2 for s in odd], timed=False)
     res.update(q8_infer_checks(dev))
     res.update(train_kernel_checks(dev, quant="int8dx"))
-    for name, r in clip_block_checks(dev).items():
-        res[name]["clip"] = r
+    for n, key in ((CLIP_N, "clip"), (CLI_CLIP_N, "clip_cli")):
+        for name, r in clip_block_checks(dev, n).items():
+            res[name][key] = r
     for name, r in d128_checks(dev).items():
         res[name]["d128"] = r
-    paths, k1_seen = {}, {}
-    record_k1_shapes()
+    # every launch so far was compared with its plain version at its shape
+    checked = {k: set(v) for k, v in LAUNCH_SEEN.items()}
+    paths, seen = {}, {}
 
     def run_path(name, fn):
-        K1_SEEN.clear()
+        LAUNCH_SEEN.clear()
         paths[name] = fn()
-        k1_seen[name] = sorted(K1_SEEN)
+        seen[name] = {k: sorted(v) for k, v in LAUNCH_SEEN.items()}
 
     with tempfile.TemporaryDirectory() as workdir:
         path = write_base_ckpt(workdir)
@@ -2444,15 +2917,48 @@ def main():
                       lambda: frame_q8_path(dev, "int8dx", args.profile)),
                      ("frame_int8", lambda: frame_q8_path(dev, "int8")),
                      ("clip_int8dx", lambda: clip_q8_path(dev, "int8dx")),
-                     ("clip_int8", lambda: clip_q8_path(dev, "int8"))):
+                     ("clip_int8", lambda: clip_q8_path(dev, "int8")),
+                     ("frame_bf16_d2v", lambda: frame_d2v_path(dev))):
         torch.cuda.empty_cache()
         run_path(name, fn)
+    with tempfile.TemporaryDirectory() as workdir:
+        data = write_cli_pack(workdir)
+        torch.cuda.empty_cache()
+        run_path("pretrain_frame_cli",
+                 lambda: pretrain_frame_cli_path(dev, workdir, data))
+        crash_restart_path(workdir, data)
+        for name, recipe, extra, want in (
+                ("pretrain_clip_cli", "torch_atst_clip_small.sh", [],
+                 bf16_want(2)),
+                ("pretrain_d2v_cli", "torch_atst_frame_base.sh",
+                 ["--avg_blocks", "8"], bf16_want(1)),
+                ("pretrain_frame_cli_int8dx", "torch_atst_frame_base.sh",
+                 ["--teacher_quant", "int8", "--student_quant", "int8dx"],
+                 q8_want("int8dx", 1))):
+            torch.cuda.empty_cache()
+            run_path(name, lambda: cli_untimed_path(dev, data, recipe, extra,
+                                                    want))
+    k1_seen = {p: v.get("mel_db", []) for p, v in seen.items()}
     print(f"K1 STFT shapes by path: {k1_seen}")
     for name, shape in list(K1_SHAPES.items()) + [
             (p, K1_SHAPES[q]) for p, q in K1_SAME_SHAPE.items()]:
         check(shape in k1_seen[name],
               f"K1 timed at a shape the {name} path ran, {shape}")
+    for shape in sorted({s for v in k1_seen.values() for s in v}
+                        - checked["mel_db"]):
+        res["mel_db"]["max_abs_err"] = max(res["mel_db"]["max_abs_err"],
+                                           k1_compare(dev, shape))
+        checked["mel_db"].add(shape)
     res["mel_db"]["path_shapes"] = k1_seen
+    print(f"launch shapes compared with the plain versions: "
+          f"{ {k: sorted(v) for k, v in checked.items()} }")
+    print(f"launch shapes by path: {seen}")
+    unchecked = {f"{name} {kernel}": sorted(set(v) - checked.get(kernel, set()))
+                 for name, by_kernel in seen.items()
+                 for kernel, v in by_kernel.items()}
+    unchecked = {k: v for k, v in unchecked.items() if v}
+    check(not unchecked, "every launch of K1-K6 and K8 on the main paths at "
+          f"a shape compared with its plain version (not: {unchecked})")
 
     sources = {
         "mel_db": ("mel_db.cu", "audiossl_tpu/ops/pallas_mel.py:39"),

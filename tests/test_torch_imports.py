@@ -1,6 +1,6 @@
-"""The port stands without JAX (and its probe slice without pandas and
-PyYAML), and its kernel wrappers launch nothing for a CPU tensor (they take
-their plain versions)."""
+"""The port stands without JAX (and its probe slice and pretraining CLIs
+without pandas and PyYAML), and its kernel wrappers launch nothing for a CPU
+tensor (they take their plain versions)."""
 import subprocess
 import sys
 from pathlib import Path
@@ -33,6 +33,11 @@ def test_port_imports_without_jax():
         "import audiossl_tpu_torch.downstream.linear\n"
         "import audiossl_tpu_torch.downstream.embedding\n"
         "import audiossl_tpu_torch.training.checkpoint\n"
+        "import audiossl_tpu_torch.training.runner\n"
+        "import audiossl_tpu_torch.datasets.native\n"
+        "import audiossl_tpu_torch.utils.common\n"
+        "import audiossl_tpu_torch.methods.atstframe.train\n"
+        "import audiossl_tpu_torch.methods.atst.train\n"
         "import audiossl_tpu_torch.models.heads\n"
         "from audiossl_tpu_torch import load_model, get_scene_embedding\n"
         "bad = [m for m in sys.modules if m.split('.')[0] == 'audiossl_tpu']\n"
