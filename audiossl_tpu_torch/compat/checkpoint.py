@@ -15,7 +15,10 @@
   :func:`pretrain_state_from_flax` carry a whole pretraining state of the
   JAX package (``training/pretrain.py:69 PretrainState``: both branches,
   BatchNorm statistics, Adam's moments and count) into the port, so both
-  start a step from the same state.
+  start a step from the same state; :func:`finetune_state_from_flax` does
+  the same for a finetuning state (``downstream/finetune.py:
+  FinetuneState``: the encoder, the linear head and its BatchNorm
+  statistics, the momentum trace).
 """
 from __future__ import annotations
 
@@ -90,10 +93,11 @@ def state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
 
 
 def _head_from_flax(p: Mapping, stats: Mapping, prefix: str, out) -> None:
-    """MLPHead {fc0, bn0, fc1} -> ``prefix.fc0.weight`` etc.; BatchNorm
-    statistics ``mean``/``var`` -> ``running_mean``/``running_var``."""
+    """MLPHead {fc0, bn0, fc1} or LinearHead {linear} ->
+    ``prefix.fc0.weight`` etc.; BatchNorm statistics ``mean``/``var`` ->
+    ``running_mean``/``running_var``."""
     for name, q in p.items():
-        if name in ("fc0", "fc1"):
+        if name in ("fc0", "fc1", "linear"):
             _dense(q, f"{prefix}.{name}", out)
         elif name == "bn0":
             out[f"{prefix}.bn0.weight"] = _t(q["scale"])
@@ -156,6 +160,33 @@ def pretrain_state_from_flax(state, method, generator: torch.Generator):
         mu={k: mu[k].to(dev) for k in names},
         nu={k: nu[k].to(dev) for k in names},
         count=count, generator=generator)
+
+
+def finetune_state_from_flax(state, task):
+    """The JAX package's ``FinetuneState`` (``downstream/finetune.py``)
+    -> the port's, loaded into ``task``'s encoder and head (a
+    ``downstream.finetune.FinetuneTask`` built alike): the encoder, the
+    LinearHead with its BatchNorm statistics, and ``optax.trace``'s
+    momentum trace by the port's parameter names; the step carries over,
+    JAX's key does not."""
+    task.encoder.load_state_dict(state_dict_from_flax(
+        _tree_np(state.enc_params)))
+    head = {}
+    _head_from_flax(_tree_np(state.head_params),
+                    _tree_np(state.head_stats), "head", head)
+    task.head.load_state_dict({k[len("head."):]: v for k, v in head.items()})
+    out = task.init_state()
+    out.step = int(np.asarray(state.step))
+    trace = state.opt_state.trace
+    got = {f"encoder.{k}": v for k, v in
+           state_dict_from_flax(_tree_np(trace["enc"])).items()}
+    _head_from_flax(_tree_np(trace["head"]), {}, "head", got)
+    if set(got) != set(out.mu):
+        raise KeyError("the momentum trace's leaves are not the task's: "
+                       f"{sorted(set(got) ^ set(out.mu))[:8]}")
+    for k, v in got.items():
+        out.mu[k].copy_(v)
+    return out
 
 
 def _tree_np(tree):

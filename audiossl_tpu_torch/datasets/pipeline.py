@@ -83,15 +83,19 @@ class BatchLoader:
 
     dataset must implement __len__ and __getitem__ -> (wav, label).
     drop_last=True gives every batch the same shape. ``shuffle`` draws
-    the order from ``np.random.RandomState(seed + epoch)``. ``num_threads``
-    records load at once, ``PREFETCH`` batches are prepared ahead of the
-    consumer.
+    the order from ``np.random.RandomState(seed + epoch)``; with
+    ``weights`` (one per record; the reference's ``WeightedRandomSampler``
+    for AudioSet finetuning) the same generator draws ``len(dataset)``
+    records with replacement, each with probability ``w / w.sum()``,
+    shuffled or not. ``num_threads`` records load at once, ``PREFETCH``
+    batches are prepared ahead of the consumer.
     """
 
     def __init__(self, dataset, batch_size: int, pad_samples: int,
                  shuffle: bool = True, drop_last: bool = True,
                  seed: int = 0, num_threads: int = 8, epoch: int = 0,
-                 include_labels: bool = True, wav_dtype=np.float32):
+                 include_labels: bool = True, wav_dtype=np.float32,
+                 weights=None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.pad_samples = pad_samples
@@ -106,6 +110,12 @@ class BatchLoader:
         # the float path. float32-returning datasets are re-quantized to
         # 16 bits (source audio is 16-bit PCM in practice).
         self.wav_dtype = np.dtype(wav_dtype)
+        self.weights = None if weights is None else np.asarray(
+            weights, np.float64)
+
+    def set_epoch(self, epoch: int):
+        """The epoch whose order the next iteration draws."""
+        self.epoch = epoch
 
     def __len__(self):
         n = len(self.dataset)
@@ -136,9 +146,15 @@ class BatchLoader:
         return batch
 
     def __iter__(self) -> Iterator[dict]:
-        order = np.arange(len(self.dataset))
-        if self.shuffle:
-            np.random.RandomState(self.seed + self.epoch).shuffle(order)
+        n = len(self.dataset)
+        rng = np.random.RandomState(self.seed + self.epoch)
+        if self.weights is not None:
+            order = rng.choice(n, size=n, replace=True,
+                               p=self.weights / self.weights.sum())
+        else:
+            order = np.arange(n)
+            if self.shuffle:
+                rng.shuffle(order)
         chunks = [order[i * self.batch_size:(i + 1) * self.batch_size]
                   for i in range(len(self))]
 

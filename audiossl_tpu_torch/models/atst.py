@@ -261,7 +261,8 @@ class AudioTransformer(nn.Module):
         as flax's ``Dense``), with ``apply_mask`` the tokens of
         ``mask_index`` [B, Np] (bool) replaced by ``mask_embed``, a clip
         encoder's CLS token before the patches (N = Np + 1), and the
-        position embeddings of ``pos_type``."""
+        position embeddings of ``pos_type``. With "cut", more patches than
+        the position embeddings hold raise."""
         dt = self.dtype
         B, F, T = mel.shape
         lin = self.patch_embed.patch_embed
@@ -275,17 +276,25 @@ class AudioTransformer(nn.Module):
         if mask_index is not None and apply_mask:
             m = mask_index[:, :, None].to(dt)
             x = (1.0 - m) * x + m * self.mask_embed.to(dt)
-        pos = (self.pos_embed[:, :Np + 1] if self.pos_type == "cut"
-               else self._interpolated_pos(F, T))
+        if self.pos_type == "cut":
+            if Np + 1 > self.pos_embed.shape[1]:
+                raise ValueError(
+                    f"{Np} patches exceed the {self.pos_embed.shape[1] - 1} "
+                    f"position embeddings of spec_w={self.spec_w}")
+            pos = self.pos_embed[:, :Np + 1]
+        else:
+            pos = self._interpolated_pos(F, T)
         if self.use_cls:
             cls = self.cls_token.to(dt).expand(B, 1, self.embed_dim)
             return torch.cat([cls, x], dim=1) + pos.to(dt), plen
         return x + pos[:, 1:].to(dt), plen
 
-    def run_blocks(self, x, lengths, collect_from: Optional[int] = None):
-        """Run all blocks of an inference pass over tokens x [B, N, D] with
+    def run_blocks(self, x, lengths, collect_from: Optional[int] = None,
+                   dps: Optional[torch.Tensor] = None):
+        """Run all blocks of a downstream pass over tokens x [B, N, D] with
         lengths [B] valid tokens (None: all); collect the outputs of blocks
-        >= collect_from."""
+        >= collect_from. ``dps`` [depth, 2, B]: drop-path keep multipliers
+        of each block's attention and MLP branch (training), or None."""
         if self.fused:
             # imported here: ops.block_infer imports models.transformer
             from audiossl_tpu_torch.ops.block_infer import encoder_blocks_infer
@@ -294,12 +303,13 @@ class AudioTransformer(nn.Module):
             # are in dtype
             return encoder_blocks_infer(
                 self.blocks, x, lengths, self.num_heads, self.eps,
-                collect_from, dtype=self.dtype, quant=self.infer_quant)
+                collect_from, dps=dps, dtype=self.dtype,
+                quant=self.infer_quant)
         mask = (None if lengths is None
                 else length_to_attn_mask(lengths, x.shape[1]))
         collected = []
         for i, blk in enumerate(self.blocks):
-            x = blk(x, mask)
+            x = blk(x, mask, None if dps is None else (dps[i, 0], dps[i, 1]))
             if collect_from is not None and i >= collect_from:
                 collected.append(x)
         return x, collected
@@ -415,7 +425,8 @@ class AudioTransformer(nn.Module):
 
     def get_intermediate_layers(self, mel: torch.Tensor,
                                 length: Optional[torch.Tensor] = None,
-                                n: int = 1, scene: bool = True):
+                                n: int = 1, scene: bool = True,
+                                dps: Optional[torch.Tensor] = None):
         """Downstream/embedding API, token for token JAX's
         ``get_intermediate_layers`` (``audiossl_tpu/models/atst.py:392``).
 
@@ -428,10 +439,12 @@ class AudioTransformer(nn.Module):
         patches, as in JAX. scene=False: concat of the normed token
         sequences, a clip encoder's CLS row first -> [B, N, n*D]. Outputs
         are f32, an exact cast of the blocks' dtype where it is not f32
-        (the bf16 values JAX returns under ``load_model(fused=True)``)."""
+        (the bf16 values JAX returns under ``load_model(fused=True)``).
+        ``dps`` [depth, 2, B]: drop-path keep multipliers (training), or
+        None."""
         x, plen = self.prepare_tokens(mel, length, apply_mask=False)
         _, collected = self.run_blocks(x, self._attn_lengths(plen),
-                                       collect_from=self.depth - n)
+                                       collect_from=self.depth - n, dps=dps)
         outs = []
         for h in collected:
             norm_h = _norm(self.final_norm, h)
@@ -451,17 +464,19 @@ class AudioTransformer(nn.Module):
 
 
     def cls_avg_layers(self, mel: torch.Tensor,
-                       length: Optional[torch.Tensor] = None, n: int = 1):
+                       length: Optional[torch.Tensor] = None, n: int = 1,
+                       dps: Optional[torch.Tensor] = None):
         """Per block of the last n, the final norm's CLS token and the mean
         of the patch tokens after it (JAX's ``cls_avg_layers``,
         ``audiossl_tpu/models/atst.py:422``; reference ``get_cls_avg``) ->
         (cls [n, B, D], avg [n, B, D]) in the blocks' dtype. The mean sums
         the first ``plen`` patches and divides by ``plen + 1e-6``, so a
         ``length`` beyond the mel's frames divides by more patches than it
-        holds, as in JAX; a frame encoder's cls is zero."""
+        holds, as in JAX; a frame encoder's cls is zero.
+        ``dps`` [depth, 2, B]: drop-path keep multipliers, or None."""
         x, plen = self.prepare_tokens(mel, length, apply_mask=False)
         _, collected = self.run_blocks(x, self._attn_lengths(plen),
-                                       collect_from=self.depth - n)
+                                       collect_from=self.depth - n, dps=dps)
         cls_list, avg_list = [], []
         for h in collected:
             norm_h = _norm(self.final_norm, h)
@@ -483,7 +498,8 @@ class AudioTransformer(nn.Module):
     def get_intermediate_layers_chunks(self, mel: torch.Tensor,
                                        length: Optional[torch.Tensor] = None,
                                        n: int = 1, chunk_len: int = 601,
-                                       avgpool: bool = True):
+                                       avgpool: bool = True,
+                                       dps: Optional[torch.Tensor] = None):
         """Clip-level inference over long audio (JAX's
         ``get_intermediate_layers_chunks``, ``audiossl_tpu/models/atst.py:
         447``): the mel [B, F, T] cut into ``T // chunk_len + 1`` chunks of
@@ -496,7 +512,9 @@ class AudioTransformer(nn.Module):
         in the reference, so the first chunk of a clip longer than one
         chunk divides its mean by more patches than it holds. Returns
         [B, 2*n*D] (the CLS of each block, then the means) with
-        ``avgpool``, else [B, n*D]."""
+        ``avgpool``, else [B, n*D]. ``dps`` [depth, 2, B * nc]: drop-path
+        keep multipliers of the chunk sequences, clip-major (training), or
+        None."""
         B, F, T = mel.shape
         nc = T // chunk_len + 1
         if length is None:
@@ -508,7 +526,8 @@ class AudioTransformer(nn.Module):
         cur = torch.clamp(length[:, None] - ks[None, :] * chunk_len, min=0)
         mark = torch.where(ks[None, :] == 0, cur > 0, cur > chunk_len // 2)
         cls, avg = self.cls_avg_layers(
-            chunks.reshape(B * nc, F, chunk_len), cur.reshape(-1), n=n)
+            chunks.reshape(B * nc, F, chunk_len), cur.reshape(-1), n=n,
+            dps=dps)
         w = mark.to(cls.dtype)[None, :, :, None]
         denom = w.sum(dim=2)
         outs = []

@@ -1,9 +1,9 @@
 """Downstream classification heads (PyTorch port of
 ``audiossl_tpu/models/heads.py``; reference ``audiossl/modules/head.py``).
 
-:class:`LinearHead` is the linear probe's head: BatchNorm1d without scale
-and bias, then a Linear with a normal(0, 0.01) weight and a zero bias.
-Parameter names are the reference's (``norm.running_mean``,
+:class:`LinearHead` is the linear probe's and the finetuning head:
+BatchNorm1d without scale and bias, then a Linear with a normal(0, 0.01)
+weight and a zero bias. Parameter names are the reference's (``norm.running_mean``,
 ``linear.weight``, ...).
 """
 from __future__ import annotations

@@ -8,9 +8,10 @@ directories instead.
   ``ModelCheckpoint`` + ``last.ckpt`` auto-resume (reference
   ``methods/atst/train.py:25-35``), with the JAX package's orbax
   ``CheckpointManager`` semantics: which steps are saved and kept.
-* :class:`TopKKeeper`: Lightning ``ModelCheckpoint(save_top_k=10,
+* :class:`TopKKeeper`: Lightning ``ModelCheckpoint(save_top_k=k,
   monitor="val_*", mode="max")`` in the downstream drivers
-  (``methods/atst/downstream/train_freeze.py:117-124``).
+  (``methods/atst/downstream/train_freeze.py:117-124``,
+  ``train_finetune.py:122``).
 """
 from __future__ import annotations
 
@@ -24,7 +25,7 @@ from typing import Dict, List, Mapping, Optional
 import torch
 
 STATE_FILE = "state.pt"
-TOP_K = 10
+TOP_K = 10  # the keeper's default k, the reference's save_top_k
 
 
 def host_state(state) -> dict:
@@ -183,9 +184,10 @@ class CheckpointManager:
 
 
 class TopKKeeper:
-    """The ``TOP_K`` saved states with the highest validation metric."""
+    """The ``k`` saved states with the highest validation metric."""
 
-    def __init__(self, directory: str):
+    def __init__(self, directory: str, k: int = TOP_K):
+        self.k = k
         self.dir = os.path.abspath(os.path.expanduser(
             os.path.join(directory, "top")))
         os.makedirs(self.dir, exist_ok=True)
@@ -204,7 +206,7 @@ class TopKKeeper:
                state: Mapping[str, torch.Tensor]) -> bool:
         """Save ``state`` under ``tag`` (epoch or step) if it makes the top
         k. Returns True when saved."""
-        if len(self._index) >= TOP_K:
+        if len(self._index) >= self.k:
             worst_tag = min(self._index, key=self._index.__getitem__)
             if metric < self._index[worst_tag]:
                 return False
@@ -219,6 +221,21 @@ class TopKKeeper:
         self._index[int(tag)] = float(metric)
         self._write_index()
         return True
+
+    @property
+    def best_tag(self) -> Optional[int]:
+        """The tag of the best state kept, or None."""
+        return (max(self._index, key=self._index.__getitem__)
+                if self._index else None)
+
+    def restore_best(self):
+        """The best state kept, as saved (read with ``weights_only=True``),
+        or None when none is."""
+        tag = self.best_tag
+        if tag is None:
+            return None
+        return torch.load(os.path.join(self.dir, str(tag), STATE_FILE),
+                          map_location="cpu", weights_only=True)
 
 
 def read_topk_index(index_path: str) -> Dict[int, float]:

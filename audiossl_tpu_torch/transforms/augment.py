@@ -4,8 +4,9 @@ Port of the parts of ``audiossl_tpu/transforms/augment.py`` that the
 ATST-Frame and ATST-Clip steps run: waveform dequantization, random crop
 lengths, the batched random crop, BYOL-A log-mixup-exp with an in-batch
 partner, and RandomResizeCrop (its pure freq-warp form for ATST-Frame, the
-general virtual-canvas form for ATST-Clip). Every augmentation is split in
-two:
+general virtual-canvas form for ATST-Clip); and the finetuning step's
+SpecAugment masks (torchaudio's frequency and time masking). Every
+augmentation is split in two:
 
 * a *draw* function makes its random numbers on the device from a
   ``torch.Generator`` (uniforms in [0, 1), partner shifts);
@@ -187,3 +188,38 @@ def random_resize_crop(spec: torch.Tensor, h_u: torch.Tensor,
         out = sample_bicubic_2d(canvas, ys, xs, iy, iy + h - 1, ix, ix + w - 1)
     pos = torch.arange(T, device=dev)[None, None, :]
     return torch.where(pos < W[:, None, None], out, 0.0)
+
+
+def draw_mask(gen: torch.Generator, batch: int, max_width: int, device):
+    """(mask widths [B] in [0, max_width), start uniforms [B]) for
+    :func:`freq_mask` or :func:`time_mask`."""
+    return (torch.randint(0, max_width, (batch,), generator=gen,
+                          device=device),
+            torch.rand(batch, generator=gen, device=device))
+
+
+def freq_mask(spec: torch.Tensor, width: torch.Tensor,
+              u: torch.Tensor) -> torch.Tensor:
+    """torchaudio ``FrequencyMasking`` (JAX ``freq_mask``, one mask): per
+    sample the band [f0, f0 + f) of spec [B, F, T] set to 0, f = width [B],
+    f0 = ``int(u * (F - f + 1))`` in f32."""
+    F = spec.shape[1]
+    f0 = (u * (F - width + 1).float()).int()
+    pos = torch.arange(F, device=spec.device)[None, :]
+    band = (pos >= f0[:, None]) & (pos < (f0 + width)[:, None])
+    return torch.where(band[:, :, None], 0.0, spec)
+
+
+def time_mask(spec: torch.Tensor, width: torch.Tensor, u: torch.Tensor,
+              valid_frames: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """torchaudio ``TimeMasking`` on the last axis (JAX ``time_mask``, one
+    mask): per sample the frames [t0, t0 + t) set to 0, t = width [B], t0 =
+    ``int(u * max(W - t + 1, 1))`` in f32 with W the sample's
+    ``valid_frames`` (default T)."""
+    B, _, T = spec.shape
+    hi = (torch.full((B,), T, device=spec.device) if valid_frames is None
+          else valid_frames.long())
+    t0 = (u * torch.clamp(hi - width + 1, min=1).float()).int()
+    pos = torch.arange(T, device=spec.device)[None, :]
+    band = (pos >= t0[:, None]) & (pos < (t0 + width)[:, None])
+    return torch.where(band[:, None, :], 0.0, spec)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """GPU smoke check of the PyTorch port: the serving path of ATST-Frame
-base (bf16 and int8), the linear probe at ATST-Clip and ATST-Frame base
-width, the pretraining steps of ATST-Frame base (bf16, f32 and the int8
+base (bf16 and int8), the linear probe and full finetuning at ATST-Clip
+and ATST-Frame base width, the pretraining steps of ATST-Frame base (bf16, f32 and the int8
 recipes) and ATST-Clip small (f32, bf16 and the int8 recipes), and the
 pretraining CLIs with their run loop, checkpoints and crash-restart.
 
@@ -33,7 +33,7 @@ sm_90a) and the CUDA toolkit:
    its error and both times from CUDA events: K1 at the main paths' STFT
    shapes (serving's 8 and the frame step's 96 clips of 10 s, clip
    inference's 8 and the clip step's 96 crops of 6 s: [8 or 96, 1026, 1001
-   or 601]; the probes' 64 crops of 12 s: [64, 1026, 1201]; the clip
+   or 601]; the probes' and clip finetuning's 64 crops of 12 s: [64, 1026, 1201]; the clip
    CLI's 96 crops of 9 s: [96, 1026, 901]), also in
    device time from the profiler and in the host's time
    to issue a call, its second and third calls under
@@ -94,7 +94,18 @@ sm_90a) and the CUDA toolkit:
    patch-embed layouts bit-equal on the card, ``result.json`` (mAP, finite
    in [0, 1]) and at most 10 kept heads, the probe's ACC branch on the
    frame embeddings; extraction clips/s by split (without the run's first
-   batch) and the probe's seconds;
+   batch) and the probe's seconds; then full finetuning,
+   ``train_finetune.main``, on the same pack at ATST-Clip base (12 s crops,
+   chunks of 601 frames) and ATST-Frame base (10 s crops, SpecAugment,
+   RandomResizeCrop, frozen embeddings, mixup_ratio 0.5), batches of 64
+   drawn by class-balanced weights, 2 epochs with 1 of warm-up, mixup,
+   layer decay 0.75, SGD: K1 once per train and eval batch and no other
+   kernel, ``result.json`` and the kept states; train clips/s by step
+   (the first left out), eval clips/s, peak memory, the test mAP; one step
+   at B = 4 on the card against the CPU from the same state and draws
+   (loss, every leaf's clipped gradient, the updated parameters, the
+   frozen embeddings); and for the clip encoder one step's device time by
+   kernel at B = 64;
 4. ATST-Frame training: one step of ``FrameMethod`` at the ATST-Frame base
    recipe (``bench.py:358-378``, B=96 clips of 10 s, bf16, seeded weights
    and waveforms) through the kernels K1-K5, K7 and K8, checking the launch
@@ -678,7 +689,7 @@ K1_SHAPES = {"serving": (B, 1026, 1001), "clip_serving": (B, 1026, 601),
              "probe_clip": (64, 1026, 1201),
              "pretrain_clip_cli": (TRAIN_B, 1026, 901)}
 # paths that hand K1 the shape another path's entry times
-K1_SAME_SHAPE = {"probe_frame": "probe_clip"}
+K1_SAME_SHAPE = {"probe_frame": "probe_clip", "finetune_clip": "probe_clip"}
 # The shape of each launch, as its comparison with the plain version must
 # have covered it: K1's STFT [B, 2F, T]; K2-K5 and K2q-K5q (tokens, width,
 # heads or hidden width: the batch only sizes the grid); K6 (dtype,
@@ -1864,22 +1875,22 @@ def write_probe_ckpts(workdir, kind):
     return paths, spec_w
 
 
-def extraction_breakdown(extract, batch, label):
-    """Where an extraction batch's time goes: the extractor on one batch
-    (the host's copy to the card included) to ``synchronize()``, the mean
-    of 3 calls after one, and its device time by kernel from the profiler,
-    the GEMMs (cuBLAS f32) and K1 grouped, the rest by name."""
+def breakdown(run, label, top=6):
+    """Where a call's time goes: ``run()`` (the host's copy to the card
+    included) to ``synchronize()``, the mean of 3 calls after one, and its
+    device time by kernel from the profiler, the GEMMs (cuBLAS f32) and K1
+    grouped, the rest by name."""
     from torch.profiler import ProfilerActivity, profile
 
-    extract(batch["wav"], batch["valid"])
+    run()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(3):
-        extract(batch["wav"], batch["valid"])
+        run()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / 3 * 1e3
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        extract(batch["wav"], batch["valid"])
+        run()
         torch.cuda.synchronize()
     kernels = {e.key: e.self_device_time_total / 1e3
                for e in prof.key_averages() if e.self_device_time_total > 0}
@@ -1888,10 +1899,10 @@ def extraction_breakdown(extract, batch, label):
     rest = sorted(((t, k) for k, t in kernels.items()
                    if "gemm" not in k.lower() and "mel_db" not in k),
                   reverse=True)
-    print(json.dumps({f"{label}_batch_of_{len(batch['valid'])}": {
+    print(json.dumps({label: {
         "wall_ms": wall, "device_ms": sum(kernels.values()),
         "gemm_ms": gemm, "k1_ms": k1,
-        "rest_top": [[k[:60], t] for t, k in rest[:6]]}}))
+        "rest_top": [[k[:60], t] for t, k in rest[:top]]}}))
 
 
 def probe_path(dev, workdir, data, kind):
@@ -1995,8 +2006,9 @@ def probe_path(dev, workdir, data, kind):
                 for p in paths)
         check(torch.equal(a, b), "probe_clip: the Linear and Conv2d "
               "patch-embed checkpoints give bit-equal embeddings on the card")
-    extraction_breakdown(extractor(paths[0], dev), batch,
-                         f"probe_{kind}")
+    extract = extractor(paths[0], dev)
+    breakdown(lambda: extract(batch["wav"], batch["valid"]),
+              f"probe_{kind}_batch_of_{len(batch['valid'])}")
     if kind == "frame":
         (tr, _), (va, _), (te, _) = (rec["embeddings"][s]
                                      for s, _ in PROBE_SPLITS)
@@ -2011,6 +2023,220 @@ def probe_path(dev, workdir, data, kind):
         check(np.isfinite(acc["test_metric"])
               and 0.0 <= acc["test_metric"] <= 1.0,
               "probe_frame: the probe's ACC branch gives a finite accuracy")
+    return launches
+
+
+# Full finetuning (``downstream/train_finetune.py``) at ATST-Clip and
+# ATST-Frame base width on the probe pack: batches of 64, 2 epochs with 1 of
+# warm-up (cut from the reference's 50 and 5), mixup alpha 0.5, layer decay
+# 0.75, SGD; the clip encoder on 12 s crops in chunks of 601 frames, the
+# frame encoder on 10 s crops (JAX's frame encoder has position embeddings
+# for 10 s only) with SpecAugment, RandomResizeCrop, frozen embeddings and
+# mixup_ratio 0.5
+FT_B, FT_EPOCHS, FT_WARMUP, FT_LR = 64, 2, 1, 5e-4
+FT_ARCH, FT_BLOCKS = "base", 12  # the encoder, its blocks read
+FT_ARGS = {"clip": ["--train_len", "12"],
+           "frame": ["--train_len", "10", "--mask_aug", "--rrc",
+                     "--freeze_embed", "--mixup_ratio", "0.5"]}
+FT_CHECK_B = 4  # the step held on the card against the CPU
+FT_LOSS_REL, FT_LEAF_COS = 1e-4, 0.9999  # f32 card vs f32 CPU, TF32 off
+FT_PARAM_ATOL = 1e-6  # the updated parameters: a few f32 steps of each
+# The final norm's bias can have no gradient in exact arithmetic: the
+# head's BatchNorm cancels a shift shared by every clip's features (the
+# clip encoder's shift differs by clip only where a clip's first chunk
+# divides its mean by more patches than it holds, a clip longer than one
+# chunk). Rounding noise has no direction to compare, so that leaf is held
+# by its distance from the CPU's, as a share of the largest leaf's norm
+FT_ZERO_REL = 1e-4
+
+
+def finetune_argv(kind, ckpt, data, out, dev):
+    """The path's flags of ``train_finetune.main``."""
+    return ["--pretrained_ckpt_path", ckpt, "--data_path", data,
+            "--dataset_name", "audioset_b", "--model_type", kind,
+            "--arch", FT_ARCH, "--n_last_blocks", str(FT_BLOCKS),
+            "--batch_size", str(FT_B), "--max_epochs", str(FT_EPOCHS),
+            "--warmup_epochs", str(FT_WARMUP), "--learning_rate", str(FT_LR),
+            "--alpha", "0.5", "--layer_wise_lr", "0.75", "--save_path", out,
+            "--device", str(dev), *FT_ARGS[kind]]
+
+
+def finetune_step_check(dev, argv, kind, data):
+    """One step of the task ``train_finetune.build_task`` makes of the
+    path's flags ``argv`` (one step an epoch, so the step runs at the base
+    learning rate), at B = 4, from the same state and draws on the card
+    and on the CPU (f32, TF32 off): the loss within ``FT_LOSS_REL``;
+    every leaf's step (the momentum trace after one step: the clipped
+    gradient, which the layer-decay factor and the learning rate scale
+    into the update) at cosine >= ``FT_LEAF_COS``; every updated parameter
+    within ``FT_PARAM_ATOL``; the frozen embeddings of the frame recipe
+    unchanged. Comparing the parameters' changes instead would compare
+    their f32 rounding: an update of a few f32 steps of the weight.
+    Returns the card's task and state."""
+    from audiossl_tpu_torch.datasets import (BatchLoader, PackedAudioDataset,
+                                             get_dataset)
+    from audiossl_tpu_torch.downstream import train_finetune
+    from audiossl_tpu_torch.downstream.finetune import draw_finetune, draws_to
+    from audiossl_tpu_torch.downstream.train_freeze import load_encoder
+
+    args = train_finetune.build_parser().parse_args(argv)
+    info = get_dataset(args.dataset_name)
+    batch = next(iter(BatchLoader(
+        PackedAudioDataset(data, "train"), FT_CHECK_B,
+        pad_samples=int(args.train_len * 16000), shuffle=False)))
+    out = []
+    for d in (dev, torch.device("cpu")):
+        enc = load_encoder(args.pretrained_ckpt_path, args.model_type,
+                           args.arch, which=args.use_encoder, device=d)
+        task = train_finetune.build_task(args, info, enc, steps_per_epoch=1)
+        state = task.init_state()
+        if d == dev:
+            draws = draw_finetune(task.cfg, FT_CHECK_B,
+                                  task.rows(FT_CHECK_B, batch["wav"].shape[1]),
+                                  enc.depth,
+                                  torch.Generator().manual_seed(SEED + 30),
+                                  np.random.default_rng(SEED + 31))
+        before = {k: p.detach().to("cpu", copy=True)
+                  for k, p in state.params.items()}
+        t0 = time.perf_counter()
+        _, m = task.train_step(state, batch, draws_to(draws, d))
+        loss = float(m["loss"])
+        out.append((loss, {k: v.detach().cpu() for k, v in state.mu.items()},
+                    {k: p.detach().cpu() for k, p in state.params.items()},
+                    before, time.perf_counter() - t0, task, state))
+    (lc, gc, pc, _, tc, *card), (lh, gh, ph, before, th, *_) = out
+    rel = abs(lc - lh) / abs(lh)
+    zero = f"encoder.{'norm' if kind == 'clip' else 'norm_frame'}.bias"
+    top = max(float(v.norm()) for v in gh.values())
+    zero_rel = float((gc[zero] - gh[zero]).norm()) / top
+    cos = {k: float(torch.nn.functional.cosine_similarity(
+        gc[k].double().flatten(), v.double().flatten(), dim=0))
+        for k, v in gh.items() if float(v.norm()) > 0 and k != zero}
+    unused = sorted(k for k, v in gh.items() if float(v.norm()) == 0)
+    unchanged = sorted(k for k, v in ph.items() if torch.equal(v, before[k]))
+    worst = min(cos, key=cos.get)
+    param_err = max(float((pc[k] - v).abs().max()) for k, v in ph.items())
+    print(json.dumps({f"finetune_{kind}_step_card_vs_cpu": {
+        "batch": FT_CHECK_B, "loss": [lc, lh], "loss_rel": rel,
+        "leaves_compared": len(cos), "lowest_cos": [worst, cos[worst]],
+        "param_max_abs_diff": param_err, "no_gradient": unused,
+        "unchanged": unchanged, "final_norm_bias": {
+            "norm_rel": float(gh[zero].norm()) / top, "diff_rel": zero_rel},
+        "card_s": tc, "cpu_s": th}}))
+    check(np.isfinite(lc) and rel <= FT_LOSS_REL,
+          f"finetune_{kind}: card loss {lc} vs CPU {lh} (rel {rel} <= "
+          f"{FT_LOSS_REL})")
+    check(cos[worst] >= FT_LEAF_COS,
+          f"finetune_{kind}: every leaf's step at cosine >= {FT_LEAF_COS} "
+          f"to the CPU's (lowest {worst} {cos[worst]})")
+    check(param_err <= FT_PARAM_ATOL, f"finetune_{kind}: the updated "
+          f"parameters within {FT_PARAM_ATOL} of the CPU's ({param_err})")
+    check(zero_rel <= FT_ZERO_REL, f"finetune_{kind}: {zero}'s gradient "
+          f"within {FT_ZERO_REL} of the largest leaf's norm of the CPU's "
+          f"({zero_rel})")
+    check(unused == ["encoder.mask_embed"],
+          f"finetune_{kind}: only the unused mask_embed has no gradient")
+    frozen = {"encoder.pos_embed", "encoder.patch_embed.patch_embed.weight",
+              "encoder.patch_embed.patch_embed.bias"}
+    check(kind == "clip" or frozen <= set(unchanged),
+          f"finetune_{kind}: --freeze_embed keeps {sorted(frozen)}")
+    return card
+
+
+def finetune_breakdown(task, state, data, kind):
+    """Where a training step's time goes at B = 64 (:func:`breakdown`),
+    on the first train batch with fresh draws each step."""
+    from audiossl_tpu_torch.datasets import BatchLoader, PackedAudioDataset
+    from audiossl_tpu_torch.downstream.finetune import draw_finetune
+
+    cfg = task.cfg
+    batch = next(iter(BatchLoader(
+        PackedAudioDataset(data, "train"), FT_B,
+        pad_samples=int(cfg.crop_len_s * 16000), shuffle=False)))
+    gen, rng = torch.Generator().manual_seed(SEED + 32), \
+        np.random.default_rng(SEED + 33)
+
+    def step():
+        draws = draw_finetune(cfg, FT_B, task.rows(FT_B, batch["wav"].shape[1]),
+                              task.encoder.depth, gen, rng, task.device)
+        return float(task.train_step(state, batch, draws)[1]["loss"])
+
+    breakdown(step, f"finetune_{kind}_step_of_{FT_B}", top=8)
+
+
+def finetune_path(dev, workdir, data, kind):
+    """``train_finetune.main`` at base width on the card: a reference
+    ``.ckpt`` (1001 frames of position embeddings, as the driver loads it),
+    class-balanced batches of 64 drawn with replacement, the mel through K1
+    once a batch, the f32 module-route encoder with drop path, mixup (and
+    for the frame encoder SpecAugment, RandomResizeCrop and frozen
+    embeddings), layer-decayed SGD, validation each epoch, the kept states
+    and the test on the best. Checks K1's launches (one a train and one an
+    eval batch, no other kernel), ``result.json`` and the kept states,
+    then one step on the card against the CPU; prints the train clips/s
+    by step (the first left out), the eval clips/s, peak memory and the
+    test metric; for the clip encoder also one step's device breakdown.
+    Returns the launch counts of ``main``."""
+    from audiossl_tpu_torch.downstream import train_finetune
+    from audiossl_tpu_torch.downstream.train_freeze import _MAKERS
+    from audiossl_tpu_torch.kernels import build as kb
+
+    ckpt = os.path.join(workdir, f"finetune_{kind}.ckpt")
+    sd = _MAKERS[(kind, FT_ARCH)](
+        spec_w=1001, device="cpu",
+        generator=torch.Generator().manual_seed(SEED + 21)).state_dict()
+    torch.save({"state_dict": {f"model.teacher.encoder.{k}": v
+                               for k, v in sd.items()}}, ckpt)
+    del sd
+    out = os.path.join(workdir, f"finetune_{kind}")
+    argv = finetune_argv(kind, ckpt, data, out, dev)
+    record = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kb.reset_launches()
+    t0 = time.perf_counter()
+    res = train_finetune.main(argv, record=record)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kb.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    steps = [s for epoch in record["steps"] for s in epoch]
+    evals = [b for _, batches in record["evals"] for b in batches]
+    print(f"finetune_{kind} launches: {launches}; {len(steps)} train and "
+          f"{len(evals)} eval batches; main took {wall:.2f} s")
+    check(len(steps) == FT_EPOCHS * (PROBE_SPLITS[0][1] // FT_B)
+          and all(n == FT_B for n, _ in steps),
+          f"finetune_{kind}: {FT_EPOCHS} epochs of full train batches")
+    check(launches["mel_db"] == len(steps) + len(evals),
+          f"finetune_{kind}: K1 launched once per train and eval batch "
+          f"({launches['mel_db']} of {len(steps) + len(evals)})")
+    check(not any(v for k, v in launches.items() if k != "mel_db"),
+          f"finetune_{kind}: no other kernel launched (f32 module route)")
+    train = steps[1:]
+    print(json.dumps({
+        f"finetune_{kind}_train_clips_per_s": sum(n for n, _ in train)
+        / sum(t for _, t in train),
+        "by_step": [n / t for n, t in steps],
+        "eval_clips_per_s": sum(n for n, _ in evals)
+        / sum(t for _, t in evals),
+        "eval_by_batch": [n / t for n, t in evals],
+        "peak_gib": peak, "test_mAP": record["test"], "val_mAP": res["val"],
+        "main_s": wall, "k1_launches": launches["mel_db"]}))
+    with open(os.path.join(out, "result.json")) as f:
+        result = json.load(f)
+    check(result == res and set(result) == {"dataset", "val", "test"},
+          f"finetune_{kind} result.json {result}")
+    for key in ("val", "test"):
+        check(np.isfinite(result[key]) and 0.0 <= result[key] <= 1.0,
+              f"finetune_{kind} {key} mAP {result[key]} finite in [0, 1]")
+    with open(os.path.join(out, "top", "index.json")) as f:
+        saved = json.load(f)["scores"]
+    check(0 < len(saved) <= FT_EPOCHS, f"finetune_{kind}: {len(saved)} "
+          f"states kept (audioset keeps up to 10 of {FT_EPOCHS} epochs)")
+    torch.cuda.empty_cache()
+    task, state = finetune_step_check(dev, argv, kind, data)
+    if kind == "clip":
+        finetune_breakdown(task, state, data, kind)
     return launches
 
 
@@ -2909,6 +3135,10 @@ def main():
         for kind in ("clip", "frame"):
             run_path(f"probe_{kind}",
                      lambda: probe_path(dev, workdir, data, kind))
+        for kind in ("clip", "frame"):
+            torch.cuda.empty_cache()
+            run_path(f"finetune_{kind}",
+                     lambda: finetune_path(dev, workdir, data, kind))
     for name, fn in (("frame_bf16", lambda: frame_bf16_path(dev, args.profile)),
                      ("clip_f32", lambda: clip_f32_path(dev, args.profile)),
                      ("clip_bf16", lambda: clip_bf16_path(dev)),

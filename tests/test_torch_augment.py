@@ -143,3 +143,36 @@ def test_port_mixup_and_warp_draws_are_in_range():
     h_u, iy_u = tau.draw_resize_crop(gen, 1000, "cpu")
     for u in (h_u, iy_u, tau.draw_crop(gen, 1000, "cpu")):
         assert 0.0 <= float(u.min()) and float(u.max()) < 1.0
+
+
+def _mask_draws(key, width):
+    """The (widths, start uniforms) JAX's one-mask ``freq_mask`` /
+    ``time_mask`` draws from ``key``."""
+    k1, k2 = jax.random.split(jax.random.split(key, 1)[0])
+    return (_t(jax.random.randint(k1, (B, 1), 0, width))[:, 0].long(),
+            _t(jax.random.uniform(k2, (B, 1)))[:, 0])
+
+
+@pytest.mark.parametrize("valid", [False, True])
+def test_spec_masks_match_jax(valid):
+    """The finetuning step's SpecAugment masks (band 10 in frequency, 50 in
+    time, the time mask within each sample's valid frames), exactly."""
+    spec = np.random.RandomState(20).randn(B, 64, 120).astype(np.float32)
+    frames = np.asarray([120, 97, 51, 30, 10, 1], np.int32)
+    kf, kt = jax.random.split(jax.random.PRNGKey(21))
+    vf = jnp.asarray(frames) if valid else None
+    want = jau.time_mask(kt, jau.freq_mask(kf, jnp.asarray(spec), 10), 50,
+                         valid_frames=vf)
+    got = tau.time_mask(tau.freq_mask(_t(spec), *_mask_draws(kf, 10)),
+                        *_mask_draws(kt, 50),
+                        valid_frames=_t(frames).long() if valid else None)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert int((got.numpy() == 0).sum()) > 0
+
+
+def test_port_mask_draws_cover_their_ranges():
+    gen = torch.Generator().manual_seed(22)
+    width, u = tau.draw_mask(gen, 2000, 50, "cpu")
+    assert int(width.min()) == 0 and int(width.max()) == 49
+    assert 0.0 <= float(u.min()) and float(u.max()) < 1.0
+    assert abs(float(width.float().mean()) - 24.5) < 1.5

@@ -39,6 +39,10 @@ def test_port_imports_without_jax():
         "import audiossl_tpu_torch.methods.atstframe.train\n"
         "import audiossl_tpu_torch.methods.atst.train\n"
         "import audiossl_tpu_torch.models.heads\n"
+        "import audiossl_tpu_torch.downstream.finetune\n"
+        "import audiossl_tpu_torch.downstream.train_finetune\n"
+        "import audiossl_tpu_torch.transforms.target\n"
+        "import audiossl_tpu_torch.methods.distill.train\n"
         "from audiossl_tpu_torch import load_model, get_scene_embedding\n"
         "bad = [m for m in sys.modules if m.split('.')[0] == 'audiossl_tpu']\n"
         "assert not bad, bad\n"
