@@ -18,7 +18,9 @@
   start a step from the same state; :func:`finetune_state_from_flax` does
   the same for a finetuning state (``downstream/finetune.py:
   FinetuneState``: the encoder, the linear head and its BatchNorm
-  statistics, the momentum trace).
+  statistics, the momentum trace), and :func:`sed_state_from_flax` turns
+  an SED state's encoder and head params (``sed/module.py SEDState``) into
+  the port's state dicts.
 """
 from __future__ import annotations
 
@@ -187,6 +189,18 @@ def finetune_state_from_flax(state, task):
     for k, v in got.items():
         out.mu[k].copy_(v)
     return out
+
+
+def sed_state_from_flax(enc_params, head_params):
+    """The JAX package's SED state (``sed/module.py`` ``SEDState``'s
+    ``enc_params`` and ``head_params``, arrays of any kind) -> (the
+    encoder's state dict, the ``SEDHead``'s state dict)."""
+    head: Dict[str, torch.Tensor] = {}
+    for name, p in _tree_np(head_params).items():
+        if name not in ("linear", "linear_softmax"):
+            raise KeyError(f"param group {name!r} has no place in SEDHead")
+        _dense(p, name, head)
+    return state_dict_from_flax(_tree_np(enc_params)), head
 
 
 def _tree_np(tree):

@@ -5,10 +5,10 @@
 The registered names and metadata are the reference's (voxceleb1 1251,
 us8k 10 labels in 10 folds, nsynth 11, spcv2 35, iemocap 4 in 5 folds,
 librispeech, fsd50k 200 multi-label, audioset_b / audioset 527
-multi-label). Bulk corpora (audioset, fsd50k) read ``.ards`` packs
-(``packed.py``); task datasets read their original layouts
-(``tasks.py``). The SED datasets are not registered here yet. Nothing here
-imports pandas or PyYAML.
+multi-label, dcase 10 and as_strong 407 multi-label). Bulk corpora
+(audioset, fsd50k) read ``.ards`` packs (``packed.py``); task datasets read
+their original layouts (``tasks.py``), the SED datasets theirs
+(``sed.py``). Nothing here imports pandas or PyYAML.
 """
 from __future__ import annotations
 
@@ -90,6 +90,9 @@ def create_audioset_b(path, split="train"):
 def create_audioset(path, split="train"):
     return _packed(path, split)
 
+
+# registers "dcase" and "as_strong"
+from audiossl_tpu_torch.datasets import sed  # noqa: E402,F401
 
 __all__ = [
     "DatasetInfo",

@@ -84,11 +84,18 @@ def build_parser():
     return p
 
 
-def _host(state) -> dict:
-    """A host copy of the trained modules' state dicts."""
+def host_modules(state) -> dict:
+    """A host copy of the state dicts of ``state``'s trained ``encoder``
+    and ``head``."""
     return {name: {k: v.detach().to("cpu", copy=True)
                    for k, v in getattr(state, name).state_dict().items()}
             for name in ("encoder", "head")}
+
+
+def load_modules(state, saved) -> None:
+    """Load :func:`host_modules`' copy ``saved`` into ``state``."""
+    state.encoder.load_state_dict(saved["encoder"])
+    state.head.load_state_dict(saved["head"])
 
 
 def build_task(args, info, enc, steps_per_epoch: int) -> FinetuneTask:
@@ -206,7 +213,7 @@ def main(argv=None, record: Optional[dict] = None):
         print(f"epoch {epoch}: val={v:.4f} loss={float(loss):.4f}",
               flush=True)
         if v > best_val or keeper is not None:
-            host = _host(state)
+            host = host_modules(state)
         if v > best_val:
             best_val, best_state = v, host
         if keeper is not None:
@@ -216,8 +223,7 @@ def main(argv=None, record: Optional[dict] = None):
         restored = keeper.restore_best()
         if restored is not None:
             best_state = restored
-    state.encoder.load_state_dict(best_state["encoder"])
-    state.head.load_state_dict(best_state["head"])
+    load_modules(state, best_state)
     test = eval_split("test")
     result = {"dataset": args.dataset_name, "val": best_val, "test": test}
     if record is not None:

@@ -1,0 +1,223 @@
+"""The DCASE / AudioSet-strong SED finetuning task (PyTorch port of
+``audiossl_tpu/sed/module.py``; reference
+``downstream/utils_dcase/model_dcase.py:71-352`` and
+``utils_as_strong/model_as_strong.py:61-325``).
+
+Frame embeddings of the pretrained encoder feed a :class:`SEDHead`. A
+batch mixes strong (synthetic) and weak clips; the loss is the strong BCE
+on the strong rows plus the weak BCE of the attention-pooled scores on
+the weak rows, each masked and normalised by its row count. The update is
+JAX's optax chain written out: SGD with ``optax.trace`` momentum (trace =
+g + momentum * trace), the traced update times each parameter's
+layer-decay factor when ``lr_scale`` < 1, then ``p -= lr * u``, with a
+cosine learning rate per step and no weight decay.
+
+The encoder is the f32 module route (``train_freeze.load_encoder``), so
+the mel kernel K1 is the one kernel on the path. Its drop-path uniforms
+are handed in (``SEDTask.draw``: [depth, 2, B] from a ``torch.Generator``),
+so a test passes JAX's. Freeze mode runs the encoder in eval mode with no
+gradient and trains the head alone.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Optional
+
+import numpy as np
+import torch
+
+from audiossl_tpu_torch.downstream.comparison_models import EncoderAdapter
+from audiossl_tpu_torch.downstream.finetune import _f32, layer_decay_factors
+from audiossl_tpu_torch.models.atst import AudioTransformer
+from audiossl_tpu_torch.models.transformer import drop_path_multipliers
+from audiossl_tpu_torch.sed.head import SEDHead
+from audiossl_tpu_torch.training.schedules import cosine_schedule
+
+EPS = 1e-7  # inside the BCE logs
+MOMENTUM = 0.9  # optax.trace's decay
+
+
+@dataclasses.dataclass(frozen=True)
+class SEDConfig:
+    num_labels: int = 10
+    learning_rate: float = 1e-1
+    max_epochs: int = 100
+    steps_per_epoch: int = 100
+    warmup_epochs: int = 10
+    freeze_mode: bool = False      # a linear probe over the frozen encoder
+    lr_scale: float = 1.0          # per-layer decay (as_strong: 0.75)
+    median_window: int = 7
+    distill_weight: float = 0.0  # > 0: add the frozen teacher's BCE
+    # "add": DCASE, total += w * (strong_d + weak_d) / 2 (reference
+    # utils_dcase/model_distill.py:170-174); "average_strong":
+    # AudioSet-strong, total = strong / 2 + w * strong_d / 2, the weak loss
+    # left out (reference utils_as_strong/model_distill_as_strong.py:
+    # 123-137)
+    distill_combine: str = "add"
+    # JAX reads the drop-path rate off its encoder (0.1 as
+    # train_freeze.load_encoder builds it); the port's encoder holds none
+    drop_path_rate: float = 0.1
+
+    @property
+    def max_steps(self):
+        return self.max_epochs * self.steps_per_epoch
+
+
+@dataclasses.dataclass
+class SEDState:
+    """The encoder and head (trained in place), the momentum trace by
+    parameter name (``mu``; the head's alone in freeze mode) and the
+    step."""
+    step: int
+    encoder: torch.nn.Module
+    head: SEDHead
+    mu: Dict[str, torch.Tensor]
+
+    @property
+    def params(self) -> Dict[str, torch.nn.Parameter]:
+        """The parameters the step trains, ``encoder.<name>`` (unless in
+        freeze mode) then ``head.<name>``, by ``mu``'s names."""
+        named = {f"encoder.{k}": p for k, p in self.encoder.named_parameters()}
+        named.update((f"head.{k}", p) for k, p in self.head.named_parameters())
+        return {k: named[k] for k in self.mu}
+
+
+def _bce(p, y):
+    return -(y * torch.log(p + EPS) + (1 - y) * torch.log(1 - p + EPS))
+
+
+class SEDTask:
+    def __init__(self, encoder, cfg: SEDConfig,
+                 teacher_fn: Optional[Callable] = None,
+                 generator: Optional[torch.Generator] = None):
+        """``encoder`` is an :class:`AudioTransformer` or an adapter of
+        ``downstream.comparison_models`` (``frame_embeddings``,
+        ``embed_dim``, ``token_count`` and its ``encoder``).
+        ``teacher_fn(wav, valid) -> (strong [B, C, T], weak [B, C])``, the
+        probabilities of a frozen finetuned SED teacher, enables distill
+        mode. The head's weights are drawn from ``generator`` (seed 0 when
+        None) on the encoder's device."""
+        if isinstance(encoder, AudioTransformer):
+            self.adapter = EncoderAdapter(encoder=encoder)
+        else:
+            self.adapter = encoder
+        self.encoder = self.adapter.encoder
+        self.cfg = cfg
+        self.device = self.encoder.pos_embed.device
+        self.head = SEDHead(self.adapter.embed_dim, cfg.num_labels,
+                            device=self.device, generator=generator)
+        self.teacher_fn = teacher_fn
+        self.lr_sched = cosine_schedule(
+            cfg.learning_rate, 1e-6, cfg.max_steps,
+            cfg.warmup_epochs * cfg.steps_per_epoch)
+        # per-layer factors of the traced update (reference
+        # request_param_groups, utils_as_strong/model_as_strong.py:
+        # 289-325); as in JAX, for an encoder handed in itself, not through
+        # an adapter
+        self.factors = None
+        if cfg.lr_scale < 1.0 and hasattr(encoder, "depth"):
+            enc = layer_decay_factors(
+                [k for k, _ in self.encoder.named_parameters()],
+                self.encoder.depth, cfg.lr_scale)
+            self.factors = {f"encoder.{k}": v for k, v in enc.items()}
+
+    def init_state(self) -> SEDState:
+        """Step 0 with a zero momentum trace. ``load_encoder`` returns the
+        encoder frozen in eval mode: outside freeze mode it is put back in
+        training mode with gradients on."""
+        train = not self.cfg.freeze_mode
+        self.encoder.requires_grad_(train).train(train)
+        self.head.requires_grad_(True).train()
+        named = ({f"encoder.{k}": p for k, p in
+                  self.encoder.named_parameters()} if train else {})
+        named.update((f"head.{k}", p) for k, p in self.head.named_parameters())
+        mu = {k: torch.zeros_like(p) for k, p in named.items()}
+        return SEDState(step=0, encoder=self.encoder, head=self.head, mu=mu)
+
+    def draw(self, gen: torch.Generator, batch: int) -> Optional[torch.Tensor]:
+        """One step's drop-path uniforms [depth, 2, batch] from ``gen`` (a
+        CPU generator) on the task's device; None in freeze mode or without
+        drop path."""
+        if self.cfg.freeze_mode or self.cfg.drop_path_rate == 0:
+            return None
+        u = torch.rand(self.encoder.depth, 2, batch, generator=gen)
+        return u.to(self.device)
+
+    def _batch(self, batch):
+        dev = self.device
+        wav = torch.as_tensor(np.asarray(batch["wav"]), device=dev).float()
+        valid = torch.as_tensor(np.asarray(batch["valid"]), device=dev).long()
+        return wav, valid
+
+    def train_step(self, state: SEDState, batch,
+                   dp: Optional[torch.Tensor] = None):
+        """One step on ``batch`` (``wav`` [B, L], ``valid`` [B], ``strong``
+        [B, T, C], ``source`` [B]: 0 strong, 1 weak) with the drop-path
+        uniforms ``dp`` (:meth:`draw`); updates the state in place and
+        returns it with ``loss``, ``strong_loss``, ``weak_loss`` and
+        ``lr``."""
+        cfg = self.cfg
+        lr = _f32(self.lr_sched(state.step))  # JAX's schedule runs in f32
+        wav, valid = self._batch(batch)
+        dev = self.device
+        y = torch.as_tensor(np.asarray(batch["strong"]), device=dev).float()
+        source = torch.as_tensor(np.asarray(batch["source"]), device=dev)
+        if cfg.freeze_mode:
+            with torch.no_grad():
+                frames = self.adapter.frame_embeddings(wav, valid)
+        else:
+            dps = (None if dp is None else
+                   drop_path_multipliers(dp, cfg.drop_path_rate))
+            frames = self.adapter.frame_embeddings(wav, valid, dps=dps)
+        strong, weak = self.head(frames)
+        y = y.transpose(1, 2)  # labels arrive [B, T, C]
+        T = min(strong.shape[-1], y.shape[-1])
+        strong, y = strong[..., :T], y[..., :T]
+        s_mask = (source == 0).to(strong.dtype)
+        w_mask = (source == 1).to(strong.dtype)
+        strong_loss = (_bce(strong, y).mean(dim=(1, 2)) * s_mask).sum() / \
+            s_mask.sum().clamp_min(1.0)
+        y_weak = (y.sum(-1) > 0).to(strong.dtype)
+        weak_loss = (_bce(weak, y_weak).mean(-1) * w_mask).sum() / \
+            w_mask.sum().clamp_min(1.0)
+        total = strong_loss + weak_loss
+        if self.teacher_fn is not None and cfg.distill_weight > 0:
+            with torch.no_grad():
+                t_strong, t_weak = self.teacher_fn(wav, valid)
+            Td = min(T, t_strong.shape[-1])
+            bce_ds = _bce(strong[..., :Td], t_strong[..., :Td]).mean()
+            if cfg.distill_combine == "average_strong":
+                total = 0.5 * strong_loss + cfg.distill_weight * 0.5 * bce_ds
+            else:
+                total = total + cfg.distill_weight * 0.5 * (
+                    bce_ds + _bce(weak, t_weak).mean())
+        params = state.params
+        grads = torch.autograd.grad(total, list(params.values()),
+                                    allow_unused=True)
+        with torch.no_grad():
+            # a parameter the loss does not reach (mask_embed) has a zero
+            # gradient, as in JAX
+            for (name, p), g in zip(params.items(), grads):
+                u = state.mu[name].mul_(MOMENTUM)
+                if g is not None:
+                    u.add_(g)
+                u = u.clone()
+                if self.factors is not None and name in self.factors:
+                    u.mul_(self.factors[name])
+                p.sub_(u * lr)
+        state.step += 1
+        return state, {"loss": total.detach(),
+                       "strong_loss": strong_loss.detach(),
+                       "weak_loss": weak_loss.detach(), "lr": lr}
+
+    @torch.no_grad()
+    def predict(self, state: SEDState, batch):
+        """(strong [B, C, T], weak [B, C]) of ``batch`` on the task's
+        device: eval mode, no drop path, no gradient."""
+        training = state.encoder.training
+        state.encoder.eval()
+        try:
+            return state.head(self.adapter.frame_embeddings(
+                *self._batch(batch)))
+        finally:
+            state.encoder.train(training)

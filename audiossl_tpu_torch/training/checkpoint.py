@@ -9,9 +9,9 @@ directories instead.
   ``methods/atst/train.py:25-35``), with the JAX package's orbax
   ``CheckpointManager`` semantics: which steps are saved and kept.
 * :class:`TopKKeeper`: Lightning ``ModelCheckpoint(save_top_k=k,
-  monitor="val_*", mode="max")`` in the downstream drivers
+  monitor="val_*", mode="max" or "min")`` in the downstream drivers
   (``methods/atst/downstream/train_freeze.py:117-124``,
-  ``train_finetune.py:122``).
+  ``train_finetune.py:122``, ``train_as_strong.py:48-61``).
 """
 from __future__ import annotations
 
@@ -20,7 +20,7 @@ import os
 import shutil
 import threading
 import time
-from typing import Dict, List, Mapping, Optional
+from typing import Dict, List, Mapping, Optional, Tuple
 
 import torch
 
@@ -184,31 +184,43 @@ class CheckpointManager:
 
 
 class TopKKeeper:
-    """The ``k`` saved states with the highest validation metric."""
+    """The ``k`` saved states ranked best by a validation metric: the
+    highest with ``mode="max"``, the lowest with ``mode="min"`` (the
+    AudioSet-strong validation loss). The index records the
+    mode, so a reader picks the best entry (:func:`read_topk_index`)."""
 
-    def __init__(self, directory: str, k: int = TOP_K):
+    def __init__(self, directory: str, k: int = TOP_K, mode: str = "max"):
+        if mode not in ("max", "min"):
+            raise ValueError(f"mode {mode!r} is not 'max' or 'min'")
         self.k = k
+        self.mode = mode
         self.dir = os.path.abspath(os.path.expanduser(
             os.path.join(directory, "top")))
         os.makedirs(self.dir, exist_ok=True)
         self._index_path = os.path.join(self.dir, "index.json")
         self._index: Dict[int, float] = {}
         if os.path.exists(self._index_path):
-            self._index = read_topk_index(self._index_path)
+            self._index = read_topk_index(self._index_path)[0]
 
     def _write_index(self):
         with open(self._index_path, "w") as f:
-            json.dump({"mode": "max",
+            json.dump({"mode": self.mode,
                        "scores": {str(k): v
                                   for k, v in self._index.items()}}, f)
+
+    def _rank(self, tag: int) -> float:
+        """Higher is better, in either mode."""
+        v = self._index[tag]
+        return v if self.mode == "max" else -v
 
     def update(self, metric: float, tag: int,
                state: Mapping[str, torch.Tensor]) -> bool:
         """Save ``state`` under ``tag`` (epoch or step) if it makes the top
         k. Returns True when saved."""
         if len(self._index) >= self.k:
-            worst_tag = min(self._index, key=self._index.__getitem__)
-            if metric < self._index[worst_tag]:
+            worst_tag = min(self._index, key=self._rank)
+            worst = self._index[worst_tag]
+            if metric < worst if self.mode == "max" else metric > worst:
                 return False
             shutil.rmtree(os.path.join(self.dir, str(worst_tag)),
                           ignore_errors=True)
@@ -225,8 +237,12 @@ class TopKKeeper:
     @property
     def best_tag(self) -> Optional[int]:
         """The tag of the best state kept, or None."""
-        return (max(self._index, key=self._index.__getitem__)
-                if self._index else None)
+        return max(self._index, key=self._rank) if self._index else None
+
+    @property
+    def best_metric(self) -> Optional[float]:
+        tag = self.best_tag
+        return None if tag is None else self._index[tag]
 
     def restore_best(self):
         """The best state kept, as saved (read with ``weights_only=True``),
@@ -238,8 +254,11 @@ class TopKKeeper:
                           map_location="cpu", weights_only=True)
 
 
-def read_topk_index(index_path: str) -> Dict[int, float]:
-    """-> {tag: metric} of an ``index.json`` the keeper wrote."""
+def read_topk_index(index_path: str) -> Tuple[Dict[int, float], str]:
+    """-> ({tag: metric}, mode) of an ``index.json`` the keeper wrote; an
+    index with no mode (as the keeper wrote it before it had one) reads as
+    "max", as JAX's does."""
     with open(index_path) as f:
         data = json.load(f)
-    return {int(k): float(v) for k, v in data["scores"].items()}
+    return ({int(k): float(v) for k, v in data["scores"].items()},
+            data.get("mode", "max"))

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """GPU smoke check of the PyTorch port: the serving path of ATST-Frame
 base (bf16 and int8), the linear probe and full finetuning at ATST-Clip
-and ATST-Frame base width, the pretraining steps of ATST-Frame base (bf16, f32 and the int8
+and ATST-Frame base width, sound event detection (DCASE, AudioSet-strong,
+distill) at ATST-Frame base, the pretraining steps of ATST-Frame base (bf16, f32 and the int8
 recipes) and ATST-Clip small (f32, bf16 and the int8 recipes), and the
 pretraining CLIs with their run loop, checkpoints and crash-restart.
 
@@ -34,7 +35,9 @@ sm_90a) and the CUDA toolkit:
    shapes (serving's 8 and the frame step's 96 clips of 10 s, clip
    inference's 8 and the clip step's 96 crops of 6 s: [8 or 96, 1026, 1001
    or 601]; the probes' and clip finetuning's 64 crops of 12 s: [64, 1026, 1201]; the clip
-   CLI's 96 crops of 9 s: [96, 1026, 901]), also in
+   CLI's 96 crops of 9 s: [96, 1026, 901]; the DCASE step's 256 and the
+   SED evaluations' and AudioSet-strong step's 32 clips of 10 s: [256 or
+   32, 1026, 1001]), also in
    device time from the profiler and in the host's time
    to issue a call, its second and third calls under
    ``set_sync_debug_mode("error")``, and untimed with a dense random
@@ -105,7 +108,24 @@ sm_90a) and the CUDA toolkit:
    at B = 4 on the card against the CPU from the same state and draws
    (loss, every leaf's clipped gradient, the updated parameters, the
    frozen embeddings); and for the clip encoder one step's device time by
-   kernel at B = 64;
+   kernel at B = 64; then sound event detection at ATST-Frame base on
+   seeded trees of 10 s tone clips (one tone a class, one to three events
+   a clip): ``train_dcase.main`` (256 synthetic strong, 284 weak, 64
+   synthetic validation and 64 test clips; batches of 128 + 128, 2 epochs
+   with 1 of warm-up, learning rate 0.1), ``train_as_strong.main`` (407
+   labels; 128 / 32 / 32 clips, batches of 32, learning rate 1e-3,
+   ``lr_scale`` 0.75, patience 10, 2 epochs) and one epoch of
+   ``train_dcase.main --distill_ckpt`` from the first run's kept states:
+   K1 once per train and eval batch (twice a train batch with the
+   teacher) and no other kernel, ``result.json`` (PSDS scenarios 1 and 2,
+   event F1: finite in [0, 1]) and the keeper's index in mode "max" or
+   "min"; train clips/s by step (the first left out), eval clips/s, the
+   test's decoding and scoring seconds, peak memory; ``decode_preds`` and
+   ``intersection_stats`` on the card against the CPU on the run's own
+   test scores (bit-equal, equal counts), and one DCASE step (4 + 4 clips)
+   and one AudioSet-strong step (8 clips, ``lr_scale`` 0.75) on the card
+   against the CPU from the same weights and drop-path draws (loss,
+   every leaf's gradient, the updated parameters);
 4. ATST-Frame training: one step of ``FrameMethod`` at the ATST-Frame base
    recipe (``bench.py:358-378``, B=96 clips of 10 s, bf16, seeded weights
    and waveforms) through the kernels K1-K5, K7 and K8, checking the launch
@@ -681,15 +701,18 @@ def gemm_s8_checks(dev):
 # K1 at the main paths' STFT shapes [B, 2 * 513, T], timed: serving 8 x
 # 10 s, clip inference 8 x 6 s, the frame step 96 x 10 s, the clip step 96 x
 # 6 s crops, the probes' extraction batches 64 x 12 s, the clip CLI's 96 x
-# 9 s crops; any other shape a main path hands K1 is compared after the
+# 9 s crops, the DCASE step's 128 + 128 x 10 s and the SED evaluations' and
+# AudioSet-strong step's 32 x 10 s; any other shape a main path hands K1 is compared after the
 # paths (``k1_compare``)
 K1_SHAPES = {"serving": (B, 1026, 1001), "clip_serving": (B, 1026, 601),
              "frame_bf16": (TRAIN_B, 1026, 1001),
              "clip_f32": (TRAIN_B, 1026, 601),
              "probe_clip": (64, 1026, 1201),
-             "pretrain_clip_cli": (TRAIN_B, 1026, 901)}
+             "pretrain_clip_cli": (TRAIN_B, 1026, 901),
+             "sed_dcase": (256, 1026, 1001), "sed_as_strong": (32, 1026, 1001)}
 # paths that hand K1 the shape another path's entry times
-K1_SAME_SHAPE = {"probe_frame": "probe_clip", "finetune_clip": "probe_clip"}
+K1_SAME_SHAPE = {"probe_frame": "probe_clip", "finetune_clip": "probe_clip",
+                 "sed_dcase_distill": "sed_dcase"}
 # The shape of each launch, as its comparison with the plain version must
 # have covered it: K1's STFT [B, 2F, T]; K2-K5 and K2q-K5q (tokens, width,
 # heads or hidden width: the batch only sizes the grid); K6 (dtype,
@@ -2061,6 +2084,21 @@ def finetune_argv(kind, ckpt, data, out, dev):
             "--device", str(dev), *FT_ARGS[kind]]
 
 
+def step_agreement(gc, gh, pc, ph, before, skip=None):
+    """A step on the card against the same step on the CPU: each leaf's
+    gradient ``gc`` against ``gh`` by cosine (the leaves with a CPU
+    gradient, but ``skip``), the lowest, the leaves without one, the
+    parameters the CPU's step left at ``before``, and the largest
+    difference of the updated parameters ``pc`` and ``ph``."""
+    cos = {k: float(torch.nn.functional.cosine_similarity(
+        gc[k].double().flatten(), v.double().flatten(), dim=0))
+        for k, v in gh.items() if float(v.norm()) > 0 and k != skip}
+    unused = sorted(k for k, v in gh.items() if float(v.norm()) == 0)
+    unchanged = sorted(k for k, v in ph.items() if torch.equal(v, before[k]))
+    param_err = max(float((pc[k] - v).abs().max()) for k, v in ph.items())
+    return cos, min(cos, key=cos.get), unused, unchanged, param_err
+
+
 def finetune_step_check(dev, argv, kind, data):
     """One step of the task ``train_finetune.build_task`` makes of the
     path's flags ``argv`` (one step an epoch, so the step runs at the base
@@ -2109,13 +2147,8 @@ def finetune_step_check(dev, argv, kind, data):
     zero = f"encoder.{'norm' if kind == 'clip' else 'norm_frame'}.bias"
     top = max(float(v.norm()) for v in gh.values())
     zero_rel = float((gc[zero] - gh[zero]).norm()) / top
-    cos = {k: float(torch.nn.functional.cosine_similarity(
-        gc[k].double().flatten(), v.double().flatten(), dim=0))
-        for k, v in gh.items() if float(v.norm()) > 0 and k != zero}
-    unused = sorted(k for k, v in gh.items() if float(v.norm()) == 0)
-    unchanged = sorted(k for k, v in ph.items() if torch.equal(v, before[k]))
-    worst = min(cos, key=cos.get)
-    param_err = max(float((pc[k] - v).abs().max()) for k, v in ph.items())
+    cos, worst, unused, unchanged, param_err = step_agreement(
+        gc, gh, pc, ph, before, skip=zero)
     print(json.dumps({f"finetune_{kind}_step_card_vs_cpu": {
         "batch": FT_CHECK_B, "loss": [lc, lh], "loss_rel": rel,
         "leaves_compared": len(cos), "lowest_cos": [worst, cos[worst]],
@@ -2238,6 +2271,308 @@ def finetune_path(dev, workdir, data, kind):
     if kind == "clip":
         finetune_breakdown(task, state, data, kind)
     return launches
+
+
+# The SED paths: ``train_dcase.main`` and ``train_as_strong.main`` at
+# ATST-Frame base on seeded trees of 10 s tone clips (one tone a class, one
+# to three events a clip), and one epoch of DCASE distill from the first
+# run's kept states
+SED_DCASE_SPLITS = {"synth_train": 256, "weak_train": 284, "synth_val": 64,
+                    "strong_val": 64}  # weak_train: 256 train, 28 valid
+SED_AS_SPLITS = {"train": 128, "val": 32, "eval": 32}
+SED_AS_LABELS = 407
+SED_EPOCHS, SED_WARMUP = 2, 1  # from 100 and 10 (DCASE) or 5
+SED_DCASE_B, SED_AS_B = 128, 32  # synth and weak rows each; AudioSet-strong
+SED_CHECK_B = 4  # strong and weak rows of the step held against the CPU
+SED_ARCH = "base"  # ATST-Frame base: 768 wide, 12 blocks, 250 tokens a clip
+SED_ARGS = {
+    "dcase": ["--batch_size_synth", str(SED_DCASE_B), "--batch_size_weak",
+              str(SED_DCASE_B), "--learning_rate", "0.1"],
+    "as_strong": ["--batch_size", str(SED_AS_B), "--learning_rate", "1e-3",
+                  "--lr_scale", "0.75", "--patience", "10"]}
+CARD = ""  # nvidia-smi's name and power limit, printed beside the numbers
+
+
+def write_sed_trees(workdir):
+    """The seeded DCASE and AudioSet-strong trees and a seeded random
+    ATST-Frame base encoder as a reference-layout ``.ckpt``; returns their
+    paths."""
+    from audiossl_tpu_torch.datasets.sed import (DCASE_CLASSES,
+                                                 write_synthetic_sed)
+    from audiossl_tpu_torch.downstream.train_freeze import _MAKERS
+
+    t0 = time.perf_counter()
+    dcase = os.path.join(workdir, "dcase")
+    write_synthetic_sed(dcase, SED_DCASE_SPLITS, DCASE_CLASSES,
+                        weak_splits=("weak_train",),
+                        duration_splits=("strong_val",), seed=SEED + 50)
+    as_strong = os.path.join(workdir, "as_strong")
+    write_synthetic_sed(as_strong, SED_AS_SPLITS,
+                        [f"/m/sed{i:03d}" for i in range(SED_AS_LABELS)],
+                        duration_splits=("eval",), seed=SEED + 51)
+    size = sum(os.path.getsize(os.path.join(d, f))
+               for top in (dcase, as_strong)
+               for d, _, files in os.walk(top) for f in files)
+    ckpt = os.path.join(workdir, "sed_frame_base.ckpt")
+    sd = _MAKERS[("frame", SED_ARCH)](
+        spec_w=1001, device="cpu",
+        generator=torch.Generator().manual_seed(SEED + 52)).state_dict()
+    torch.save({"state_dict": {f"model.teacher.encoder.{k}": v
+                               for k, v in sd.items()}}, ckpt)
+    print(f"SED trees written in {time.perf_counter() - t0:.1f} s: "
+          f"{size / 1e6:.1f} MB")
+    return dcase, as_strong, ckpt
+
+
+def sed_decode_check(name, kind, data, scores):
+    """``decode_preds`` and ``intersection_stats`` of each threshold on the
+    card against the CPU, on the run's own test scores: the hard
+    predictions bit-equal, the counts equal. DCASE at the test's 50
+    operating points and 0.5; AudioSet-strong (407 classes, slow on the
+    host) at every fifth and 0.5."""
+    from audiossl_tpu_torch.datasets.sed import (MixedBatchLoader,
+                                                 create_as_strong,
+                                                 create_dcase, dcase_encoder,
+                                                 load_as_strong_labels)
+    from audiossl_tpu_torch.sed.decode import decode_preds
+    from audiossl_tpu_torch.sed.metrics import intersection_stats
+
+    thds = list(np.arange(1 / 100, 1, 1 / 50))
+    if kind == "dcase":
+        test = create_dcase(data, "test")
+    else:
+        test = create_as_strong(data, "test", encoder=dcase_encoder(
+            labels=load_as_strong_labels(os.path.join(
+                data, "common_labels.txt"))))
+        thds = thds[::5]
+    thds.append(0.5)
+    loader = MixedBatchLoader([test], [32], shuffle=False)
+    diff, counts = 0, 0.0
+    for strong, batch in zip(scores, loader):
+        y = torch.from_numpy(np.transpose(batch["strong"], (0, 2, 1))[
+            ..., :strong.shape[-1]].copy())
+        hard = decode_preds(strong, thds, 7)
+        host = decode_preds(strong.cpu(), thds, 7)
+        diff += int((hard.cpu() != host).sum())
+        n, B, C, T = hard.shape
+        yy = y.repeat(n, 1, 1)
+        got = intersection_stats(hard.reshape(n * B, C, T), yy.to(
+            hard.device))
+        want = intersection_stats(host.reshape(n * B, C, T), yy)
+        for g, w in zip(got, want):
+            diff += int((g.cpu() != w).sum())
+        counts += float(want[3].sum())
+    print(f"{name}: card vs CPU decoding of {len(scores)} test batches at "
+          f"{len(thds)} thresholds: {diff} elements differ; {counts:.0f} "
+          "intersection events")
+    check(diff == 0 and counts > 0, f"{name}: decode_preds and "
+          "intersection_stats on the card equal the CPU's")
+
+
+def sed_step_check(dev, kind, ckpt, data):
+    """One SED step at ATST-Frame base from the same weights and drop-path
+    draws on the card and the CPU (f32, TF32 off): DCASE (4 strong and 4
+    weak clips, learning rate 0.1) or AudioSet-strong (8 clips, 407 labels,
+    learning rate 1e-3, lr_scale 0.75). The loss within ``FT_LOSS_REL``,
+    each leaf's gradient (the momentum trace after one step) at cosine >=
+    ``FT_LEAF_COS``, the updated parameters within ``FT_PARAM_ATOL``;
+    only the unused mask_embed (and with no weak rows the weak pooling's
+    linear_softmax) without a gradient. A parameter whose update lies
+    under half an f32 step of its value (a LayerNorm scale at a decayed
+    1e-3) stays unchanged on both devices; those are printed."""
+    from audiossl_tpu_torch.datasets.sed import (MixedBatchLoader,
+                                                 create_as_strong,
+                                                 create_dcase, dcase_encoder,
+                                                 load_as_strong_labels)
+    from audiossl_tpu_torch.downstream.train_freeze import load_encoder
+    from audiossl_tpu_torch.sed.module import SEDConfig, SEDTask
+
+    common = dict(max_epochs=1, steps_per_epoch=1, warmup_epochs=0)
+    if kind == "dcase":
+        sets, sizes = create_dcase(data, "train"), [SED_CHECK_B] * 2
+        cfg = SEDConfig(num_labels=10, learning_rate=0.1, **common)
+    else:
+        labels = load_as_strong_labels(os.path.join(data,
+                                                    "common_labels.txt"))
+        sets = [create_as_strong(data, "train",
+                                 encoder=dcase_encoder(labels=labels))]
+        sizes = [2 * SED_CHECK_B]
+        cfg = SEDConfig(num_labels=len(labels), learning_rate=1e-3,
+                        lr_scale=0.75, distill_combine="average_strong",
+                        **common)
+    batch = next(iter(MixedBatchLoader(sets, sizes, shuffle=False)))
+    out = []
+    for d in (dev, torch.device("cpu")):
+        enc = load_encoder(ckpt, "frame", SED_ARCH, spec_w=1001, device=d)
+        task = SEDTask(enc, cfg, generator=torch.Generator().manual_seed(SEED))
+        state = task.init_state()
+        u = task.draw(torch.Generator().manual_seed(SEED + 53), sum(sizes))
+        before = {k: p.detach().to("cpu", copy=True)
+                  for k, p in state.params.items()}
+        t0 = time.perf_counter()
+        _, m = task.train_step(state, batch, u)
+        loss = float(m["loss"])
+        out.append((loss, {k: v.detach().cpu() for k, v in state.mu.items()},
+                    {k: p.detach().cpu() for k, p in state.params.items()},
+                    before, time.perf_counter() - t0))
+        del task, state, enc
+    (lc, gc, pc, _, tc), (lh, gh, ph, before, th) = out
+    rel = abs(lc - lh) / abs(lh)
+    cos, worst, unused, unchanged, param_err = step_agreement(
+        gc, gh, pc, ph, before)
+    label = f"sed_{kind}" + ("_lr_scale" if kind == "as_strong" else "")
+    print(json.dumps({f"{label}_step_card_vs_cpu": {
+        "card": CARD, "batch": sum(sizes), "loss": [lc, lh],
+        "loss_rel": rel, "leaves_compared": len(cos),
+        "lowest_cos": [worst, cos[worst]], "param_max_abs_diff": param_err,
+        "no_gradient": unused, "unchanged": unchanged, "card_s": tc,
+        "cpu_s": th}}))
+    check(np.isfinite(lc) and rel <= FT_LOSS_REL,
+          f"{label}: card loss {lc} vs CPU {lh} (rel {rel} <= "
+          f"{FT_LOSS_REL})")
+    check(cos[worst] >= FT_LEAF_COS,
+          f"{label}: every leaf's gradient at cosine >= {FT_LEAF_COS} to "
+          f"the CPU's (lowest {worst} {cos[worst]})")
+    check(param_err <= FT_PARAM_ATOL, f"{label}: the updated parameters "
+          f"within {FT_PARAM_ATOL} of the CPU's ({param_err})")
+    # AudioSet-strong batches have no weak rows: no weak loss reaches the
+    # pooling's linear_softmax
+    want = ["encoder.mask_embed"] + (
+        [] if kind == "dcase" else ["head.linear_softmax.bias",
+                                    "head.linear_softmax.weight"])
+    check(unused == want, f"{label}: every parameter but {want} has a "
+          "gradient")
+
+
+def sed_breakdown(dev, ckpt, data):
+    """Where a DCASE training step's time goes at 128 + 128 clips
+    (:func:`breakdown`): ``SEDTask.train_step`` at ATST-Frame base on the
+    first train batch, read once from the host, with fresh draws each
+    step; the host's copy of the batch to the card included."""
+    from audiossl_tpu_torch.datasets.sed import MixedBatchLoader, create_dcase
+    from audiossl_tpu_torch.downstream.train_freeze import load_encoder
+    from audiossl_tpu_torch.sed.module import SEDConfig, SEDTask
+
+    batch = next(iter(MixedBatchLoader(create_dcase(data, "train"),
+                                       [SED_DCASE_B] * 2, shuffle=False)))
+    enc = load_encoder(ckpt, "frame", SED_ARCH, spec_w=1001, device=dev)
+    task = SEDTask(enc, SEDConfig(num_labels=10, learning_rate=0.1),
+                   generator=torch.Generator().manual_seed(SEED))
+    state = task.init_state()
+    gen = torch.Generator().manual_seed(SEED + 54)
+
+    def step():
+        u = task.draw(gen, 2 * SED_DCASE_B)
+        return float(task.train_step(state, batch, u)[1]["loss"])
+
+    breakdown(step, f"sed_dcase_step_of_{2 * SED_DCASE_B}", top=8)
+
+
+def sed_path(dev, name, kind, ckpt, data, out, extra=(), want_mode="max",
+             teacher=False):
+    """``train_dcase.main`` or ``train_as_strong.main`` at ATST-Frame base
+    on the card: the mel through K1 once a train and eval batch (twice a
+    train batch with a distill teacher), the f32 module-route encoder with
+    drop path, the SED head and loss, the SGD update, validation each
+    epoch, the kept states and the test from the best (decoding on the
+    card, PSDS on the host). Checks the launches, ``result.json`` and the
+    keeper's mode; prints train clips/s by step (the first left out) and
+    each step's loading seconds, eval clips/s and loading seconds, the
+    test's decoding and scoring seconds and peak memory.
+    Returns the launch counts of ``main`` and its record."""
+    from audiossl_tpu_torch.downstream import train_as_strong, train_dcase
+    from audiossl_tpu_torch.kernels import build as kb
+
+    argv = ["--pretrained_ckpt_path", ckpt, "--data_path", data, "--arch",
+            SED_ARCH, "--max_epochs", str(SED_EPOCHS), "--warmup_epochs",
+            str(SED_WARMUP), "--median_window", "7", "--save_path", out,
+            "--device", str(dev), *SED_ARGS[kind], *extra]
+    main = train_dcase.main if kind == "dcase" else train_as_strong.main
+    record = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kb.reset_launches()
+    t0 = time.perf_counter()
+    res = main(argv, record=record)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kb.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    steps = [s for epoch in record["steps"] for s in epoch]
+    evals = [b for epoch in record["evals"] for b in epoch]
+    test = record["test"]
+    n_eval = len(evals) + len(test["strong"])
+    B = 2 * SED_DCASE_B if kind == "dcase" else SED_AS_B
+    print(f"{name} launches: {launches}; {len(steps)} train, {len(evals)} "
+          f"validation and {len(test['strong'])} test batches; main took "
+          f"{wall:.2f} s")
+    check(steps and all(n == B for n, _, _ in steps),
+          f"{name}: train batches of {B}")
+    want = len(steps) * (2 if teacher else 1) + n_eval
+    check(launches["mel_db"] == want, f"{name}: K1 launched once per train"
+          f"{' (and teacher)' if teacher else ''} and eval batch "
+          f"({launches['mel_db']} of {want})")
+    check(not any(v for k, v in launches.items() if k != "mel_db"),
+          f"{name}: no other kernel launched (f32 module route)")
+    train = steps[1:]
+    print(json.dumps({name: {
+        "card": CARD,
+        "train_clips_per_s": (sum(n for n, _, _ in train)
+                              / sum(t for _, t, _ in train) if train
+                              else None),
+        "by_step": [n / t for n, t, _ in steps],
+        "load_s_by_step": [load for _, _, load in steps],
+        "eval_clips_per_s": sum(n for n, _, _ in evals)
+        / sum(t for _, t, _ in evals),
+        "eval_by_batch": [n / t for n, t, _ in evals],
+        "eval_load_s": sum(load for _, _, load in evals),
+        "test_decode_s": test["decode_s"], "test_psds_s": test["psds_s"],
+        "peak_gib": peak, "result": res, "main_s": wall,
+        "k1_launches": launches["mel_db"]}}))
+    with open(os.path.join(out, "result.json")) as f:
+        result = json.load(f)
+    check(result == res and set(result) == {"psds1", "psds2", "event_f1"},
+          f"{name} result.json {result}")
+    for k, v in result.items():
+        check(np.isfinite(v) and 0.0 <= v <= 1.0,
+              f"{name} {k} {v} finite in [0, 1]")
+    with open(os.path.join(out, "top", "index.json")) as f:
+        index = json.load(f)
+    check(index["mode"] == want_mode and 0 < len(index["scores"]) <= 3,
+          f"{name}: the keeper's index in mode {index['mode']!r} with "
+          f"{len(index['scores'])} states")
+    return launches, record
+
+
+def sed_paths(dev, workdir, run_path):
+    """The three SED paths, each through ``run_path``, with the decoding
+    and the step held against the CPU after the first two."""
+    dcase, as_strong, ckpt = write_sed_trees(workdir)
+    dcase_out = os.path.join(workdir, "sed_dcase")
+
+    def path(name, kind, data, out, checks, **kw):
+        launches, record = sed_path(dev, name, kind, ckpt, data, out, **kw)
+        if checks:
+            sed_decode_check(name, kind, data, record["test"]["strong"])
+            del record
+            torch.cuda.empty_cache()
+            sed_step_check(dev, kind, ckpt, data)
+            if kind == "dcase":
+                torch.cuda.empty_cache()
+                sed_breakdown(dev, ckpt, data)
+        return launches
+
+    for name, kind, data, out, checks, kw in (
+            ("sed_dcase", "dcase", dcase, dcase_out, True, {}),
+            ("sed_as_strong", "as_strong", as_strong,
+             os.path.join(workdir, "sed_as_strong"), True,
+             dict(want_mode="min")),
+            ("sed_dcase_distill", "dcase", dcase,
+             os.path.join(workdir, "sed_dcase_distill"), False,
+             dict(extra=["--max_epochs", "1", "--distill_ckpt", dcase_out],
+                  teacher=True))):
+        torch.cuda.empty_cache()
+        run_path(name, lambda: path(name, kind, data, out, checks, **kw))
 
 
 def train_mel_check(dev):
@@ -3085,7 +3420,9 @@ def main():
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0])
+    global CARD
+    CARD = smi.stdout.strip().splitlines()[0]
+    print(CARD)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"device {torch.cuda.get_device_name(0)}")
     # plain f32 references run in full f32, never TF32
@@ -3139,6 +3476,8 @@ def main():
             torch.cuda.empty_cache()
             run_path(f"finetune_{kind}",
                      lambda: finetune_path(dev, workdir, data, kind))
+    with tempfile.TemporaryDirectory() as workdir:
+        sed_paths(dev, workdir, run_path)
     for name, fn in (("frame_bf16", lambda: frame_bf16_path(dev, args.profile)),
                      ("clip_f32", lambda: clip_f32_path(dev, args.profile)),
                      ("clip_bf16", lambda: clip_bf16_path(dev)),

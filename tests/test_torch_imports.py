@@ -1,5 +1,5 @@
-"""The port stands without JAX (and its probe slice and pretraining CLIs
-without pandas and PyYAML), and its kernel wrappers launch nothing for a CPU
+"""The port stands without JAX (and its probe, finetuning and SED slices and
+pretraining CLIs without pandas and PyYAML), and its kernel wrappers launch nothing for a CPU
 tensor (they take their plain versions)."""
 import subprocess
 import sys
@@ -43,6 +43,12 @@ def test_port_imports_without_jax():
         "import audiossl_tpu_torch.downstream.train_finetune\n"
         "import audiossl_tpu_torch.transforms.target\n"
         "import audiossl_tpu_torch.methods.distill.train\n"
+        "import audiossl_tpu_torch.sed, audiossl_tpu_torch.sed.psds\n"
+        "import audiossl_tpu_torch.sed.module\n"
+        "import audiossl_tpu_torch.datasets.sed\n"
+        "import audiossl_tpu_torch.downstream.comparison_models\n"
+        "import audiossl_tpu_torch.downstream.train_dcase\n"
+        "import audiossl_tpu_torch.downstream.train_as_strong\n"
         "from audiossl_tpu_torch import load_model, get_scene_embedding\n"
         "bad = [m for m in sys.modules if m.split('.')[0] == 'audiossl_tpu']\n"
         "assert not bad, bad\n"

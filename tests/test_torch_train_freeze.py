@@ -141,7 +141,8 @@ def test_topk_keeper_keeps_the_best_ten(tmp_path):
     want = sorted(range(13), key=metrics.__getitem__)[-TOP_K:]
     assert saved == (12 in want)
     top = tmp_path / "top"
-    scores = read_topk_index(str(top / "index.json"))
+    scores, mode = read_topk_index(str(top / "index.json"))
+    assert mode == "max"
     assert sorted(scores) == sorted(want)
     assert all(scores[t] == metrics[t] for t in want)
     assert sorted(int(d) for d in os.listdir(top) if d.isdigit()) == \
@@ -252,8 +253,8 @@ def test_main_matches_jax(kind, probe_data, tmp_path, monkeypatch):
     assert res["metric"] == "mAP" and res["folds"] == 1
     assert all(0.0 <= res[k] <= 1.0 for k in ("val", "test"))
     top = tmp_path / "port" / "fold0" / "top"
-    scores = read_topk_index(str(top / "index.json"))
-    assert len(scores) == 3
+    scores, mode = read_topk_index(str(top / "index.json"))
+    assert mode == "max" and len(scores) == 3
     best_tag = max(scores, key=scores.__getitem__)
     assert scores[best_tag] == res["val"]
     best = torch.load(top / str(best_tag) / "state.pt", weights_only=True)
