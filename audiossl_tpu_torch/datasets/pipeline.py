@@ -89,13 +89,25 @@ class BatchLoader:
     records with replacement, each with probability ``w / w.sum()``,
     shuffled or not. ``num_threads`` records load at once, ``PREFETCH``
     batches are prepared ahead of the consumer.
+
+    ``batch_size`` is the global batch: with ``process_count`` > 1 every
+    process draws the same order and reads only its contiguous slice of
+    each batch (``batch_size // process_count`` rows from row
+    ``process_index`` times that), so the processes' slices together are
+    the one-process stream; a batch that does not divide raises.
     """
 
     def __init__(self, dataset, batch_size: int, pad_samples: int,
                  shuffle: bool = True, drop_last: bool = True,
                  seed: int = 0, num_threads: int = 8, epoch: int = 0,
                  include_labels: bool = True, wav_dtype=np.float32,
-                 weights=None):
+                 weights=None, process_index: int = 0,
+                 process_count: int = 1):
+        if batch_size % max(process_count, 1):
+            raise ValueError(f"the global batch of {batch_size} does not "
+                             f"divide over {process_count} processes")
+        self.process_index = process_index
+        self.process_count = process_count
         self.dataset = dataset
         self.batch_size = batch_size
         self.pad_samples = pad_samples
@@ -157,6 +169,10 @@ class BatchLoader:
                 rng.shuffle(order)
         chunks = [order[i * self.batch_size:(i + 1) * self.batch_size]
                   for i in range(len(self))]
+        if self.process_count > 1:
+            local = self.batch_size // self.process_count
+            lo = self.process_index * local
+            chunks = [c[lo:lo + local] for c in chunks]
 
         def produce():
             with ThreadPoolExecutor(self.num_threads) as pool:

@@ -14,6 +14,11 @@ Every random number of a step comes from :func:`draw_step` (a
 ``torch.Generator`` on the device) as a :class:`ClipStepDraws`, and the
 rest of the step is a function of those draws, so a caller (the tests) can
 hand in other draws, such as the JAX package's.
+
+Under a process group every rank draws the global batch's numbers and
+takes its rows (:func:`local_draws`), mixup's partners come from the
+global batch and the BatchNorms and the loss reduce over it, as in
+ATST-Frame (``methods/atstframe/method.py``).
 """
 from __future__ import annotations
 
@@ -27,6 +32,8 @@ from audiossl_tpu_torch.models.atst import ast_base, ast_small, ast_tiny
 from audiossl_tpu_torch.models.byol import clip_byol_loss
 from audiossl_tpu_torch.models.transformer import drop_path_multipliers
 from audiossl_tpu_torch.ops.melspec import MelConfig, log_melspec
+from audiossl_tpu_torch.parallel.mesh import (global_batch_size, local_rows,
+                                              world)
 from audiossl_tpu_torch.training.pretrain import (Branch, OptimizerConfig,
                                                   PretrainState,
                                                   init_pretrain_state,
@@ -34,9 +41,9 @@ from audiossl_tpu_torch.training.pretrain import (Branch, OptimizerConfig,
 from audiossl_tpu_torch.transforms.augment import (draw_crop, draw_mixup,
                                                    draw_resize_crop,
                                                    mixup_log, random_crop_wav,
-                                                   random_resize_crop,
+                                                   random_resize_crop, rows_of,
                                                    sample_crop_lengths,
-                                                   wav_to_f32)
+                                                   view_major_rows, wav_to_f32)
 
 _ARCHS = {"tiny": ast_tiny, "small": ast_small, "base": ast_base}
 
@@ -125,6 +132,21 @@ def draw_step(gen: torch.Generator, cfg: ClipPretrainConfig, batch: int,
                          teacher_dp=dps[1])
 
 
+def local_draws(draws: ClipStepDraws, batch: int) -> ClipStepDraws:
+    """This rank's rows of the draws of a global batch of ``batch``: each
+    view's per-clip draws, and the drop-path multipliers' rows of each
+    view (view-major). The draws themselves in one process."""
+    if world().size == 1:
+        return draws
+    sl = local_rows(batch)
+    views = tuple(ViewDraws(crop_len=rows_of(v.crop_len, sl),
+                            crop=rows_of(v.crop, sl), mix=rows_of(v.mix, sl),
+                            rrc=rows_of(v.rrc, sl)) for v in draws.views)
+    return ClipStepDraws(
+        views=views, student_dp=view_major_rows(draws.student_dp, batch, sl),
+        teacher_dp=view_major_rows(draws.teacher_dp, batch, sl))
+
+
 def _crop_mel(wav, valid, len_range, cfg: ClipPretrainConfig,
               draws: ViewDraws, plain: bool):
     """waveforms [B, L] -> (un-augmented mel crop [B, n_mels, out_frames],
@@ -204,13 +226,16 @@ class ClipMethod:
         return init_pretrain_state(self.student, self.teacher, gen)
 
     def draw(self, gen: torch.Generator, batch: int) -> ClipStepDraws:
+        """The draws of a (global) batch of ``batch`` clips."""
         return draw_step(gen, self.cfg, batch, self.depth, self.device)
 
     def forward_loss(self, student, teacher, batch, gen, draws=None):
         wav = wav_to_f32(torch.as_tensor(batch["wav"], device=self.device))
         valid = torch.as_tensor(batch["valid"], device=self.device).long()
+        batch_size = global_batch_size(wav.shape[0])
         if draws is None:
-            draws = self.draw(gen, wav.shape[0])
+            draws = self.draw(gen, batch_size)
+        draws = local_draws(draws, batch_size)
         mel, frames = clip_train_views(wav, valid, self.cfg, draws,
                                        self.plain)
         s_out = student(mel, frames, dps=draws.student_dp)

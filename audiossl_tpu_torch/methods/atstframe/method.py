@@ -13,6 +13,12 @@ Every random number of a step comes from :func:`draw_step` (a
 ``torch.Generator`` on the device) as a :class:`StepDraws`, and the rest
 of the step is a function of those draws, so a caller (the tests) can
 hand in other draws, such as the JAX package's.
+
+Under a process group every rank draws the global batch's numbers from
+its generator (seeded alike, they advance in lockstep) and takes its
+rows (:func:`local_draws`); mixup's partners come from the global batch,
+and the BatchNorms and the loss reduce over it (``models/byol.py``), so
+the step at world size n is the step of one process on the global batch.
 """
 from __future__ import annotations
 
@@ -28,6 +34,9 @@ from audiossl_tpu_torch.models.byol import frame_byol_loss
 from audiossl_tpu_torch.models.transformer import drop_path_multipliers
 from audiossl_tpu_torch.ops.masking import draw_token_mask, make_token_mask
 from audiossl_tpu_torch.ops.melspec import MelConfig, log_melspec
+from audiossl_tpu_torch.parallel.mesh import (all_gather_rows,
+                                              global_batch_size, local_rows,
+                                              world)
 from audiossl_tpu_torch.training.pretrain import (Branch, OptimizerConfig,
                                                   PretrainState,
                                                   init_pretrain_state,
@@ -35,8 +44,8 @@ from audiossl_tpu_torch.training.pretrain import (Branch, OptimizerConfig,
 from audiossl_tpu_torch.transforms.augment import (draw_crop, draw_mixup,
                                                    draw_resize_crop,
                                                    mixup_log, random_crop_wav,
-                                                   random_resize_crop,
-                                                   wav_to_f32)
+                                                   random_resize_crop, rows_of,
+                                                   view_major_rows, wav_to_f32)
 
 _ARCHS = {"tiny": frame_ast_tiny, "small": frame_ast_small,
           "base": frame_ast_base}
@@ -136,9 +145,25 @@ def draw_step(gen: torch.Generator, cfg: FramePretrainConfig, batch: int,
         student_dp=dps[0], teacher_dp=dps[1])
 
 
-def _aug_view(mel, frames, mix, rrc):
+def local_draws(draws: StepDraws, batch: int) -> StepDraws:
+    """This rank's rows of the draws of a global batch of ``batch``: the
+    per-clip draws' rows, and the drop-path multipliers' rows of each view
+    (view-major, as the encoders take them). The draws themselves in one
+    process."""
+    if world().size == 1:
+        return draws
+    sl = local_rows(batch)
+    return StepDraws(
+        crop=draws.crop[sl], mix=tuple(rows_of(m, sl) for m in draws.mix),
+        rrc=tuple(rows_of(r, sl) for r in draws.rrc),
+        mask={k: v[sl] for k, v in draws.mask.items()},
+        student_dp=view_major_rows(draws.student_dp, batch, sl),
+        teacher_dp=view_major_rows(draws.teacher_dp, batch, sl))
+
+
+def _aug_view(mel, frames, mix, rrc, pool):
     if mix is not None:
-        mel = mixup_log(mel, *mix, valid_frames=frames)
+        mel = mixup_log(mel, *mix, valid_frames=frames, pool=pool)
     if rrc is not None:
         # RandomResizeCrop((1, 1.0), time_scale=(1.0, 1.0)): freq warp
         mel = random_resize_crop(mel, *rrc, freq_scale=(0.6, 1.5),
@@ -150,7 +175,8 @@ def frame_train_views(wav, valid, cfg: FramePretrainConfig,
                       draws: StepDraws, plain: bool = False):
     """waveforms [B, L] -> (mel [2B, F, T], frames [2B], mask [2B, Np]):
     view 1 (teacher) then view 2 (student), from the same crop, sharing
-    the same token mask."""
+    the same token mask. ``draws`` are this rank's (:func:`local_draws`);
+    mixup's partners come from every rank's mel."""
     B = wav.shape[0]
     crop_len = torch.full((B,), cfg.out_samples, device=wav.device,
                           dtype=torch.long)
@@ -158,7 +184,9 @@ def frame_train_views(wav, valid, cfg: FramePretrainConfig,
                                         cfg.out_samples, draws.crop)
     mel = log_melspec(crops, crop_valid, cfg.mel, plain=plain)
     frames = crop_valid // cfg.mel.hop_length + 1
-    views = [_aug_view(mel, frames, m, r)
+    pool = (all_gather_rows(mel) if any(m is not None for m in draws.mix)
+            else None)
+    views = [_aug_view(mel, frames, m, r, pool)
              for m, r in zip(draws.mix, draws.rrc)]
     # valid token count per sample = full-height patches along time
     mask = make_token_mask(draws.mask, cfg.mask_ratio, cfg.mask_type,
@@ -216,6 +244,7 @@ class FrameMethod:
         return init_pretrain_state(self.student, self.teacher, gen)
 
     def draw(self, gen: torch.Generator, batch: int) -> StepDraws:
+        """The draws of a (global) batch of ``batch`` clips."""
         return draw_step(gen, self.cfg, batch, self.depth, self.device)
 
     def forward_loss(self, student, teacher, batch, gen, draws=None):
@@ -224,7 +253,8 @@ class FrameMethod:
         valid = torch.as_tensor(batch["valid"], device=self.device).long()
         B = wav.shape[0]
         if draws is None:
-            draws = self.draw(gen, B)
+            draws = self.draw(gen, global_batch_size(B))
+        draws = local_draws(draws, global_batch_size(B))
         mel2, frames2, mask2 = frame_train_views(wav, valid, cfg, draws,
                                                  self.plain)
         if cfg.symmetric:

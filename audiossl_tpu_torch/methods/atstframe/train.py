@@ -19,6 +19,7 @@ import argparse
 from audiossl_tpu_torch.datasets.packed import PackedAudioDataset
 from audiossl_tpu_torch.methods.atstframe.method import (FrameMethod,
                                                          FramePretrainConfig)
+from audiossl_tpu_torch.parallel.launch import default_ranks, run_cli
 from audiossl_tpu_torch.training.pretrain import OptimizerConfig
 from audiossl_tpu_torch.training.runner import run_pretraining
 from audiossl_tpu_torch.utils.common import bool_flag
@@ -52,13 +53,17 @@ def build_parser():
     p.add_argument("--dtype", default="bfloat16")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--ckpt_interval", type=int, default=5000)
-    p.add_argument("--n_devices", type=int, default=None)
+    p.add_argument("--n_devices", type=int, default=None,
+                   help="data-parallel ranks, one a card (default: every "
+                        "visible card, or the launcher's WORLD_SIZE; 1 "
+                        "for --device cpu); without torchrun the CLI "
+                        "starts them")
     p.add_argument("--profile_at", type=int, default=None,
                    help="capture a torch.profiler trace for 10 steps "
                         "starting at this step")
     p.add_argument("--shard_optimizer", action="store_true",
-                   help="ZeRO-1: shard Adam moments over the data mesh "
-                        "(not ported yet: raises)")
+                   help="ZeRO-1: each rank keeps the Adam moments of "
+                        "the parameters it owns")
     p.add_argument("--teacher_quant", default="none",
                    choices=["none", "int8"],
                    help="int8: the no-grad teacher's products in int8 "
@@ -77,11 +82,11 @@ def build_parser():
 
 
 def build_config(args) -> FramePretrainConfig:
-    """The config JAX's ``main`` builds from the same flags, on one device:
-    lr = learning_rate * batch_size_per_device / 256 (the reference's
-    lr * nproc * bs / 256)."""
-    lr = args.learning_rate * (args.n_devices or 1) \
-        * args.batch_size_per_device / 256.0
+    """The config JAX's ``main`` builds from the same flags: lr =
+    learning_rate * n * batch_size_per_device / 256 over n ranks (the
+    reference's lr * nproc * bs / 256)."""
+    n = args.n_devices or default_ranks(args.device)
+    lr = args.learning_rate * n * args.batch_size_per_device / 256.0
     return FramePretrainConfig(
         arch=args.arch,
         anchor_len=args.anchor_len,
@@ -113,7 +118,14 @@ def build_method(args) -> FrameMethod:
 
 
 def main(argv=None):
-    args = build_parser().parse_args(argv)
+    """Train on ``--n_devices`` ranks (``parallel.launch.run_cli``):
+    returns the final state, or None where the ranks were started here."""
+    return run_cli(train, build_parser().parse_args(argv))
+
+
+def train(args):
+    """One rank's run (or the only one): ``build_method(args)`` trained
+    on the pack by ``run_pretraining``."""
     method = build_method(args)
     dataset = PackedAudioDataset(args.data_path, "train",
                                  subset=args.subset)

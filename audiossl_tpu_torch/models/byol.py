@@ -6,6 +6,13 @@ step); the masked BatchNorm computes in f32 and returns that dtype; the
 head output, the normalization and the loss are f32. Frame-level losses
 take the whole frame sequence and a boolean selection mask instead of a
 dynamic gather (the same masked math).
+
+Under a process group of more than one rank every reduction over the
+batch is global, as under the JAX package's data mesh: the BatchNorm
+statistics (``models/norm.py``), the feature std (its sums over ranks)
+and the losses' means, whose denominators count the rows of every rank.
+Each rank's loss is then its share: the ranks' shares sum to the loss of
+the global batch, so the gradients summed over ranks are its gradients.
 """
 from __future__ import annotations
 
@@ -16,6 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from audiossl_tpu_torch.models.norm import BatchNorm1d
+from audiossl_tpu_torch.parallel.mesh import all_reduce_sum, world
 
 
 def lecun_normal_(w: torch.Tensor, generator: torch.Generator) -> None:
@@ -111,13 +119,32 @@ def feature_std(y: torch.Tensor, mask: Optional[torch.Tensor] = None):
         zc = torch.tensor(float(y2.shape[0]), device=y.device)
         zs = y2.sum(dim=0)
         zss = (y2 ** 2).sum(dim=0)
+    if world().size > 1:  # the sums of every rank's rows, summed in f32
+        tot = all_reduce_sum(torch.cat([zc.reshape(1), zs, zss]).float())
+        tot = tot.to(y2.dtype)
+        zc, zs, zss = tot[0], tot[1:d + 1], tot[d + 1:]
     var = zss / (zc - 1) - zs ** 2 / (zc * (zc - 1))
     return torch.sqrt(var + 1e-6).mean()
 
 
 def byol_pair_loss(p, z, mask: Optional[torch.Tensor] = None):
-    """2 - 2 cos(p, z), averaged over the (selected) rows."""
+    """2 - 2 cos(p, z), averaged over the (selected) rows; under a group of
+    n ranks this rank's share, 2 / n - 2 (its sum of cos) / (the global
+    count)."""
     cos = (l2_normalize(p) * l2_normalize(z)).sum(dim=-1)
+    n = world().size
+    if n > 1:
+        if mask is None:
+            total = cos.sum()
+            count = torch.tensor(float(cos.numel()), device=cos.device)
+        else:
+            total = (cos * mask.to(cos.dtype)).sum()
+            count = mask.float().sum()
+        # the count in f32, rounded once to cos's dtype as one process's
+        count = all_reduce_sum(count.float()).to(cos.dtype)
+        if mask is not None:
+            count = torch.clamp(count, min=1.0)
+        return 2.0 / n - 2.0 * total / count
     if mask is not None:
         w = mask.to(cos.dtype)
         return 2.0 - 2.0 * (cos * w).sum() / torch.clamp(w.sum(), min=1.0)

@@ -8,6 +8,12 @@ torch's: eps 1e-5, running statistics updated with momentum 0.1 from the
 *biased* batch variance in training; statistics and normalization in f32
 over an input of any dtype, the output in the input's dtype.
 ``affine=False`` (the linear probe's head) holds no scale and bias.
+
+Under a process group of more than one rank the training statistics are
+those of the global batch, as under the JAX package's data mesh: the
+count and sum, then the centred sum of squares, each summed over ranks
+by ``parallel.all_reduce_sum`` (whose backward is the global one), so
+every rank normalizes alike and updates the same running statistics.
 """
 from __future__ import annotations
 
@@ -15,6 +21,8 @@ from typing import Optional
 
 import torch
 from torch import nn
+
+from audiossl_tpu_torch.parallel.mesh import all_reduce_sum, world
 
 
 class BatchNorm1d(nn.Module):
@@ -42,7 +50,9 @@ class BatchNorm1d(nn.Module):
             mean, var = self.running_mean, self.running_var
         else:
             axes = tuple(range(x.ndim - 1))
-            if mask is None:
+            if world().size > 1:
+                n, mean, var = _global_stats(xf, mask, axes)
+            elif mask is None:
                 n = torch.tensor(float(xf[..., 0].numel()), device=x.device)
                 mean = xf.mean(dim=axes)
                 var = ((xf - mean) ** 2).mean(dim=axes)
@@ -61,3 +71,23 @@ class BatchNorm1d(nn.Module):
         if self.affine:
             y = y * self.weight + self.bias
         return y.to(x.dtype)
+
+
+def _global_stats(xf, mask, axes):
+    """(count, mean, biased variance) over the rows of every rank, in two
+    passes as one process takes them."""
+    if mask is None:
+        w = None
+        cnt = xf.new_tensor([float(xf[..., 0].numel())])
+        s = xf.sum(dim=axes)
+    else:
+        w = mask.float()[..., None]
+        cnt = w.sum().reshape(1)
+        s = (xf * w).sum(dim=axes)
+    tot = all_reduce_sum(torch.cat([s, cnt]))
+    n = tot[-1]
+    mean = tot[:-1] / n
+    d2 = (xf - mean) ** 2
+    if w is not None:
+        d2 = d2 * w
+    return n, mean, all_reduce_sum(d2.sum(dim=axes)) / n

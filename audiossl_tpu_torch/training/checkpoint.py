@@ -24,15 +24,26 @@ from typing import Dict, List, Mapping, Optional, Tuple
 
 import torch
 
+from audiossl_tpu_torch.parallel.mesh import world
+from audiossl_tpu_torch.training.pretrain import full_moments
+
 STATE_FILE = "state.pt"
 TOP_K = 10  # the keeper's default k, the reference's save_top_k
 
 
-def host_state(state) -> dict:
+def host_state(state, copy: bool = True) -> Optional[dict]:
     """A copy on the host of everything a ``PretrainState`` holds: the step
     and Adam's count, both branches' state dicts (BatchNorm statistics
-    included), the moments by parameter name and the generator's state.
-    Synchronous: the step goes on changing the state in place."""
+    included), the moments of every parameter by name and the generator's
+    state. Synchronous: the step goes on changing the state in place.
+    Under ZeRO-1 the moments come from their owners first, a collective
+    that every rank enters; ``copy=False`` (a rank that writes nothing)
+    takes part in it and returns None. The layout is a one-process run's
+    either way."""
+    mu, nu = full_moments(state)
+    if not copy:
+        return None
+
     def host(t):
         return t.detach().to("cpu", copy=True)
 
@@ -41,8 +52,8 @@ def host_state(state) -> dict:
                         state.student.state_dict().items()},
             "teacher": {k: host(v) for k, v in
                         state.teacher.state_dict().items()},
-            "mu": {k: host(v) for k, v in state.mu.items()},
-            "nu": {k: host(v) for k, v in state.nu.items()},
+            "mu": {k: host(v) for k, v in mu.items()},
+            "nu": {k: host(v) for k, v in nu.items()},
             "generator": state.generator.get_state()}
 
 
@@ -50,10 +61,12 @@ def host_state(state) -> dict:
 def load_host_state(state, saved: Mapping) -> None:
     """Copy ``saved`` (from :func:`host_state`) into ``state`` in place:
     the parameters, buffers and moments keep their tensors, so the state's
-    paired leaves and K7's device leaf table stay valid."""
-    if set(saved["mu"]) != set(state.mu):
+    paired leaves and K7's device leaf table stay valid. A ZeRO-1 state
+    takes the moments it owns."""
+    names = set(state.owners or state.mu)
+    if set(saved["mu"]) != names:
         raise KeyError("the checkpoint's moments are not this state's: "
-                       f"{sorted(set(saved['mu']) ^ set(state.mu))[:8]}")
+                       f"{sorted(set(saved['mu']) ^ names)[:8]}")
     state.student.load_state_dict(saved["student"])
     state.teacher.load_state_dict(saved["teacher"])
     for k in state.mu:
@@ -79,6 +92,12 @@ class CheckpointManager:
     ``restore_latest`` reads; leftover ``.tmp`` directories are removed
     when a manager opens the directory. ``last_copy_ms`` and
     ``write_s`` (step -> seconds) record what the saves took.
+
+    Under a process group every rank keeps a manager and calls ``save``
+    at the same steps, so all take the same decisions (and enter ZeRO-1's
+    gather of the moments together), but only the ``writer``, rank 0,
+    copies, writes, renames and removes anything: no two
+    processes race on a file. Every rank restores from the same file.
     """
 
     def __init__(self, directory: str, save_interval_steps: int = 1000,
@@ -86,12 +105,16 @@ class CheckpointManager:
         self.dir = os.path.abspath(os.path.expanduser(directory))
         self.save_interval_steps = save_interval_steps
         self.max_to_keep = max_to_keep
-        os.makedirs(self.dir, exist_ok=True)
+        self.writer = world().is_main
+        if self.writer:
+            os.makedirs(self.dir, exist_ok=True)
         steps = []
-        for name in os.listdir(self.dir):
+        for name in (os.listdir(self.dir) if os.path.isdir(self.dir)
+                     else []):
             path = os.path.join(self.dir, name)
             if name.endswith(".tmp"):
-                shutil.rmtree(path, ignore_errors=True)
+                if self.writer:
+                    shutil.rmtree(path, ignore_errors=True)
             elif name.isdigit() and os.path.exists(
                     os.path.join(path, STATE_FILE)):
                 steps.append(int(name))
@@ -123,11 +146,13 @@ class CheckpointManager:
         if step in self._steps or not (force or self.should_save(step)):
             return False
         t0 = time.perf_counter()
-        saved = host_state(state)
+        saved = host_state(state, copy=self.writer)
         self.last_copy_ms = (time.perf_counter() - t0) * 1e3
         self._steps.append(step)
         drop = self._steps[:-self.max_to_keep] if self.max_to_keep else []
         del self._steps[:len(drop)]
+        if not self.writer:
+            return True
         self._pending = (step, drop)
         self._thread = threading.Thread(target=self._write,
                                         args=(step, saved, drop))

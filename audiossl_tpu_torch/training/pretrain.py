@@ -16,6 +16,16 @@ Optimizer semantics are the reference's: AdamW with betas (0.9, 0.999),
 eps 1e-6, bias correction and decoupled weight decay on parameters with
 two or more dimensions (``wd_mask``), lr/wd/EMA momentum from cosine
 schedules of the step.
+
+Data parallel (a process group of n ranks, ``parallel/mesh.py``): each
+rank's loss is its share of the global batch's, so after the backward the
+gradients are summed over ranks (``reduce_grads``) and every rank takes
+the same update. ZeRO-1 (:func:`shard_optimizer`) keeps on each rank the
+moments of the leaves it owns; K7 updates those leaves and their teacher
+copies, and each owner then sends them to every rank. The update is
+elementwise, so the parameters are those of the replicated step, bit for
+bit (the JAX package shards each moment's leading axis instead,
+``mesh.shard_opt_state_tree``). The logged loss is the global one.
 """
 from __future__ import annotations
 
@@ -30,6 +40,10 @@ from audiossl_tpu_torch.models.atst import AudioTransformer
 from audiossl_tpu_torch.models.byol import Projector
 from audiossl_tpu_torch.ops.adamw_ema import (LeafTable, adamw_ema,
                                               adamw_ema_ref, update_scalars)
+from audiossl_tpu_torch.parallel.mesh import (all_reduce_sum,
+                                              broadcast_groups,
+                                              partition_leaves, reduce_grads,
+                                              world)
 from audiossl_tpu_torch.training.schedules import cosine_schedule
 
 
@@ -88,10 +102,14 @@ class OptimizerConfig:
 class PretrainState:
     """The step count, both branches (f32 master parameters), Adam's
     moments and count per student parameter name, and the generator of
-    every random draw. The update's leaves are paired once, when the state
-    is made: the student's parameters in the moments' order
-    (``leaves``), the teacher's copy of each or None (``teacher_leaves``)
-    and whether each decays (``decay``)."""
+    every random draw. ``owners`` (ZeRO-1, :func:`shard_optimizer`) gives
+    each student parameter's owning rank, and the moments are then the
+    owned ones only; None: every moment on every rank. The update's
+    leaves are paired when the state is made: every student parameter
+    (``params``), the ones the moments update in their order
+    (``leaves``), the teacher's copy of each or None (``teacher_leaves``),
+    whether each decays (``decay``), and under ZeRO-1 each rank's
+    updated leaves and teacher copies (``groups``)."""
     step: int
     student: Branch
     teacher: Branch
@@ -99,18 +117,70 @@ class PretrainState:
     nu: Dict[str, torch.Tensor]
     count: int
     generator: torch.Generator
+    owners: Optional[Dict[str, int]] = None
+    params: List[nn.Parameter] = dataclasses.field(init=False, repr=False)
     leaves: List[nn.Parameter] = dataclasses.field(init=False, repr=False)
     teacher_leaves: List[Optional[nn.Parameter]] = dataclasses.field(
         init=False, repr=False)
     decay: List[bool] = dataclasses.field(init=False, repr=False)
+    groups: Optional[List[List[torch.Tensor]]] = dataclasses.field(
+        init=False, repr=False)
 
     def __post_init__(self):
+        self.pair()
+
+    def pair(self) -> None:
+        """Pairs the leaves anew (after the moments or owners changed)."""
         params = dict(self.student.named_parameters())
         t_params = dict(self.teacher.named_parameters())
         mask = wd_mask(self.student)
+        self.params = list(params.values())
         self.leaves = [params[k] for k in self.mu]
         self.teacher_leaves = [t_params.get(k) for k in self.mu]
         self.decay = [mask[k] for k in self.mu]
+        self.groups = None
+        if self.owners is not None:
+            self.groups = [[] for _ in range(world().size)]
+            for k, r in self.owners.items():
+                self.groups[r] += [params[k]] + (
+                    [t_params[k]] if k in t_params else [])
+
+
+def shard_optimizer(state: PretrainState) -> None:
+    """ZeRO-1 over the process group: each rank keeps the moments of the
+    student parameters it owns (``parallel.partition_leaves``: whole
+    leaves, greedy by bytes) and drops the rest. Nothing changes in one
+    process."""
+    w = world()
+    if w.size == 1 or state.owners is not None:
+        return
+    params = dict(state.student.named_parameters())
+    owner = partition_leaves([p.numel() * p.element_size()
+                              for p in params.values()], w.size)
+    state.owners = dict(zip(params, owner))
+    state.mu = {k: v for k, v in state.mu.items()
+                if state.owners[k] == w.rank}
+    state.nu = {k: state.nu[k] for k in state.mu}
+    state.pair()
+
+
+@torch.no_grad()
+def full_moments(state: PretrainState):
+    """(mu, nu) of every student parameter, in the parameters' order: the
+    state's own, or under ZeRO-1 each owner's sent to every rank (a
+    collective: every rank calls it)."""
+    if state.owners is None:
+        return state.mu, state.nu
+    rank = world().rank
+    mu, nu = {}, {}
+    groups = [[] for _ in range(world().size)]
+    for k, p in state.student.named_parameters():
+        r = state.owners[k]
+        mu[k] = state.mu[k] if r == rank else torch.empty_like(p)
+        nu[k] = state.nu[k] if r == rank else torch.empty_like(p)
+        groups[r] += [mu[k], nu[k]]
+    broadcast_groups(groups)
+    return mu, nu
 
 
 def wd_mask(module: nn.Module) -> Dict[str, bool]:
@@ -150,7 +220,9 @@ def make_pretrain_step(cfg: OptimizerConfig, forward_loss: Callable,
     lets a caller pass the random numbers in. The state is updated in
     place. ``plain=True`` takes K7's plain version on any device. Outside
     the model, the step's host work per leaf is collecting the gradients
-    and moments; nothing in the update waits for the device."""
+    and moments; nothing in the update waits for the device. Under a
+    process group ``draws`` are the global batch's and ``batch`` this
+    rank's rows of it."""
     lr_s, wd_s, ema_s = (cfg.lr_schedule(), cfg.wd_schedule(),
                          cfg.ema_schedule())
     # K7's device table, kept between steps (rebuilt only for other leaves)
@@ -160,21 +232,26 @@ def make_pretrain_step(cfg: OptimizerConfig, forward_loss: Callable,
     def step_fn(state: PretrainState, batch, draws=None):
         lr, wd, m = lr_s(state.step), wd_s(state.step), ema_s(state.step)
         student, teacher = state.student.train(), state.teacher.train()
-        for p in state.leaves:
+        for p in state.params:
             p.grad = None
         loss, aux = forward_loss(student, teacher, batch, state.generator,
                                  draws)
         loss.backward()
+        reduce_grads(state.params)
         state.count += 1
-        update(state.leaves,
-               [p.grad if p.grad is not None else torch.zeros_like(p)
-                for p in state.leaves],
-               list(state.mu.values()),
-               [state.nu[k] for k in state.mu], state.teacher_leaves,
-               state.decay,
-               update_scalars(lr, wd, m, state.count, cfg.b1, cfg.b2,
-                              cfg.eps))
+        if state.leaves:
+            update(state.leaves,
+                   [p.grad if p.grad is not None else torch.zeros_like(p)
+                    for p in state.leaves],
+                   list(state.mu.values()),
+                   [state.nu[k] for k in state.mu], state.teacher_leaves,
+                   state.decay,
+                   update_scalars(lr, wd, m, state.count, cfg.b1, cfg.b2,
+                                  cfg.eps))
+        if state.groups is not None:
+            broadcast_groups(state.groups)
         state.step += 1
-        return {"loss": loss.detach(), "lr": lr, "wd": wd, "ema": m, **aux}
+        return {"loss": all_reduce_sum(loss.detach()), "lr": lr, "wd": wd,
+                "ema": m, **aux}
 
     return step_fn

@@ -2,10 +2,17 @@
 port of ``audiossl_tpu/training/runner.py``).
 
 Replaces the Lightning Trainer of the reference (``methods/atst/
-train.py:11-49``): one Python loop around the method's step on one
-device, with TensorBoard logging where ``torch.utils.tensorboard``
-imports, periodic checkpoints (``training/checkpoint.CheckpointManager``)
-and crash-restart auto-resume from the latest one.
+train.py:11-49``): one Python loop around the method's step, with
+TensorBoard logging where ``torch.utils.tensorboard`` imports, periodic
+checkpoints (``training/checkpoint.CheckpointManager``) and crash-restart
+auto-resume from the latest one.
+
+Data parallel, as the reference's DDP: under a process group of n ranks
+(``parallel/``) each rank runs this loop on its card with its own loader,
+which reads its contiguous slice of every global batch of
+``batch_size_per_device * n`` clips; the step sums the gradients over
+ranks. Rank 0 prints, logs, writes the checkpoints and profiles; every
+rank restores from the same checkpoint.
 
 One departure from the JAX loop, which steps before it tests the step
 count and so takes one more step when resumed at or past ``max_steps``:
@@ -22,12 +29,12 @@ import torch
 
 from audiossl_tpu_torch.datasets.packed import PackedAudioDataset
 from audiossl_tpu_torch.datasets.pipeline import BatchLoader
+from audiossl_tpu_torch.parallel.mesh import world
 from audiossl_tpu_torch.training.checkpoint import CheckpointManager
+from audiossl_tpu_torch.training.pretrain import shard_optimizer as zero1
 
 LOADER_THREADS = 8  # records a loader reads at once
 PROFILE_STEPS = 10  # steps a ``profile_at`` trace covers
-_DDP = ("is not ported yet: data-parallel training and ZeRO-1 are ROADMAP "
-        "Queue 1 item 2 (DDP over NCCL)")
 
 
 class MetricLogger:
@@ -57,7 +64,17 @@ def make_loader(dataset, batch_size: int, pad: int, seed: int, epoch: int,
                 wav_dtype):
     """The epoch's loader and its name: the native C++ reader for a
     ``PackedAudioDataset`` when it builds, else the Python
-    ``BatchLoader`` (the same batches; the reason is in the name)."""
+    ``BatchLoader`` (the same batches; the reason is in the name).
+    ``batch_size`` is the global batch; under a process group the rank's
+    ``BatchLoader`` reads its slice of it (the native reader serves one
+    process, as in JAX)."""
+    w = world()
+    if w.size > 1:
+        return BatchLoader(dataset, batch_size, pad, shuffle=True, seed=seed,
+                           epoch=epoch, num_threads=LOADER_THREADS,
+                           include_labels=False, wav_dtype=wav_dtype,
+                           process_index=w.rank, process_count=w.size), \
+            f"python BatchLoader (rank {w.rank} of {w.size})"
     if isinstance(dataset, PackedAudioDataset):
         from audiossl_tpu_torch.datasets.native import NativeBatchLoader
 
@@ -96,12 +113,19 @@ def run_pretraining(method, dataset, *, batch_size_per_device: int,
     ``profile_at``: a ``torch.profiler`` trace of ``PROFILE_STEPS`` steps
     from that step, written to ``{save_path or '.'}/profile``.
 
-    One device only: ``n_devices`` other than None or 1 and
-    ``shard_optimizer`` raise ``NotImplementedError``."""
-    if n_devices not in (None, 1):
-        raise NotImplementedError(f"n_devices={n_devices} {_DDP}")
-    if shard_optimizer:
-        raise NotImplementedError(f"shard_optimizer {_DDP}")
+    Under a process group the run is data parallel over its ranks:
+    ``n_devices`` (None: the group's size) must be that size, the global
+    batch is ``batch_size_per_device`` times it (``clips_per_sec`` counts
+    it), and only rank 0 prints, logs, saves and profiles.
+    ``shard_optimizer``: ZeRO-1, each rank keeping the Adam moments of the
+    leaves it owns (``training.pretrain.shard_optimizer``); nothing changes
+    in one process."""
+    w = world()
+    if n_devices not in (None, w.size):
+        raise ValueError(f"n_devices={n_devices} but the process group has "
+                         f"{w.size} rank(s)")
+    say = print if w.is_main else (lambda *a, **k: None)
+    global_bs = batch_size_per_device * w.size
     device = method.device
     state = method.init_state(seed)
     mgr = None
@@ -109,9 +133,11 @@ def run_pretraining(method, dataset, *, batch_size_per_device: int,
         mgr = CheckpointManager(os.path.join(save_path, "ckpt"),
                                 save_interval_steps=ckpt_interval)
         if mgr.restore_latest(state) is not None:
-            print(f"resumed from step {state.step}", flush=True)
+            say(f"resumed from step {state.step}", flush=True)
+    if shard_optimizer:
+        zero1(state)
     step_fn = method.make_step()
-    logger = MetricLogger(save_path)
+    logger = MetricLogger(save_path if w.is_main else None)
 
     # the host buffer covers the whole clip (AudioSet clips are 10 s) so
     # the step's random crop sees all of it (reference transform.py:50-60)
@@ -128,26 +154,26 @@ def run_pretraining(method, dataset, *, batch_size_per_device: int,
     epoch = 0
     t0 = time.perf_counter()
     while step < max_steps:
-        loader, name = make_loader(dataset, batch_size_per_device, pad,
-                                   seed, epoch, wav_dtype)
+        loader, name = make_loader(dataset, global_bs, pad, seed, epoch,
+                                   wav_dtype)
         if epoch == 0:
-            print(f"loader: {name}, {len(loader)} batches of "
-                  f"{batch_size_per_device} an epoch, {np.dtype(wav_dtype)}"
-                  f" [{batch_size_per_device}, {pad}]", flush=True)
+            say(f"loader: {name}, {len(loader)} batches of {global_bs} an "
+                f"epoch, {np.dtype(wav_dtype)} [{batch_size_per_device}, "
+                f"{pad}] a rank", flush=True)
         if len(loader) == 0:
             raise ValueError(f"{len(dataset)} clips make no batch of "
-                             f"{batch_size_per_device}")
+                             f"{global_bs}")
         for batch in loader:
-            if profile_at is not None and step == profile_at:
+            if profile_at is not None and step == profile_at and w.is_main:
                 prof = _start_profile(device)
             metrics = step_fn(state, batch)
             step = state.step
             if prof is not None and step >= profile_at + PROFILE_STEPS:
                 _stop_profile(prof, device, profile_dir, profile_at)
                 prof = None
-            if step % log_interval == 0:
+            if step % log_interval == 0 and w.is_main:
                 m = {k: float(v) for k, v in metrics.items()}
-                m["clips_per_sec"] = (batch_size_per_device * log_interval
+                m["clips_per_sec"] = (global_bs * log_interval
                                       / (time.perf_counter() - t0))
                 t0 = time.perf_counter()
                 logger.log(step, m)
@@ -166,14 +192,15 @@ def run_pretraining(method, dataset, *, batch_size_per_device: int,
         mgr.wait()
         mgr.close()
     logger.close()
-    print(f"run ended at step {step}: {step - start} steps taken", flush=True)
+    say(f"run ended at step {step}: {step - start} steps taken", flush=True)
     return state
 
 
 def _save(mgr, step, state, force=False):
     """A checkpoint: the host copy blocks the loop, the write does not
-    (its error surfaces at the next save)."""
-    if mgr.save(step, state, force=force):
+    (its error surfaces at the next save). Every rank calls it; rank 0
+    writes."""
+    if mgr.save(step, state, force=force) and mgr.writer:
         print(f"checkpoint step {step}: host copy {mgr.last_copy_ms:.1f} ms",
               flush=True)
 

@@ -16,7 +16,8 @@ The apply functions reproduce the JAX functions exactly when handed the
 numbers JAX's keys give, which is how the tests hold them against JAX;
 ``torch.Generator`` and ``jax.random`` give different numbers from one
 seed. Semantics are the JAX package's: the partner of sample i is
-``(i + shift) % B``, padded frames are left untouched, and the crop and
+``(i + shift) % B`` in the global batch (across ranks under a process
+group), padded frames are left untouched, and the crop and
 freq warp honour each sample's valid length.
 """
 from __future__ import annotations
@@ -28,8 +29,28 @@ import torch
 
 from audiossl_tpu_torch.ops.interpolate import (sample_bicubic_2d,
                                                 sample_bicubic_rows)
+from audiossl_tpu_torch.parallel.mesh import all_gather_rows, local_rows
 
 _EPS32 = float(torch.finfo(torch.float32).eps)
+
+
+def rows_of(x, sl: slice):
+    """Rows ``sl`` of a draw: a tensor, a tuple of them, or None."""
+    if x is None:
+        return None
+    if isinstance(x, tuple):
+        return tuple(t[sl] for t in x)
+    return x[sl]
+
+
+def view_major_rows(m: Optional[torch.Tensor], batch: int,
+                    sl: slice) -> Optional[torch.Tensor]:
+    """Rows ``sl`` of each view of per-sequence draws [..., S] stacked
+    view-major over S = 2 ``batch`` (or of the one view, S = ``batch``),
+    still view-major."""
+    if m is None or m.shape[-1] == batch:
+        return None if m is None else m[..., sl]
+    return torch.cat([m[..., :batch][..., sl], m[..., batch:][..., sl]], -1)
 
 
 def _f32(v: float) -> float:
@@ -108,12 +129,22 @@ def draw_mixup(gen: torch.Generator, batch: int, ratio: float, device):
 
 
 def mixup_log(spec: torch.Tensor, a: torch.Tensor, shift: torch.Tensor,
-              valid_frames: Optional[torch.Tensor] = None) -> torch.Tensor:
+              valid_frames: Optional[torch.Tensor] = None,
+              pool: Optional[torch.Tensor] = None) -> torch.Tensor:
     """BYOL-A log-mixup-exp with an in-batch partner: spec [B, F, T] ->
-    log((1 - a) exp(x) + a exp(z) + eps), z = spec[(i + shift) % B];
-    frames at or past ``valid_frames`` keep their values."""
+    log((1 - a) exp(x) + a exp(z) + eps), z = pool[(i + shift) % N];
+    frames at or past ``valid_frames`` keep their values. ``pool`` [N, F,
+    T] is the global batch, whose rows ``[r B, (r + 1) B)`` are this
+    rank's ``spec`` (i counts from r B): by default every rank's ``spec``
+    gathered (``parallel.all_gather_rows``), ``spec`` itself in one
+    process."""
     B = spec.shape[0]
-    z = spec[(torch.arange(B, device=spec.device) + shift) % B]
+    if pool is None:
+        pool = all_gather_rows(spec)
+    i = torch.arange(B, device=spec.device)
+    if pool.shape[0] != B:
+        i = i + local_rows(pool.shape[0]).start
+    z = pool[(i + shift) % pool.shape[0]]
     a = a[:, None, None]
     mixed = torch.log((1.0 - a) * torch.exp(spec) + a * torch.exp(z)
                       + _EPS32)

@@ -3,8 +3,9 @@
 base (bf16 and int8), the linear probe and full finetuning at ATST-Clip
 and ATST-Frame base width, sound event detection (DCASE, AudioSet-strong,
 distill) at ATST-Frame base, the pretraining steps of ATST-Frame base (bf16, f32 and the int8
-recipes) and ATST-Clip small (f32, bf16 and the int8 recipes), and the
-pretraining CLIs with their run loop, checkpoints and crash-restart.
+recipes) and ATST-Clip small (f32, bf16 and the int8 recipes), the
+pretraining CLIs with their run loop, checkpoints and crash-restart, and
+data-parallel pretraining on 2 ranks (replicated and ZeRO-1).
 
 Run from the repository root on a machine with one CUDA GPU (Hopper,
 sm_90a) and the CUDA toolkit:
@@ -186,7 +187,24 @@ sm_90a) and the CUDA toolkit:
    step), the data2vec variant (``--avg_blocks 8``: the teacher's K2/K3
    collect its last 8 block outputs) and the int8 recipe
    (``--teacher_quant int8 --student_quant int8dx``: K2q-K5q) of the
-   frame CLI.
+   frame CLI;
+13. data-parallel pretraining (``ddp_frame``): 2 ranks on this one card,
+   spawned by ``parallel.launch.spawn`` on gloo over CUDA tensors (NCCL
+   refuses two ranks on one device), at the frame base bf16 recipe with a
+   global batch of 32 (16 a rank), 3 steps from one seed, replicated and
+   under ZeRO-1; each step against the 1-rank step on the same global
+   batch run first in this process, from the 1-rank run's state before
+   that step (loss rel 1e-2, lowest leaf cosine 0.99: the bf16
+   kernel-vs-plain bounds), both ranks' states bit-equal
+   after each step, each rank's launches of K1-K5, K7 and K8 equal to the
+   1-rank step's, the moment bytes of each rank under ZeRO-1 (about half);
+   then ``run_pretraining`` on the 2 ranks under ZeRO-1 for 6 steps on
+   the CLI pack with a checkpoint every 3, rank 0's last checkpoint
+   restored into a 1-rank state equal tensor for tensor to rank 0's final
+   state; per-step wall and global clips/s (a correctness run, not a
+   data-parallel rate). With 2 cards or more, also the frame CLI over
+   NCCL at ``--n_devices`` the count for 3 steps; on one card a line says
+   it did not run.
 ``--profile DIR`` also writes a ``torch.profiler`` table and trace of one
 kernel-path step of phases 4, 5, 7 and 8 to DIR.
 
@@ -1465,7 +1483,9 @@ def ln_kernel_checks(dev):
     ATST-Clip small step ([192 * 151, 384]) and of the ATST-Frame base step
     ([192 * 250, 768]), timed by CUDA events and in device time beside
     aten's LayerNorm backward; then untimed in bf16 at the rows of the clip
-    CLI's step ([192 * 226, 384]) and at 97 rows of widths 100, 200,
+    CLI's step ([192 * 226, 384]), of the ddp_frame phase's steps
+    ([32 * 250, 768] a rank, [64 * 250, 768] the 1-rank step) and at 97
+    rows of widths 100, 200,
     1000 and 1023 (16-byte vectors that do not fill the lanes, single
     elements where a row is not a whole number of 16-byte vectors). The
     first case is the one the summary line reports at its top level."""
@@ -1479,6 +1499,12 @@ def ln_kernel_checks(dev):
              ("bf16_clip", bf, S * CLIP_N, CLIP_C, BLOCK_REL_L2, True),
              ("bf16", bf, S * N, C, BLOCK_REL_L2, True),
              ("bf16_clip_cli", bf, S * CLI_CLIP_N, CLIP_C, BLOCK_REL_L2,
+              False),
+             # the ddp_frame phase's rank (2 x 16 sequences) and 1-rank
+             # (2 x 32) steps
+             ("bf16_ddp_rank", bf, 2 * DDP_B // DDP_RANKS * N, C,
+              BLOCK_REL_L2, False),
+             ("bf16_ddp_one_rank", bf, 2 * DDP_B * N, C, BLOCK_REL_L2,
               False)]
     cases += [(f"{n}_97x{c}", dt, 97, c, tol, False) for c in (100, 200,
                                                                 1000, 1023)
@@ -2630,6 +2656,17 @@ def student_leaves(dev):
             [k in t_names for k, _ in leaves], [p.ndim >= 2 for _, p in leaves])
 
 
+def zero1_leaves(shapes, teacher, decay):
+    """``student_leaves`` split as ZeRO-1 splits them over ``DDP_RANKS``
+    ranks (``parallel.partition_leaves``): each rank's K7 leaves."""
+    from audiossl_tpu_torch.parallel.mesh import partition_leaves
+
+    owner = partition_leaves([4 * int(np.prod(s)) for s in shapes], DDP_RANKS)
+    return [tuple([x for x, o in zip(lst, owner) if o == r]
+                  for lst in (shapes, teacher, decay))
+            for r in range(DDP_RANKS)]
+
+
 def wav_batch(dev, samples, seed, short=None):
     """B=96 clips of seeded noise; with ``short``, every fourth clip holds
     only that many valid samples."""
@@ -3139,6 +3176,7 @@ def pretrain_frame_cli_path(dev, workdir, data):
     module, argv = recipe_argv("torch_atst_frame_base.sh", data, save)
     check(module == ft.__name__, f"the frame recipe runs {ft.__name__}")
     args = ft.build_parser().parse_args(argv + [
+        "--n_devices", "1",
         "--batch_size_per_device", str(TRAIN_B), "--warmup_steps", "2",
         "--max_steps", str(CLI_STEPS), "--ckpt_interval", str(CLI_CKPT)])
     check(args.dtype == "bfloat16" and args.arch == "base"
@@ -3282,7 +3320,7 @@ def crash_restart_path(workdir, data):
     root = os.path.dirname(os.path.abspath(__file__))
     save = os.path.join(workdir, "frame_crash")
     module, argv = recipe_argv("torch_atst_frame_base.sh", data, save)
-    cmd = [sys.executable, "-m", module, *argv,
+    cmd = [sys.executable, "-m", module, *argv, "--n_devices", "1",
            "--batch_size_per_device", str(TRAIN_B), "--warmup_steps", "2",
            "--max_steps", str(CRASH_STEPS), "--ckpt_interval",
            str(CRASH_CKPT)]
@@ -3358,6 +3396,7 @@ def cli_untimed_path(dev, data, recipe, extra, want):
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(tee):
         state = cli.main(argv + [
+            "--n_devices", "1",
             "--batch_size_per_device", str(TRAIN_B), "--warmup_steps", "2",
             "--max_steps", str(CLI_UNTIMED_STEPS), *extra])
     torch.cuda.synchronize()
@@ -3373,6 +3412,349 @@ def cli_untimed_path(dev, data, recipe, extra, want):
     del state
     torch.cuda.empty_cache()
     return launches
+
+
+DDP_RANKS, DDP_B, DDP_STEPS = 2, 32, 3  # ddp_frame: 16 clips a rank
+DDP_RUN_STEPS, DDP_RUN_CKPT = 6, 3
+DDP_TIMEOUT_S = 400  # the ranks' hard limit
+
+
+def ddp_batch(samples):
+    """The seeded global batch of the ddp_frame phase, on the host: DDP_B
+    clips of noise, every fourth with three quarters of it valid (so the
+    ranks select unequal counts of frames)."""
+    rng = np.random.RandomState(SEED + 40)
+    wav = (rng.randn(DDP_B, samples) * 0.1).astype(np.float32)
+    valid = np.full(DDP_B, samples, np.int64)
+    valid[1::4] = samples * 3 // 4
+    wav[1::4, samples * 3 // 4:] = 0.0
+    return {"wav": wav, "valid": valid}
+
+
+def state_fingerprint(state):
+    """Two int64 sums of the bits of every tensor of both branches (plain
+    and weighted by position): equal states give equal fingerprints."""
+    out = []
+    for branch in (state.student, state.teacher):
+        for t in branch.state_dict().values():
+            bits = t.detach().contiguous().view(torch.int32).long().flatten()
+            pos = torch.arange(bits.numel(), device=bits.device) % 65521 + 1
+            out += [int(bits.sum()), int((bits * pos).sum())]
+    return out
+
+
+def save_branches(state, path):
+    """What a step's gradient depends on: both branches (BatchNorm
+    statistics included), the generator, the step and Adam's count."""
+    torch.save({"student": state.student.state_dict(),
+                "teacher": state.teacher.state_dict(),
+                "generator": state.generator.get_state(),
+                "step": state.step, "count": state.count}, path)
+
+
+@torch.no_grad()
+def load_branches(state, path, dev):
+    """``save_branches``'s file into ``state`` in place (its moments go
+    on as they were)."""
+    saved = torch.load(path, map_location=dev, weights_only=True)
+    state.student.load_state_dict(saved["student"])
+    state.teacher.load_state_dict(saved["teacher"])
+    state.generator.set_state(saved["generator"].cpu())
+    state.step, state.count = saved["step"], saved["count"]
+
+
+def ddp_rank(out_dir, data, device):
+    """One rank of the ddp_frame phase (``parallel.launch.spawn``): the
+    replicated and the ZeRO-1 steps on its rows of the global batch, each
+    from the 1-rank run's state before that step, with each step's
+    launches, loss, wall time, state fingerprint and (rank 0) lowest leaf
+    cosine to the 1-rank step's gradient; then ``run_pretraining`` under
+    ZeRO-1 with checkpoints. Writes ``rank<r>.json``."""
+    import contextlib
+
+    import torch.distributed as dist
+
+    from audiossl_tpu_torch.datasets import PackedAudioDataset
+    from audiossl_tpu_torch.kernels import build as kb
+    from audiossl_tpu_torch.methods.atstframe.method import FrameMethod
+    from audiossl_tpu_torch.parallel.launch import rank_device
+    from audiossl_tpu_torch.parallel.mesh import local_rows, world
+    from audiossl_tpu_torch.training.checkpoint import host_state
+    from audiossl_tpu_torch.training.pretrain import shard_optimizer
+    from audiossl_tpu_torch.training.runner import run_pretraining
+
+    record_launch_shapes()
+    w = world()
+    dev = rank_device(device)
+    cfg = base_recipe()
+    sl = local_rows(DDP_B)
+    batch = {k: torch.from_numpy(v[sl]).to(dev)
+             for k, v in ddp_batch(cfg.out_samples).items()}
+    res = {"rank": w.rank, "backend": dist.get_backend(),
+           "device": str(dev)}
+    total = dict.fromkeys(kb.LAUNCHES, 0)
+    for label in ("replicated", "zero1"):
+        method = FrameMethod(cfg, device=dev, seed=SEED)
+        state = method.init_state(SEED)
+        state.step = cfg.optimizer.warmup_steps
+        if label == "zero1":
+            shard_optimizer(state)
+        moment_bytes = sum(v.numel() * v.element_size() for v in
+                           (*state.mu.values(), *state.nu.values()))
+        step = method.make_step()
+        zero_grad = f"encoder.{method.student.encoder._norm_name}.bias"
+        steps = []
+        for i in range(DDP_STEPS):
+            load_branches(state, os.path.join(out_dir, f"pre{i}.pt"), dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out, launches = counted_step(step, state, batch)
+            wall = time.perf_counter() - t0
+            for k, n in launches.items():
+                total[k] += n
+            rec = {"loss": float(out["loss"]), "launches": launches,
+                   "wall_s": wall, "global_clips_per_s": DDP_B / wall,
+                   "fingerprint": state_fingerprint(state)}
+            if w.is_main:
+                ref = torch.load(os.path.join(out_dir, f"ref_grads{i}.pt"),
+                                 map_location=dev, weights_only=True)
+                cos, norms = {}, {}
+                for k, p in state.student.named_parameters():
+                    g, r = p.grad.double().flatten(), ref[k].double().flatten()
+                    norms[k] = max(float(g.norm()), float(r.norm()))
+                    if k != zero_grad:
+                        cos[k] = float(torch.nn.functional.cosine_similarity(
+                            g, r, dim=0))
+                worst = min(cos, key=cos.get)
+                rec.update(min_cos=cos[worst], min_cos_leaf=worst,
+                           median_cos=float(np.median(list(cos.values()))),
+                           zero_grad_share=norms[zero_grad]
+                           / max(norms.values()))
+                del ref
+            steps.append(rec)
+        res[label] = {"steps": steps, "moment_bytes": moment_bytes}
+        del method, state, step
+        torch.cuda.empty_cache()
+
+    # the run loop: ZeRO-1, checkpoints, rank 0 printing and writing
+    method = FrameMethod(cfg, device=dev, seed=SEED)
+    save = os.path.join(out_dir, "run")
+    torch.cuda.synchronize()
+    kb.reset_launches()
+    t0 = time.perf_counter()
+    quiet = open(os.devnull, "w") if not w.is_main else None
+    with contextlib.redirect_stdout(quiet or sys.stdout):
+        state = run_pretraining(
+            method, PackedAudioDataset(data, "train"),
+            batch_size_per_device=DDP_B // w.size, max_steps=DDP_RUN_STEPS,
+            save_path=save, ckpt_interval=DDP_RUN_CKPT,
+            log_interval=DDP_RUN_CKPT, seed=SEED, shard_optimizer=True)
+    torch.cuda.synchronize()
+    run_launches = dict(kb.LAUNCHES)
+    for k, n in run_launches.items():
+        total[k] += n
+    final = host_state(state)  # the moments from their owners: every rank
+    if w.is_main:
+        torch.save(final, os.path.join(out_dir, "rank0_final.pt"))
+    res["run"] = {"launches": run_launches, "step": state.step,
+                  "wall_s": time.perf_counter() - t0,
+                  "fingerprint": state_fingerprint(state),
+                  "moment_bytes": sum(v.numel() * v.element_size() for v in
+                                      (*state.mu.values(),
+                                       *state.nu.values()))}
+    res["launches"] = total
+    res["seen"] = {k: sorted(v) for k, v in LAUNCH_SEEN.items()}
+    with open(os.path.join(out_dir, f"rank{w.rank}.json"), "w") as f:
+        json.dump(res, f)
+    if quiet is not None:
+        quiet.close()
+
+
+def ddp_frame_path(dev, workdir, data):
+    """Data-parallel ATST-Frame pretraining on this one card: 2 ranks
+    (``parallel.launch.spawn``, gloo over CUDA tensors: NCCL refuses two
+    ranks on one device) at the frame base bf16 recipe, a global batch of
+    ``DDP_B`` (16 a rank), ``DDP_STEPS`` steps from one seed, replicated
+    and under ZeRO-1; each step against the 1-rank step on the same global
+    batch run here first, from the state the 1-rank run had before it
+    (loss rel ``STEP_LOSS_REL``, lowest leaf cosine ``STEP_GRAD_COS``: the
+    bf16 kernel-vs-plain bounds, since K4/K5's f32 atomics already make
+    two equal 1-rank steps differ, and so two runs drift apart step by
+    step), both ranks' states bit-equal after each step, each rank's
+    launches equal to the 1-rank step's, its moment bytes under ZeRO-1;
+    then ``run_pretraining``
+    on the 2 ranks under ZeRO-1 for ``DDP_RUN_STEPS`` steps with a
+    checkpoint every ``DDP_RUN_CKPT``, rank 0's last checkpoint restored
+    into a 1-rank state equal tensor for tensor to rank 0's final state.
+    With 2 cards or more, also the frame CLI over NCCL at ``--n_devices``
+    the count. Returns the ranks' launches, summed."""
+    from audiossl_tpu_torch.methods.atstframe.method import FrameMethod
+    from audiossl_tpu_torch.parallel import launch
+    from audiossl_tpu_torch.training.checkpoint import CheckpointManager
+
+    t_phase = time.perf_counter()
+    out_dir = os.path.join(workdir, "ddp_frame")
+    os.makedirs(out_dir)
+    cfg = base_recipe()
+    method = FrameMethod(cfg, device=dev, seed=SEED)
+    state = method.init_state(SEED)
+    state.step = cfg.optimizer.warmup_steps
+    step = method.make_step()
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in ddp_batch(cfg.out_samples).items()}
+    ref = []
+    for i in range(DDP_STEPS):
+        save_branches(state, os.path.join(out_dir, f"pre{i}.pt"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, launches = counted_step(step, state, batch)
+        wall = time.perf_counter() - t0
+        check_launches(f"ddp_frame 1-rank step {i + 1}", launches,
+                       bf16_want(1))
+        ref.append({"loss": float(out["loss"]), "wall_s": wall,
+                    "launches": launches})
+        torch.save({k: p.grad for k, p in state.student.named_parameters()},
+                   os.path.join(out_dir, f"ref_grads{i}.pt"))
+    ref_moment_bytes = sum(v.numel() * v.element_size() for v in
+                           (*state.mu.values(), *state.nu.values()))
+    del method, state, step, batch
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    launch.spawn(ddp_rank, DDP_RANKS, (out_dir, data, str(dev)),
+                 device=str(dev), backend="gloo", timeout_s=DDP_TIMEOUT_S)
+    ranks_s = time.perf_counter() - t0
+    got = []
+    for r in range(DDP_RANKS):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            got.append(json.load(f))
+    for g in got:
+        for k, shapes in g["seen"].items():
+            LAUNCH_SEEN.setdefault(k, set()).update(map(tuple, shapes))
+    print(f"ddp_frame: {DDP_RANKS} ranks on {got[0]['device']}, backend "
+          f"{got[0]['backend']} over CUDA tensors, global batch {DDP_B} "
+          f"({DDP_B // DDP_RANKS} a rank); ranks ran {ranks_s:.1f} s")
+    check(all(g["backend"] == "gloo" for g in got), "ddp_frame ranks on gloo")
+    summary = {"backend": got[0]["backend"], "ranks": DDP_RANKS,
+               "global_batch": DDP_B, "one_rank": ref,
+               "moment_bytes_replicated": ref_moment_bytes}
+    for label in ("replicated", "zero1"):
+        steps = [g[label]["steps"] for g in got]
+        for i, want in enumerate(ref):
+            a, b = steps[0][i], steps[1][i]
+            rel = abs(a["loss"] - want["loss"]) / abs(want["loss"])
+            print(f"ddp_frame {label} step {i + 1}: loss {a['loss']} (1-rank "
+                  f"{want['loss']}, rel diff {rel}); gradient cosine to the "
+                  f"1-rank step min {a['min_cos']} ({a['min_cos_leaf']}), "
+                  f"median {a['median_cos']}; wall {a['wall_s']} s / "
+                  f"{b['wall_s']} s, global clips/s {a['global_clips_per_s']}"
+                  f" (a correctness run, not a data-parallel rate; 1-rank "
+                  f"wall {want['wall_s']} s)")
+            check(rel <= STEP_LOSS_REL, f"ddp_frame {label} step {i + 1} loss "
+                  f"rel diff {rel} <= {STEP_LOSS_REL}")
+            check(a["min_cos"] >= STEP_GRAD_COS, f"ddp_frame {label} step "
+                  f"{i + 1}: every gradient leaf cosine to the 1-rank step "
+                  f">= {STEP_GRAD_COS}")
+            check(a["zero_grad_share"] <= ZERO_GRAD_REL, f"ddp_frame {label}: "
+                  f"the final norm bias's gradient <= {ZERO_GRAD_REL} of the "
+                  "largest leaf's")
+            check(a["fingerprint"] == b["fingerprint"]
+                  and a["loss"] == b["loss"],
+                  f"ddp_frame {label} step {i + 1}: both ranks' states and "
+                  "losses bit-equal")
+            for r, st in enumerate((a, b)):
+                check_launches(f"ddp_frame {label} rank {r} step {i + 1}",
+                               st["launches"], bf16_want(1))
+        summary[label] = {
+            "loss": [s["loss"] for s in steps[0]],
+            "min_leaf_cos": [s["min_cos"] for s in steps[0]],
+            "wall_s": [[s["wall_s"] for s in st] for st in steps],
+            "global_clips_per_s": [s["global_clips_per_s"]
+                                   for s in steps[0]],
+            "moment_bytes": [g[label]["moment_bytes"] for g in got]}
+    mb = summary["zero1"]["moment_bytes"]
+    print(f"ddp_frame ZeRO-1 moment bytes by rank {mb} (replicated "
+          f"{summary['replicated']['moment_bytes']}, 1-rank "
+          f"{ref_moment_bytes})")
+    check(sum(mb) == ref_moment_bytes and max(mb) <= 0.6 * ref_moment_bytes,
+          "ddp_frame ZeRO-1: the moments split over the ranks, about half "
+          "each")
+
+    runs = [g["run"] for g in got]
+    check(all(r["step"] == DDP_RUN_STEPS for r in runs),
+          f"ddp_frame run_pretraining reached step {DDP_RUN_STEPS}")
+    check(runs[0]["fingerprint"] == runs[1]["fingerprint"],
+          "ddp_frame run_pretraining: both ranks end on the same state")
+    for r, run in enumerate(runs):
+        check_launches(f"ddp_frame run_pretraining rank {r}", run["launches"],
+                       {k: n * DDP_RUN_STEPS for k, n in bf16_want(1).items()})
+    mgr = CheckpointManager(os.path.join(out_dir, "run", "ckpt"),
+                            DDP_RUN_CKPT)
+    kept = list(range(DDP_RUN_CKPT, DDP_RUN_STEPS + 1, DDP_RUN_CKPT))
+    check(mgr.all_steps() == kept, f"ddp_frame checkpoints {mgr.all_steps()} "
+          f"== {kept}")
+    fresh = FrameMethod(cfg, device=dev, seed=SEED + 1)
+    rstate = fresh.init_state(SEED + 1)
+    mgr.restore_latest(rstate)
+    final = torch.load(os.path.join(out_dir, "rank0_final.pt"),
+                       map_location="cpu", weights_only=True)
+    rs = state_tensors(rstate)
+    want = {f"student.{k}": v for k, v in final["student"].items()}
+    want.update({f"teacher.{k}": v for k, v in final["teacher"].items()})
+    want.update({f"mu.{k}": v for k, v in final["mu"].items()})
+    want.update({f"nu.{k}": v for k, v in final["nu"].items()})
+    want["generator"] = final["generator"]
+    want["step"], want["count"] = (torch.tensor(final["step"]),
+                                   torch.tensor(final["count"]))
+    check(rs.keys() == want.keys(), "ddp_frame: the checkpoint restores into "
+          "a 1-rank state's tensors")
+    unequal = [k for k in rs if not torch.equal(rs[k].cpu(), want[k].cpu())]
+    check(not unequal, "ddp_frame: rank 0's checkpoint restored into a "
+          f"1-rank state equal to rank 0's final state tensor for tensor ({len(rs)} "
+          f"tensors; unequal {unequal[:5]})")
+    del fresh, rstate, rs, want, final
+    torch.cuda.empty_cache()
+    summary["run"] = {"steps": DDP_RUN_STEPS, "wall_s": [r["wall_s"]
+                                                         for r in runs],
+                      "moment_bytes": [r["moment_bytes"] for r in runs],
+                      "checkpoints": kept}
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        summary["nccl_cli"] = ddp_nccl_cli(workdir, data, n_cards)
+    else:
+        print(f"ddp_frame: the frame CLI over NCCL did not run: it needs 2 "
+              f"cards or more and this machine has {n_cards}")
+    summary["phase_s"] = time.perf_counter() - t_phase
+    print(json.dumps({"ddp_frame": summary}))
+    launches = dict.fromkeys(got[0]["launches"], 0)
+    for g in got:
+        for k, n in g["launches"].items():
+            launches[k] += n
+    return launches
+
+
+def ddp_nccl_cli(workdir, data, n_cards):
+    """The frame CLI at the base recipe's arguments, ``--n_devices``
+    ``n_cards`` (NCCL, one rank a card, started by the CLI), 16 clips a
+    rank, 3 steps."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    save = os.path.join(workdir, "ddp_nccl")
+    module, argv = recipe_argv("torch_atst_frame_base.sh", data, save)
+    cmd = [sys.executable, "-m", module, *argv, "--n_devices", str(n_cards),
+           "--batch_size_per_device", str(DDP_B // DDP_RANKS),
+           "--warmup_steps", "2", "--max_steps", "3", "--ckpt_interval", "3"]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
+                       timeout=DDP_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    lines = [ln for ln in r.stdout.splitlines()
+             if ln.startswith(("loader", "run ended"))]
+    print(f"ddp_frame: the frame CLI over NCCL on {n_cards} cards: exit "
+          f"{r.returncode} in {wall:.1f} s; {lines}")
+    check(r.returncode == 0 and "run ended at step 3: 3 steps taken"
+          in r.stdout, f"the frame CLI on {n_cards} NCCL ranks ran 3 steps "
+          f"({r.stderr[-2000:]})")
+    return {"cards": n_cards, "wall_s": wall}
 
 
 def profile_step(step, state, batch, out_dir, label):
@@ -3443,6 +3825,8 @@ def main():
     res.update(mha_kernel_checks(dev))
     res.update(ln_kernel_checks(dev))
     res["adamw_ema"] = adamw_ema_check(dev, *student_leaves(dev))
+    for part in zero1_leaves(*student_leaves(dev)):  # ddp_frame's ZeRO-1
+        adamw_ema_check(dev, *part, timed=False)
     odd = [(3, 5), (7,), (2049,), (1,), (33, 31), (2, 2048), (4097,)]
     adamw_ema_check(dev, odd, [i % 3 != 1 for i in range(len(odd))],
                     [len(s) >= 2 for s in odd], timed=False)
@@ -3507,6 +3891,8 @@ def main():
             torch.cuda.empty_cache()
             run_path(name, lambda: cli_untimed_path(dev, data, recipe, extra,
                                                     want))
+        torch.cuda.empty_cache()
+        run_path("ddp_frame", lambda: ddp_frame_path(dev, workdir, data))
     k1_seen = {p: v.get("mel_db", []) for p, v in seen.items()}
     print(f"K1 STFT shapes by path: {k1_seen}")
     for name, shape in list(K1_SHAPES.items()) + [

@@ -49,6 +49,9 @@ def test_port_imports_without_jax():
         "import audiossl_tpu_torch.downstream.comparison_models\n"
         "import audiossl_tpu_torch.downstream.train_dcase\n"
         "import audiossl_tpu_torch.downstream.train_as_strong\n"
+        "import audiossl_tpu_torch.parallel\n"
+        "import audiossl_tpu_torch.parallel.launch\n"
+        "import audiossl_tpu_torch.parallel.dryrun\n"
         "from audiossl_tpu_torch import load_model, get_scene_embedding\n"
         "bad = [m for m in sys.modules if m.split('.')[0] == 'audiossl_tpu']\n"
         "assert not bad, bad\n"

@@ -7,7 +7,8 @@ nargs, required, and the same values from ``type``) plus ``--device``; for
 several argument lists the port's config equals JAX's field by field,
 the scaled learning rate included (exactly: the same float operations);
 ``main`` runs each CLI end to end at tiny width on a synthetic pack,
-writes ``ckpt/`` and resumes; more than one device raises.
+writes ``ckpt/`` and resumes, and on 2 gloo ranks that it starts itself
+(``--n_devices 2``, with and without ``--shard_optimizer``).
 ``torch.utils.tensorboard`` is kept from importing (it loads TensorFlow
 when that is installed).
 """
@@ -17,6 +18,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 from audiossl_tpu.methods.atst import train as jclip
 from audiossl_tpu.methods.atstframe import train as jframe
@@ -143,14 +145,30 @@ def test_main_trains_checkpoints_and_resumes(which, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flag", [["--n_devices", "2"],
-                                  ["--shard_optimizer"]])
+                                  ["--n_devices", "2", "--shard_optimizer"]])
 @pytest.mark.parametrize("which", sorted(CLIS))
-def test_more_than_one_device_raises(which, flag, tmp_path):
-    data = str(tmp_path / "data")
-    write_synthetic_pack(data, "train", 2, min_s=0.5, max_s=1.0, seed=1)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        CLIS[which][1].main(["--data_path", data, "--device", "cpu",
-                             *TINY[which], *flag])
+def test_more_than_one_device_raises(which, flag, tmp_path, capfd):
+    """(Named when these flags raised.) ``main`` starts 2 gloo ranks
+    itself: 2 steps of the global batch of 4, rank 0 prints and writes the
+    checkpoint, whose learning rate scales with the 2 ranks."""
+    data, save = str(tmp_path / "data"), str(tmp_path / "exp")
+    write_synthetic_pack(data, "train", 9, min_s=0.5, max_s=1.0, seed=1)
+    tmod = CLIS[which][1]
+    argv = ["--data_path", data, "--save_path", save, "--device", "cpu",
+            "--batch_size_per_device", "2", "--warmup_steps", "1",
+            "--max_steps", "2", "--ckpt_interval", "2", *TINY[which], *flag]
+    assert tmod.main(argv) is None  # the ranks ran in their own processes
+    out = capfd.readouterr().out
+    assert "(rank 0 of 2), 2 batches of 4 an epoch" in out
+    assert out.count("run ended at step 2: 2 steps taken") == 1
+    assert sorted(os.listdir(os.path.join(save, "ckpt"))) == ["2"]
+    saved = torch.load(os.path.join(save, "ckpt", "2", "state.pt"),
+                       weights_only=True)
+    assert saved["step"] == saved["count"] == 2
+    assert all(bool(torch.isfinite(v).all()) for v in saved["mu"].values())
+    args = tmod.build_parser().parse_args(argv)
+    assert tmod.build_config(args).optimizer.learning_rate == (
+        args.learning_rate * 2 * args.batch_size_per_device / 256.0)
 
 
 def test_bool_flag_is_jax_bool_flag():

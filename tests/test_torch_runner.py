@@ -13,7 +13,9 @@ JAX package where it has the same part.
   over two epochs, JAX's ``BatchLoader`` and ``NativeBatchLoader`` on the
   same pack, seed, subset, pad and dtype (tolerance 0), int16 exactly when
   JAX picks it;
-* resume, ``max_steps``, the profiler trace and the refused options.
+* resume, ``max_steps`` and the profiler trace; ``n_devices=2`` and
+  ``shard_optimizer`` on 2 gloo ranks (``test_torch_ddp_runner.py``
+  holds them further).
 
 ``torch.utils.tensorboard`` is kept from importing here (it loads
 TensorFlow when that is installed): the logger is tested with a stand-in
@@ -332,7 +334,36 @@ def test_runner_writes_a_profile_trace_and_logs(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("kw", [dict(n_devices=2),
                                 dict(shard_optimizer=True)])
-def test_runner_refuses_more_than_one_device(kw):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
+def test_runner_refuses_more_than_one_device(kw, pack, tmp_path, capfd):
+    """(Named when these options raised.) Each option runs on 2 gloo
+    ranks: 3 steps with a checkpoint at step 2, both ranks end on the same
+    state, only rank 0 prints and writes, and the checkpoint holds every
+    parameter's moments; under ZeRO-1 each rank keeps about half of them.
+    ``n_devices`` other than the group's size raises."""
+    from test_torch_ddp_runner import spawn_run
+
+    save = str(tmp_path / "exp")
+    a, b = spawn_run(str(tmp_path / "out"), pack, save_path=save,
+                     batch_size_per_device=B, max_steps=3, ckpt_interval=2,
+                     log_interval=1, seed=4, clip_len_s=1.5, **kw)
+    out = capfd.readouterr().out
+    assert a["step"] == b["step"] == 3
+    for k in a["tensors"]:
+        assert torch.equal(a["tensors"][k], b["tensors"][k]), k
+    assert out.count("run ended at step 3: 3 steps taken") == 1
+    assert out.count("step 3 ") == 1 and "clips_per_sec=" in out
+    assert sorted(os.listdir(os.path.join(save, "ckpt"))) == ["2", "3"]
+    saved = torch.load(os.path.join(save, "ckpt", "3", "state.pt"),
+                       weights_only=True)
+    for k, v in saved["mu"].items():
+        assert torch.equal(v, a["tensors"][f"mu.{k}"]), k
+    full = sum(v.numel() * 4 for v in (*saved["mu"].values(),
+                                       *saved["nu"].values()))
+    if kw.get("shard_optimizer"):
+        assert set(a["owned"]).isdisjoint(b["owned"])
+        assert max(a["moment_bytes"], b["moment_bytes"]) < 0.6 * full
+    else:
+        assert a["moment_bytes"] == b["moment_bytes"] == full
+    with pytest.raises(ValueError, match="n_devices=2"):
         runner.run_pretraining(_Recorder(), [], batch_size_per_device=B,
-                               max_steps=1, **kw)
+                               max_steps=1, n_devices=2)
