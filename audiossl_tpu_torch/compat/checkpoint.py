@@ -2,7 +2,11 @@
 
 * :func:`load_pretrain_checkpoint` reads a reference pretraining
   Lightning ``.ckpt`` and returns the encoder's state dict as stored
-  (counterpart of ``audiossl_tpu/compat/torch_import.py:201``);
+  (counterpart of ``audiossl_tpu/compat/torch_import.py:201``), or the
+  port's own pretraining checkpoint (``<save>/ckpt/<step>/state.pt`` of
+  ``training.checkpoint.CheckpointManager``, or its step directory), whose
+  encoder is already in the port's layout and whose arch is inferred from
+  its shapes (:func:`infer_arch`);
 * :func:`encoder_state_from_torch` maps such a state dict onto the port's
   encoder as JAX's importer reads it (``torch_import.py:48
   encoder_params_from_torch``): either patch-embed layout, optional
@@ -24,7 +28,8 @@
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping, Tuple
+import os
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -267,18 +272,54 @@ def encoder_state_from_torch(sd: Mapping[str, torch.Tensor], depth: int,
 
 def load_encoder_state(encoder: torch.nn.Module,
                        sd: Mapping[str, torch.Tensor],
-                       assign: bool = False) -> None:
+                       assign: bool = False, layout: str = "reference"
+                       ) -> None:
     """Load a reference encoder state dict into the port's
     ``AudioTransformer`` through :func:`encoder_state_from_torch`. Mapped
     keys the encoder has no place for (``prompt_embed``, which the port's
     encoder does not hold, or a clip checkpoint's ``cls_token`` in a
     frame encoder) are dropped, as flax leaves unused params alone; a key
     the encoder needs and the file lacks raises. ``assign=True`` takes the
-    tensors themselves (an encoder built on the meta device)."""
+    tensors themselves (an encoder built on the meta device).
+    ``layout="port"`` (the ``layout`` :func:`load_pretrain_checkpoint`
+    reports for the port's own checkpoints) loads ``sd`` as it is, every
+    key of the encoder and no other."""
+    if layout == "port":
+        encoder.load_state_dict(sd, assign=assign)
+        return
     mapped = encoder_state_from_torch(sd, encoder.depth, encoder.use_cls)
     own = encoder.state_dict()
     encoder.load_state_dict({k: v for k, v in mapped.items() if k in own},
                             assign=assign)
+
+
+PORT_STATE_FILE = "state.pt"  # training.checkpoint.STATE_FILE
+# (width, blocks) -> the size tier; the clip and frame encoders share them
+ARCHS = {(64, 2): "tiny", (384, 12): "small", (768, 12): "base"}
+
+
+def port_state_path(path: str) -> Optional[str]:
+    """The ``state.pt`` a path names, if it names one of the port's own
+    checkpoints: the file itself, or a directory holding it (a step
+    directory); else None."""
+    if os.path.isdir(path):
+        path = os.path.join(path, PORT_STATE_FILE)
+        return path if os.path.isfile(path) else None
+    return path if os.path.basename(path) == PORT_STATE_FILE else None
+
+
+def infer_arch(sd: Mapping[str, torch.Tensor]) -> Tuple[str, str]:
+    """(model type, size tier) of a port-layout encoder state dict: the
+    type by its CLS token ("clip") or its absence ("frame"), the tier by
+    its width and block count. A shape no tier has raises ValueError."""
+    width = int(sd["pos_embed"].shape[-1])
+    depth = len({k.split(".")[1] for k in sd if k.startswith("blocks.")})
+    arch = ARCHS.get((width, depth))
+    if arch is None:
+        tiers = ", ".join(f"{a} {w} x {d}" for (w, d), a in ARCHS.items())
+        raise ValueError(f"an encoder of width {width} and {depth} blocks "
+                         f"is no arch the port builds ({tiers})")
+    return ("clip" if "cls_token" in sd else "frame"), arch
 
 
 def load_pretrain_checkpoint(path: str, which: str = "teacher"):
@@ -288,7 +329,24 @@ def load_pretrain_checkpoint(path: str, which: str = "teacher"):
     The encoder is found under ``model.{which}.encoder.``, then
     ``{which}.encoder.``, else the dict is taken as a raw encoder state
     dict; ``module.``/``backbone.`` prefixes are stripped first. The file
-    is read with ``weights_only=True``: tensors and plain containers."""
+    is read with ``weights_only=True``: tensors and plain containers.
+
+    A port pretraining checkpoint (:func:`port_state_path`: a
+    ``state.pt`` of the pretraining CLIs, or its step directory) gives
+    ``which`` branch's ``encoder.`` entries as they are, in the port's
+    layout, and as hyper-parameters the ``arch`` and ``model_type``
+    :func:`infer_arch` reads off them and ``layout`` "port" (load them
+    with ``load_encoder_state(..., layout="port")``)."""
+    port = port_state_path(path)
+    if port is not None:
+        saved = torch.load(port, map_location="cpu", weights_only=True)
+        if not isinstance(saved.get(which), Mapping):
+            raise KeyError(f"{port} holds no {which!r} branch: it is not a "
+                           "pretraining checkpoint of the port")
+        enc = subtree(saved[which], "encoder.")
+        model_type, arch = infer_arch(enc)
+        return enc, {"arch": arch, "model_type": model_type,
+                     "layout": "port", "step": saved.get("step")}
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     sd = strip_prefixes(ckpt.get("state_dict", ckpt))
     enc = subtree(sd, f"model.{which}.encoder.")

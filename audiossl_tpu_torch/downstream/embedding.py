@@ -31,6 +31,7 @@ import torch
 
 from audiossl_tpu_torch.models.atst import AudioTransformer
 from audiossl_tpu_torch.ops.melspec import MelConfig, log_melspec
+from audiossl_tpu_torch.parallel.mesh import gather_rows
 
 
 def central_crop_frames(wav: torch.Tensor, valid: torch.Tensor,
@@ -120,11 +121,15 @@ def extract_split(extract_fn: Callable, loader,
     """Run the extractor over a ``BatchLoader``; -> (embeddings, labels) as
     numpy arrays. ``timings``, when given, receives (clips, seconds) per
     batch: the time from the end of the previous batch (or the start) to
-    this batch's embeddings on the host, loading included."""
+    this batch's embeddings on the host, loading included. Under a process
+    group every rank reads every batch, extracts its rows of it (a ragged
+    batch padded: extraction is row-independent) and receives all of
+    them (``parallel.gather_rows``)."""
     embs, labels = [], []
     t0 = time.perf_counter()
     for batch in loader:
-        e = extract_fn(batch["wav"], batch["valid"])
+        e = gather_rows(lambda b: extract_fn(b["wav"], b["valid"]),
+                        {"wav": batch["wav"], "valid": batch["valid"]})
         embs.append(e.cpu().numpy())  # waits for the device
         labels.append(np.asarray(batch["label"]))
         if timings is not None:

@@ -41,6 +41,9 @@ from audiossl_tpu_torch.models.atst import AudioTransformer
 from audiossl_tpu_torch.models.heads import LinearHead
 from audiossl_tpu_torch.models.transformer import drop_path_multipliers
 from audiossl_tpu_torch.ops.melspec import MelConfig, log_melspec
+from audiossl_tpu_torch.parallel.mesh import (all_reduce_sum, data_world,
+                                              gather_rows, local_rows,
+                                              sum_tensors)
 from audiossl_tpu_torch.training.schedules import cosine_schedule
 from audiossl_tpu_torch.transforms.augment import (draw_mask, freq_mask,
                                                    random_resize_crop,
@@ -189,6 +192,30 @@ def draws_to(d: FinetuneDraws, device) -> FinetuneDraws:
                             for f in dataclasses.fields(d)})
 
 
+def local_draws(d: FinetuneDraws, batch: int) -> FinetuneDraws:
+    """This rank's rows of the draws ``d`` of a global batch of ``batch``
+    clips (``parallel.local_rows``): each clip's own draws, and of the
+    drop-path uniforms the sequences of its clips, clip-major as
+    ``get_intermediate_layers_chunks`` lays them out. The shift is the
+    global batch's."""
+    sl = local_rows(batch)
+    if sl == slice(0, batch):
+        return d
+
+    def rows(v):
+        if isinstance(v, tuple):
+            return tuple(rows(x) for x in v)
+        return None if v is None else v[sl]
+
+    out = dataclasses.replace(d, lam=rows(d.lam), keep=rows(d.keep),
+                              freq=rows(d.freq), time=rows(d.time),
+                              rrc=rows(d.rrc))
+    if d.dp is not None:
+        per = d.dp.shape[-1] // batch  # sequences a clip
+        out.dp = d.dp[..., sl.start * per:sl.stop * per]
+    return out
+
+
 def _f32(v: float) -> float:
     return float(np.float32(v))
 
@@ -263,10 +290,20 @@ class FinetuneTask:
                    draws: FinetuneDraws) -> Tuple[FinetuneState, dict]:
         """One step on ``batch`` (``wav`` [B, L], ``valid`` [B], ``label``
         [B] or [B, C]) with ``draws``; updates the state in place and
-        returns it with ``loss``, ``lr`` and ``gnorm``."""
+        returns it with ``loss``, ``lr`` and ``gnorm``.
+
+        Under a process group ``batch`` is this rank's rows of the global
+        batch (``parallel.shard_batch``) and ``draws`` the global batch's
+        (:func:`local_draws` takes the rank's): mixup's partners come
+        from every rank, the loss is the global mean, the gradients are
+        summed over ranks before the norm that clips them, and the head's
+        BatchNorm takes the global statistics, as one process computes
+        them."""
         cfg = self.cfg
         lr = _f32(self.lr_sched(state.step))  # JAX's schedule runs in f32
         wav, valid = self._batch(batch)
+        n_global = len(wav) * data_world().size
+        draws = local_draws(draws, n_global)
         y = torch.as_tensor(np.asarray(batch["label"]), device=self.device)
         with torch.no_grad():
             spec, frames = self._features(wav, valid)
@@ -291,10 +328,13 @@ class FinetuneTask:
                drop_path_multipliers(draws.dp, cfg.drop_path_rate))
         logits = self.head(self._encode(spec, frames, dps))
         if cfg.multi_label:  # optax's sigmoid BCE, summed over labels
-            loss = F.binary_cross_entropy_with_logits(
-                logits, y_soft, reduction="none").sum(-1).mean()
+            per_clip = F.binary_cross_entropy_with_logits(
+                logits, y_soft, reduction="none").sum(-1)
         else:
-            loss = -(y_soft * F.log_softmax(logits, -1)).sum(-1).mean()
+            per_clip = -(y_soft * F.log_softmax(logits, -1)).sum(-1)
+        # this rank's share of the global batch's mean
+        loss = per_clip.sum() / n_global if n_global != len(wav) else \
+            per_clip.mean()
         params = state.params
         grads = torch.autograd.grad(loss, list(params.values()),
                                     allow_unused=True)
@@ -303,11 +343,13 @@ class FinetuneTask:
             # mask_embed) has a zero gradient, as in JAX
             grads = [torch.zeros_like(p) if g is None else g
                      for p, g in zip(params.values(), grads)]
+            sum_tensors(grads)
             gnorm = torch.sqrt(sum((g * g).sum() for g in grads))
             scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-6), max=1.0)
             self._update(state, params, [g * scale for g in grads], lr)
+            loss = all_reduce_sum(loss.detach())
         state.step += 1
-        return state, {"loss": loss.detach(), "lr": lr, "gnorm": gnorm}
+        return state, {"loss": loss, "lr": lr, "gnorm": gnorm}
 
     def _update(self, state, params, grads, lr: float):
         """JAX's chain: ``optax.trace`` (trace = g + momentum * trace),
@@ -317,6 +359,12 @@ class FinetuneTask:
             if self.factors is not None:
                 u.mul_(self.factors[name])
             p.sub_(u * lr)
+
+    def eval_all(self, state: FinetuneState, batch) -> torch.Tensor:
+        """:meth:`eval_logits` of a batch every rank holds whole, the same
+        on every rank: each rank runs its rows and they are gathered
+        (``parallel.gather_rows``; eval is row-independent)."""
+        return gather_rows(lambda rows: self.eval_logits(state, rows), batch)
 
     @torch.no_grad()
     def eval_logits(self, state: FinetuneState, batch) -> torch.Tensor:

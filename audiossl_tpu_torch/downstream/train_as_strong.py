@@ -14,11 +14,15 @@ one, and the test scored as ``train_dcase`` scores it.
 ``train``, ``val`` and ``eval``, each with ``audio/`` and a ``meta.tsv``
 (filename, onset, offset, event_label); ``eval/durations.tsv`` is
 optional. The flags are JAX's, plus ``--device`` (default ``cuda``;
-without a card that raises).
+without a card that raises). ``--n_devices N`` runs N ranks as
+``train_dcase`` does: each steps on its rows of the global batch with
+every reduction global, evaluation is scored row by row over the ranks
+and gathered, and rank 0 alone prints, keeps states and writes.
 """
 from __future__ import annotations
 
 import argparse
+import functools
 import os
 from typing import Optional
 
@@ -35,6 +39,8 @@ from audiossl_tpu_torch.downstream.train_dcase import (
 from audiossl_tpu_torch.downstream.train_finetune import (host_modules,
                                                           load_modules)
 from audiossl_tpu_torch.kernels.build import resolve_device
+from audiossl_tpu_torch.parallel.launch import add_n_devices, print0, run_cli
+from audiossl_tpu_torch.parallel.mesh import world
 from audiossl_tpu_torch.sed.decode import decode_preds
 from audiossl_tpu_torch.sed.metrics import SEDMetrics
 from audiossl_tpu_torch.sed.module import SEDConfig, SEDTask
@@ -101,15 +107,24 @@ def build_parser():
     p.add_argument("--device", default="cuda",
                    help="device of the training and evaluation (raises "
                         "for cuda without a card)")
+    add_n_devices(p)
     return p
 
 
 def main(argv=None, record: Optional[dict] = None):
-    """Finetune with early stopping, test the best state; -> the result,
-    also printed and written to ``save_path/result.json``. ``record`` as
-    ``train_dcase.main``'s."""
-    args = build_parser().parse_args(argv)
+    """Finetune on ``--n_devices`` ranks with early stopping, test the
+    best state; -> the result, also printed and written to
+    ``save_path/result.json``, or None where the ranks were started here.
+    ``record`` as ``train_dcase.main``'s."""
+    return run_cli(functools.partial(train, record=record),
+                   build_parser().parse_args(argv))
+
+
+def train(args, record: Optional[dict] = None):
+    """One rank's run (or the only one) of :func:`main`."""
     dev = resolve_device(args.device)
+    if not world().is_main:
+        record = None
     info = get_dataset("as_strong")
     enc, net_pooling = build_encoder(args.arch, args.pretrained_ckpt_path,
                                      dev)
@@ -162,14 +177,14 @@ def main(argv=None, record: Optional[dict] = None):
         state, metrics = train_epoch(task, state, train_loader, gen, times)
         evals = [] if record is not None else None
         val_loss, f1 = evaluate_val_as_strong(
-            task.predict, state, eval_loader(val_ds), cfg.median_window,
+            task.predict_all, state, eval_loader(val_ds), cfg.median_window,
             evals)
         if record is not None:
             record["steps"].append(times)
             record["evals"].append(evals)
-        print(f"epoch {epoch}: val_loss={val_loss:.4f} "
-              f"intersection_f1={f1:.4f} "
-              f"loss={float(metrics['loss']):.4f}", flush=True)
+        print0(f"epoch {epoch}: val_loss={val_loss:.4f} "
+               f"intersection_f1={f1:.4f} "
+               f"loss={float(metrics['loss']):.4f}", flush=True)
         host = host_modules(state)
         if keeper is not None:
             keeper.update(val_loss, epoch, host)
@@ -178,16 +193,19 @@ def main(argv=None, record: Optional[dict] = None):
         else:
             since += 1
             if since >= args.patience:  # the reference's EarlyStopping
-                print(f"early stop at epoch {epoch}")
+                print0(f"early stop at epoch {epoch}")
                 break
 
+    if record is not None:
+        record["final"] = host_modules(state)
     gt, durations = read_ground_truth(os.path.join(args.data_path, "eval"))
     if keeper is not None:
         restored = keeper.restore_best()
         if restored is not None:
             best_state = restored
     load_modules(state, best_state)
-    result = evaluate_test(task, task.predict, state, eval_loader(test_ds),
+    result = evaluate_test(task, task.predict_all, state,
+                           eval_loader(test_ds),
                            encoder, cfg, gt, durations,
                            None if record is None else
                            record.setdefault("test", {}))

@@ -20,13 +20,22 @@ with ``audio/`` and a ``meta.tsv`` (``datasets/sed.py``);
 is ``train_freeze.load_encoder``'s (the f32 module route: K1 is the one
 kernel on the path) or one of the repository's own adapters
 (``comparison_models``); the TSVs are read without pandas. Each step's
-drop-path uniforms come from a seeded ``torch.Generator`` on the host. The
-run is on one device: JAX's multi-host bootstrap and data-parallel
-sharding are not ported.
+drop-path uniforms come from a seeded ``torch.Generator`` on the host.
+
+``--n_devices N`` (default: every visible card, 1 on the CPU; or
+torchrun's ``WORLD_SIZE``) runs N ranks (``parallel.launch.run_cli``), as
+JAX's ``downstream_spmd``: every rank reads the whole global batch (its
+WAV files too) and draws the same uniforms, steps on its rows (a batch
+whose rows do not divide runs whole on every rank) with every count, mean
+and gradient global, scores its rows of each evaluation batch and
+receives all of them (``SEDTask.predict_all``), so the decoding and the
+metrics are the same on every rank; rank 0 alone prints, keeps states and
+writes ``result.json``.
 """
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import math
 import os
@@ -47,6 +56,8 @@ from audiossl_tpu_torch.downstream.train_finetune import (host_modules,
 from audiossl_tpu_torch.downstream.train_freeze import load_encoder
 from audiossl_tpu_torch.kernels.build import resolve_device
 from audiossl_tpu_torch.models.atst import AudioTransformer
+from audiossl_tpu_torch.parallel.launch import add_n_devices, print0, run_cli
+from audiossl_tpu_torch.parallel.mesh import batch_rows, world
 from audiossl_tpu_torch.sed.decode import batched_decode_preds, decode_preds
 from audiossl_tpu_torch.sed.head import SEDHead
 from audiossl_tpu_torch.sed.metrics import SEDMetrics, WeakF1Accumulator
@@ -215,6 +226,7 @@ def build_parser():
     p.add_argument("--device", default="cuda",
                    help="device of the training and evaluation (raises "
                         "for cuda without a card)")
+    add_n_devices(p)
     return p
 
 
@@ -253,36 +265,51 @@ def build_sed_teacher(sed_ckpt: str, arch: str, pretrained_ckpt: str,
 
 
 def train_epoch(task, state, loader, gen, times: Optional[list]):
-    """One epoch of steps; -> (state, the last step's metrics). With
-    ``times``, each step waits for its loss and appends its (clips,
-    seconds, loading seconds) (:func:`timed`)."""
+    """One epoch of steps, each on this rank's rows of the loader's global
+    batch (``parallel.batch_rows``) with the global batch's draws; ->
+    (state, the last step's metrics). With ``times``, each step waits for
+    its loss and appends its (clips, seconds, loading seconds)
+    (:func:`timed`)."""
     metrics = {}
     for batch in timed(loader, times):
-        state, metrics = task.train_step(
-            state, batch, task.draw(gen, len(batch["wav"])))
+        dp = task.draw(gen, len(batch["wav"]))
+        with batch_rows(batch) as rows:
+            state, metrics = task.train_step(state, rows, dp)
         if times is not None:
             float(metrics["loss"])  # waits for the device
     return state, metrics
 
 
 def write_result(save_path: Optional[str], result: dict) -> None:
-    print(json.dumps(result))
-    if save_path:
+    """Print ``result`` and write it to ``save_path/result.json``, on rank
+    0 alone."""
+    print0(json.dumps(result))
+    if save_path and world().is_main:
         os.makedirs(save_path, exist_ok=True)
         with open(os.path.join(save_path, "result.json"), "w") as f:
             json.dump(result, f)
 
 
 def main(argv=None, record: Optional[dict] = None):
-    """Finetune, validate every epoch, test the best state; -> the result
-    (psds1, psds2, event_f1), also printed and written to
-    ``save_path/result.json``. ``record``, when given, receives ``steps``
+    """Finetune on ``--n_devices`` ranks (``parallel.launch.run_cli``),
+    validate every epoch, test the best state; -> the result (psds1,
+    psds2, event_f1), also printed and written to
+    ``save_path/result.json``, or None where the ranks were started here.
+    ``record``, when given (rank 0's), receives ``steps``
     (per epoch, each step's (clips, seconds to its loss on the host, the
     batch's loading in them): only then does each step wait for the
     device), ``evals`` (per validation, each batch's (clips, seconds,
-    loading seconds)) and ``test`` (:func:`evaluate_test`'s record)."""
-    args = build_parser().parse_args(argv)
+    loading seconds)), ``final`` (the trained modules after the last
+    epoch, on the host) and ``test`` (:func:`evaluate_test`'s record)."""
+    return run_cli(functools.partial(train, record=record),
+                   build_parser().parse_args(argv))
+
+
+def train(args, record: Optional[dict] = None):
+    """One rank's run (or the only one) of :func:`main`."""
     dev = resolve_device(args.device)
+    if not world().is_main:
+        record = None
     info = get_dataset("dcase")
     enc, net_pooling = build_encoder(args.arch, args.pretrained_ckpt_path,
                                      dev)
@@ -331,7 +358,7 @@ def main(argv=None, record: Optional[dict] = None):
         times = [] if record is not None else None
         state, metrics = train_epoch(task, state, train_loader, gen, times)
         evals = [] if record is not None else None
-        f1, weak_f1 = evaluate_val(task, task.predict, state,
+        f1, weak_f1 = evaluate_val(task, task.predict_all, state,
                                    eval_loader(synth_val),
                                    eval_loader(weak_val), cfg.median_window,
                                    evals)
@@ -339,9 +366,9 @@ def main(argv=None, record: Optional[dict] = None):
             record["steps"].append(times)
             record["evals"].append(evals)
         obj = f1 + weak_f1
-        print(f"epoch {epoch}: intersection_f1={f1:.4f} weak_F1="
-              f"{weak_f1:.4f} loss={float(metrics['loss']):.4f}",
-              flush=True)
+        print0(f"epoch {epoch}: intersection_f1={f1:.4f} weak_F1="
+               f"{weak_f1:.4f} loss={float(metrics['loss']):.4f}",
+               flush=True)
         if obj > best_obj or keeper is not None:
             host = host_modules(state)
         if obj > best_obj:
@@ -349,6 +376,8 @@ def main(argv=None, record: Optional[dict] = None):
         if keeper is not None:
             keeper.update(obj, epoch, host)
 
+    if record is not None:
+        record["final"] = host_modules(state)
     # the test: PSDS needs the ground-truth events and the durations
     gt, durations = read_ground_truth(
         os.path.join(args.data_path, "strong_val"))
@@ -359,7 +388,8 @@ def main(argv=None, record: Optional[dict] = None):
         if restored is not None:
             best_state = restored
     load_modules(state, best_state)
-    result = evaluate_test(task, task.predict, state, eval_loader(test_ds),
+    result = evaluate_test(task, task.predict_all, state,
+                           eval_loader(test_ds),
                            encoder, cfg, gt, durations,
                            None if record is None else
                            record.setdefault("test", {}))

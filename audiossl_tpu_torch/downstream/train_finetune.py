@@ -19,10 +19,20 @@ states by the validation metric are kept on disk under ``save_path`` (10
 for AudioSet, else 1), and the test split runs on the best one. Mixup's
 Beta weights come from a seeded ``numpy`` generator, every other draw from
 a seeded ``torch.Generator`` on the host.
+
+``--n_devices N`` (default: every visible card, 1 on the CPU; or
+torchrun's ``WORLD_SIZE``) runs N ranks (``parallel.launch.run_cli``), as
+JAX's ``downstream_spmd``: every rank loads the whole global batch of
+``--batch_size`` (the learning rate is not scaled by N) with the same
+draws, steps on its rows of it (a batch whose rows do not divide runs
+whole on every rank, ``parallel.batch_rows``) with every reduction global,
+evaluates its rows of each evaluation batch and receives all of them;
+rank 0 alone prints, keeps states and writes ``result.json``.
 """
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import time
@@ -39,6 +49,8 @@ from audiossl_tpu_torch.downstream.finetune import (FinetuneConfig,
 from audiossl_tpu_torch.downstream.metrics import Metric
 from audiossl_tpu_torch.downstream.train_freeze import load_encoder
 from audiossl_tpu_torch.kernels.build import resolve_device
+from audiossl_tpu_torch.parallel.launch import add_n_devices, print0, run_cli
+from audiossl_tpu_torch.parallel.mesh import batch_rows, world
 
 SEED = 0  # the head's weight and the step's draws
 
@@ -81,6 +93,7 @@ def build_parser():
     p.add_argument("--device", default="cuda",
                    help="device of the training and evaluation (raises "
                         "for cuda without a card)")
+    add_n_devices(p)
     return p
 
 
@@ -128,16 +141,25 @@ def build_task(args, info, enc, steps_per_epoch: int) -> FinetuneTask:
 
 
 def main(argv=None, record: Optional[dict] = None):
-    """Finetune, validate every epoch, test the best state; -> the result
-    dict (dataset, val, test) also printed and written to
-    ``save_path/result.json``. The loss is read on the host once an epoch,
-    as JAX reads it. ``record``, when given, receives ``steps`` (per
-    epoch, each step's (clips, seconds to its loss on the host): only then
-    does each step wait for the device), ``evals`` (per evaluation, its
-    split and (clips, seconds) per batch, loading included) and
-    ``test``."""
-    args = build_parser().parse_args(argv)
+    """Finetune on ``--n_devices`` ranks (``parallel.launch.run_cli``),
+    validate every epoch, test the best state; -> the result dict
+    (dataset, val, test) also printed and written to
+    ``save_path/result.json``, or None where the ranks were started here.
+    The loss is read on the host once an epoch, as JAX reads it.
+    ``record``, when given (rank 0's), receives ``steps`` (per epoch, each
+    step's (clips, seconds to its loss on the host): only then does each
+    step wait for the device), ``evals`` (per evaluation, its split and
+    (clips, seconds) per batch, loading included), ``final`` (the trained
+    modules after the last epoch, on the host) and ``test``."""
+    return run_cli(functools.partial(train, record=record),
+                   build_parser().parse_args(argv))
+
+
+def train(args, record: Optional[dict] = None):
+    """One rank's run (or the only one) of :func:`main`."""
     dev = resolve_device(args.device)
+    if not world().is_main:
+        record = None
     info = get_dataset(args.dataset_name)
     enc = load_encoder(args.pretrained_ckpt_path, args.model_type,
                        args.arch, which=args.use_encoder, device=dev)
@@ -172,7 +194,7 @@ def main(argv=None, record: Optional[dict] = None):
         timings = []
         t0 = time.perf_counter()
         for batch in make_loader(split, False):
-            logits = task.eval_logits(state, batch).cpu().numpy()
+            logits = task.eval_all(state, batch).cpu().numpy()
             if info.multi_label:
                 logits = 1.0 / (1.0 + np.exp(-logits))
             m.update(logits, batch["label"])
@@ -200,7 +222,8 @@ def main(argv=None, record: Optional[dict] = None):
             B, L = np.shape(batch["wav"])
             draws = draw_finetune(task.cfg, B, task.rows(B, L), enc.depth,
                                   gen, rng, dev)
-            state, metrics = task.train_step(state, batch, draws)
+            with batch_rows(batch) as rows:
+                state, metrics = task.train_step(state, rows, draws)
             loss = metrics["loss"]
             if record is not None:
                 float(loss)  # waits for the device
@@ -210,8 +233,8 @@ def main(argv=None, record: Optional[dict] = None):
         if record is not None:
             record["steps"].append(times)
         v = eval_split("valid")
-        print(f"epoch {epoch}: val={v:.4f} loss={float(loss):.4f}",
-              flush=True)
+        print0(f"epoch {epoch}: val={v:.4f} loss={float(loss):.4f}",
+               flush=True)
         if v > best_val or keeper is not None:
             host = host_modules(state)
         if v > best_val:
@@ -219,6 +242,8 @@ def main(argv=None, record: Optional[dict] = None):
         if keeper is not None:
             keeper.update(v, epoch, host)
 
+    if record is not None:
+        record["final"] = host_modules(state)
     if keeper is not None:
         restored = keeper.restore_best()
         if restored is not None:
@@ -228,8 +253,8 @@ def main(argv=None, record: Optional[dict] = None):
     result = {"dataset": args.dataset_name, "val": best_val, "test": test}
     if record is not None:
         record["test"] = test
-    print(json.dumps(result))
-    if args.save_path:
+    print0(json.dumps(result))
+    if args.save_path and world().is_main:
         os.makedirs(args.save_path, exist_ok=True)
         with open(os.path.join(args.save_path, "result.json"), "w") as f:
             json.dump(result, f)

@@ -16,12 +16,21 @@ The flags are JAX's, plus ``--device`` (default ``cuda``; without a card
 that raises, it never falls back to the CPU). Extraction and the probe run
 on that device, one batch at a time; the encoder is the plain f32 one (the
 module route), as JAX's driver builds it, so the mel kernel K1 is the one
-kernel on the path. Only reference ``.ckpt`` files load: an orbax
+kernel on the path. Reference ``.ckpt`` files load, and the port's own
+pretraining checkpoints (a ``state.pt`` or its step directory); an orbax
 directory needs JAX to read, and the port imports none of it.
+
+``--n_devices N`` (default: every visible card, 1 on the CPU; or
+torchrun's ``WORLD_SIZE``) runs N ranks (``parallel.launch.run_cli``):
+each extracts its rows of every batch (a ragged batch padded), the
+embeddings are gathered on every rank, every rank trains the same probe
+on them, and rank 0 alone writes ``result.json`` and the keepers (JAX's
+driver writes from every process).
 """
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import time
@@ -33,6 +42,7 @@ import torch
 from audiossl_tpu_torch.compat.checkpoint import (
     load_encoder_state,
     load_pretrain_checkpoint,
+    port_state_path,
 )
 from audiossl_tpu_torch.datasets import get_dataset
 from audiossl_tpu_torch.datasets.pipeline import BatchLoader
@@ -54,6 +64,8 @@ from audiossl_tpu_torch.models.atst import (
     frame_ast_small,
     frame_ast_tiny,
 )
+from audiossl_tpu_torch.parallel.launch import add_n_devices, print0, run_cli
+from audiossl_tpu_torch.parallel.mesh import replicated, world
 
 _MAKERS = {
     ("clip", "tiny"): ast_tiny, ("clip", "small"): ast_small,
@@ -67,18 +79,36 @@ def load_encoder(ckpt_path: str, model_type: str, arch: str,
                  spec_w: int = 1001, which: str = "teacher", device="cuda"):
     """-> the frozen f32 encoder (eval mode) on ``device`` with the
     ``which`` encoder of a reference ``.ckpt`` (either patch-embed layout;
-    ``compat.checkpoint.encoder_state_from_torch``). Any other path raises
-    ``NotImplementedError``: JAX reads orbax directories through orbax and
-    tensorstore, which the port does not use."""
+    ``compat.checkpoint.encoder_state_from_torch``) or of one of the
+    port's pretraining checkpoints (a ``state.pt`` or its step directory,
+    loaded as it is, into an encoder with as many position embeddings as
+    it holds, which the pretraining ``--anchor_len`` set; its arch, read
+    off its shapes, must be ``model_type`` and ``arch``). Any other path
+    raises ``NotImplementedError``: JAX reads orbax directories through
+    orbax and tensorstore, which the port does not use."""
     device = resolve_device(device)
-    if not ckpt_path.endswith(".ckpt"):
+    if not (ckpt_path.endswith(".ckpt") or port_state_path(ckpt_path)):
         raise NotImplementedError(
-            "only reference .ckpt files load; orbax directories need JAX "
-            "to read, which the port does not import")
+            "only reference .ckpt files and the port's state.pt "
+            "checkpoints load; orbax directories need JAX to read, which "
+            "the port does not import")
+    sd, hparams = load_pretrain_checkpoint(ckpt_path, which=which)
+    layout = hparams.get("layout", "reference")
+    if layout == "port" and (hparams["model_type"], hparams["arch"]) != (
+            model_type, arch):
+        raise ValueError(
+            f"{ckpt_path} holds a {hparams['model_type']} {hparams['arch']} "
+            f"encoder, not the {model_type} {arch} asked for")
     # built on the meta device: the checkpoint's tensors are its weights
     enc = _MAKERS[(model_type, arch)](spec_w=spec_w, device="meta")
-    sd, _ = load_pretrain_checkpoint(ckpt_path, which=which)
-    load_encoder_state(enc, sd, assign=True)
+    if layout == "port" and sd["pos_embed"].shape != enc.pos_embed.shape:
+        # the position embeddings of the pretraining crop (the port's CLIs
+        # size them by --anchor_len): an encoder of that length
+        rows = enc.spec_h // enc.patch_h
+        cols = (sd["pos_embed"].shape[1] - 1) // rows
+        enc = _MAKERS[(model_type, arch)](spec_w=cols * enc.patch_w + 1,
+                                          device="meta")
+    load_encoder_state(enc, sd, assign=True, layout=layout)
     enc.requires_grad_(False)
     # the checkpoint's dtype came with assign=True: cast, as load_model does
     return enc.to(device, torch.float32).eval()
@@ -88,8 +118,8 @@ def run_fold(extract, info, args, fold: int,
              record: Optional[dict] = None):
     """Extract the three splits of one fold, train the probe; -> (val,
     test). ``record``, when given, receives under ``fold`` each split's
-    (embeddings, labels), its per-batch extraction (clips, seconds) and
-    the probe's seconds."""
+    (embeddings, labels), its per-batch extraction (clips, seconds), the
+    probe's seconds and its best head's state dict (``state``)."""
     def loader(split):
         kw = dict(fold=fold) if info.num_folds > 1 else {}
         ds = info.creator(args.data_path, split=split, **kw)
@@ -118,11 +148,15 @@ def run_fold(extract, info, args, fold: int,
 
         keeper = TopKKeeper(os.path.join(args.save_path, f"fold{fold}"))
     t0 = time.perf_counter()
-    res = train_linear_probe(train_e, train_y, val_e, val_y, test_e, test_y,
-                             cfg, keeper=keeper, device=args.device)
+    with replicated():  # every rank trains the same probe, as one process
+        res = train_linear_probe(train_e, train_y, val_e, val_y, test_e,
+                                 test_y, cfg, keeper=keeper,
+                                 device=args.device)
     if record is not None:
         record[fold] = {"embeddings": cache, "timings": timings,
-                        "probe_s": time.perf_counter() - t0}
+                        "probe_s": time.perf_counter() - t0,
+                        "state": {k: v.cpu() for k, v in
+                                  res["state"].items()}}
     return res["val_metric"], res["test_metric"]
 
 
@@ -149,15 +183,25 @@ def build_parser():
     p.add_argument("--device", default="cuda",
                    help="device of the extraction and the probe (raises "
                         "for cuda without a card)")
+    add_n_devices(p)
     return p
 
 
 def main(argv=None, record: Optional[dict] = None):
-    """Run the probe; -> the result dict also printed and written to
-    ``save_path/result.json`` (dataset, metric, val, test, folds).
-    ``record``: see :func:`run_fold`."""
-    args = build_parser().parse_args(argv)
+    """Run the probe on ``--n_devices`` ranks (``parallel.launch.run_cli``);
+    -> the result dict also printed and written to
+    ``save_path/result.json`` (dataset, metric, val, test, folds), or
+    None where the ranks were started here. ``record`` (rank 0's): see
+    :func:`run_fold`."""
+    return run_cli(functools.partial(train, record=record),
+                   build_parser().parse_args(argv))
+
+
+def train(args, record: Optional[dict] = None):
+    """One rank's run (or the only one) of :func:`main`."""
     resolve_device(args.device)
+    if not world().is_main:
+        record = None
     info = get_dataset(args.dataset_name)
     spec_w = int(args.chunk_len_s * 16000) // 160 + 1 \
         if args.model_type == "frame" else 1001
@@ -177,7 +221,7 @@ def main(argv=None, record: Optional[dict] = None):
         v, t = run_fold(extract, info, args, fold, record)
         vals.append(v)
         tests.append(t)
-        print(f"fold {fold}: val={v:.4f} test={t:.4f}", flush=True)
+        print0(f"fold {fold}: val={v:.4f} test={t:.4f}", flush=True)
     result = {
         "dataset": args.dataset_name,
         "metric": "mAP" if info.multi_label else "ACC",
@@ -185,8 +229,8 @@ def main(argv=None, record: Optional[dict] = None):
         "test": float(np.mean(tests)),
         "folds": len(vals),
     }
-    print(json.dumps(result))
-    if args.save_path:
+    print0(json.dumps(result))
+    if args.save_path and world().is_main:
         os.makedirs(args.save_path, exist_ok=True)
         with open(os.path.join(args.save_path, "result.json"), "w") as f:
             json.dump(result, f)

@@ -1,8 +1,9 @@
 """Public embedding API (PyTorch port of ``audiossl_tpu/embedding.py``).
 
 * ``load_model(ckpt_path, arch, which, fused, device)`` loads ATST-Frame
-  weights from a reference Lightning ``.ckpt`` and returns a ready
-  ``EmbeddingModel``;
+  weights from a reference Lightning ``.ckpt`` or from the port's own
+  pretraining checkpoint (a ``state.pt`` or its step directory) and
+  returns a ready ``EmbeddingModel``;
 * ``get_scene_embedding(audio, model)`` gives one embedding per clip:
   chunk into 1001-frame windows, encode, average over chunks
   -> [B, n_blocks*embed_dim];
@@ -25,6 +26,7 @@ import torch
 from audiossl_tpu_torch.compat.checkpoint import (
     load_encoder_state,
     load_pretrain_checkpoint,
+    port_state_path,
 )
 from audiossl_tpu_torch.kernels.build import resolve_device
 from audiossl_tpu_torch.models.atst import (
@@ -70,11 +72,15 @@ def load_model(ckpt_path: str, arch: Optional[str] = None,
     Lightning checkpoint (.ckpt) onto ``device`` (the card unless the
     caller asks for the CPU; without a card that raises). Either
     patch-embed layout loads, and keys the encoder does not read are
-    ignored (``compat.checkpoint.encoder_state_from_torch``).
+    ignored (``compat.checkpoint.encoder_state_from_torch``). A port
+    pretraining checkpoint (``<save>/ckpt/<step>/state.pt`` of the frame
+    CLI, or that step directory) loads ``which`` branch's encoder as it
+    is, every tensor of it.
 
-    ``arch`` defaults to the checkpoint's ``hyper_parameters["arch"]``,
-    else "base". ``fused=True`` builds the encoder JAX's
-    ``load_model(fused=True)`` builds: it computes in bf16 from the patch
+    ``arch`` defaults to the checkpoint's ``hyper_parameters["arch"]``
+    (for a port checkpoint, the tier its shapes have), else "base".
+    ``fused=True`` builds the encoder JAX's ``load_model(fused=True)``
+    builds: it computes in bf16 from the patch
     projection on, holds the block matmul weights in bf16, runs the blocks
     through the inference block kernels and normalizes with
     ``LayerNormPG`` in bf16, rounding where JAX rounds; the embeddings
@@ -91,15 +97,29 @@ def load_model(ckpt_path: str, arch: Optional[str] = None,
     if quant != "none" and not fused:
         raise ValueError("quant requires fused=True (the quantized "
                          "products live in the fused block kernels)")
-    if not ckpt_path.endswith(".ckpt"):
-        raise NotImplementedError("only reference .ckpt files load; orbax "
+    if not (ckpt_path.endswith(".ckpt") or port_state_path(ckpt_path)):
+        raise NotImplementedError("only reference .ckpt files and the "
+                                  "port's state.pt checkpoints load; orbax "
                                   "directories are not ported yet")
     sd, hparams = load_pretrain_checkpoint(ckpt_path, which=which)
+    layout = hparams.get("layout", "reference")
+    if layout == "port":
+        found = (hparams["model_type"], hparams["arch"])
+        if found != ("frame", arch or found[1]):
+            raise ValueError(f"{ckpt_path} holds a {' '.join(found)} "
+                             "encoder, not an ATST-Frame "
+                             f"{arch or found[1]} one")
     arch = arch or hparams.get("arch", "base")
     enc = _ARCHS[arch](spec_w=CHUNK_FRAMES, fused=fused, device=device,
                        dtype=torch.bfloat16 if fused else torch.float32,
                        infer_quant=quant)
-    load_encoder_state(enc, sd)
+    if layout == "port" and sd["pos_embed"].shape != enc.pos_embed.shape:
+        raise ValueError(
+            f"{ckpt_path} holds {sd['pos_embed'].shape[1] - 1} position "
+            f"embeddings; serving encodes chunks of {CHUNK_FRAMES} frames, "
+            f"{enc.pos_embed.shape[1] - 1} patches (pretrain with "
+            "--anchor_len 10)")
+    load_encoder_state(enc, sd, layout=layout)
     enc.requires_grad_(False)
     return EmbeddingModel(encoder=enc.eval())
 

@@ -14,6 +14,8 @@ those of the global batch, as under the JAX package's data mesh: the
 count and sum, then the centred sum of squares, each summed over ranks
 by ``parallel.all_reduce_sum`` (whose backward is the global one), so
 every rank normalizes alike and updates the same running statistics.
+Under ``parallel.replicated`` (a batch every rank runs whole) they are
+the rank's own, as one process takes them.
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from audiossl_tpu_torch.parallel.mesh import all_reduce_sum, world
+from audiossl_tpu_torch.parallel.mesh import all_reduce_sum, data_world
 
 
 class BatchNorm1d(nn.Module):
@@ -50,7 +52,7 @@ class BatchNorm1d(nn.Module):
             mean, var = self.running_mean, self.running_var
         else:
             axes = tuple(range(x.ndim - 1))
-            if world().size > 1:
+            if data_world().size > 1:
                 n, mean, var = _global_stats(xf, mask, axes)
             elif mask is None:
                 n = torch.tensor(float(xf[..., 0].numel()), device=x.device)

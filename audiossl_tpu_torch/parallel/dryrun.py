@@ -1,4 +1,4 @@
-"""The data-parallel dry run: checks 1-3 of the JAX package's
+"""The data-parallel dry run: the five checks of the JAX package's
 ``dryrun_multichip`` (``__graft_entry__.py:65``) on n ranks, at its tiny
 shapes (frame encoder of width 128, 3 blocks, 4 heads, heads 256 -> 64,
 1 s anchors; clip-tiny with 0.5 s crops; 2 clips a rank, f32):
@@ -8,7 +8,14 @@ shapes (frame encoder of width 128, 3 blocks, 4 heads, heads 256 -> 64,
 2. the same step from the same state under ZeRO-1: the parameters
    bit-equal to the replicated step's, each rank holding the moments of
    its own leaves only (every leaf owned once);
-3. one ATST-Clip step: a finite loss, the parameters equal on every rank.
+3. one ATST-Clip step: a finite loss, the parameters equal on every rank;
+4. one downstream finetuning step (the drivers' path: each rank on its
+   rows of the global batch): clip-tiny, 0.5 s crops, 5 labels, the last
+   2 blocks, no mixup, SpecAugment or RandomResizeCrop; a finite loss and
+   the encoder, head and momentum trace equal on every rank, bit for bit;
+5. one DCASE SED step on check 1's tiny frame encoder, 10 labels, 1 s
+   clips, the rows alternately strong and weak: a finite loss and the
+   parameters equal on every rank.
 
     python -m audiossl_tpu_torch.parallel.dryrun --n_devices 2 --device cpu
 
@@ -28,7 +35,7 @@ from audiossl_tpu_torch.methods.atstframe.method import (FrameMethod,
 from audiossl_tpu_torch.models.atst import AudioTransformer
 from audiossl_tpu_torch.parallel.launch import run_cli
 from audiossl_tpu_torch.parallel.mesh import (all_gather_rows, local_rows,
-                                              world)
+                                              shard_batch, world)
 from audiossl_tpu_torch.training.pretrain import (Branch, OptimizerConfig,
                                                   shard_optimizer)
 
@@ -59,18 +66,23 @@ def frame_method(device) -> FrameMethod:
     return method
 
 
-def local_batch(samples: int, device, seed: int) -> dict:
-    """This rank's rows of a seeded global batch of noise (every fourth
-    clip three quarters valid)."""
+def host_batch(samples: int, seed: int) -> dict:
+    """A seeded global batch of noise on the host, ``PER_RANK`` clips a
+    rank (every fourth clip three quarters valid)."""
     n = PER_RANK * world().size
     rng = np.random.RandomState(seed)
     wav = (rng.randn(n, samples) * 0.1).astype(np.float32)
     valid = np.full(n, samples, np.int32)
     valid[1::4] = samples * 3 // 4
     wav[1::4, samples * 3 // 4:] = 0.0
-    sl = local_rows(n)
-    return {"wav": torch.from_numpy(wav[sl]).to(device),
-            "valid": torch.from_numpy(valid[sl]).to(device)}
+    return {"wav": wav, "valid": valid}
+
+
+def local_batch(samples: int, device, seed: int) -> dict:
+    """This rank's rows of :func:`host_batch` on ``device``."""
+    sl = local_rows(PER_RANK * world().size)
+    return {k: torch.from_numpy(v[sl]).to(device)
+            for k, v in host_batch(samples, seed).items()}
 
 
 def check(ok: bool, what: str) -> None:
@@ -88,7 +100,7 @@ def same_on_every_rank(x: torch.Tensor) -> bool:
 
 
 def checks(args) -> None:
-    """Checks 1-3 on this rank; raises on a failure."""
+    """Checks 1-5 on this rank; raises on a failure."""
     w = world()
     say = print if w.is_main else (lambda *a, **k: None)
     method = frame_method(args.device)
@@ -100,7 +112,7 @@ def checks(args) -> None:
           f"frame step: loss {loss}, step {state.step}")
     params = flat_params(state)
     check(same_on_every_rank(params), "frame parameters equal on every rank")
-    say(f"dryrun [1/3] frame step ok: {w.size} rank(s), loss {loss}",
+    say(f"dryrun [1/5] frame step ok: {w.size} rank(s), loss {loss}",
         flush=True)
 
     zmethod = frame_method(args.device)
@@ -114,7 +126,7 @@ def checks(args) -> None:
     counts = all_gather_rows(owned)
     check(int(counts.sum()) == len(zstate.params),
           f"every leaf's moments on one rank: {counts.tolist()}")
-    say(f"dryrun [2/3] ZeRO-1 step ok: parameters bit-equal to the "
+    say(f"dryrun [2/5] ZeRO-1 step ok: parameters bit-equal to the "
         f"replicated step's, moment leaves by rank "
         f"{[int(c) for c in counts.tolist()]} of {len(zstate.params)}",
         flush=True)
@@ -130,7 +142,68 @@ def checks(args) -> None:
           f"clip step: loss {closs}, step {cstate.step}")
     check(same_on_every_rank(flat_params(cstate)),
           "clip parameters equal on every rank")
-    say(f"dryrun [3/3] clip step ok: loss {closs}", flush=True)
+    say(f"dryrun [3/5] clip step ok: loss {closs}", flush=True)
+
+    floss, fparams = finetune_check(args.device)
+    check(np.isfinite(floss), f"finetune step: loss {floss}")
+    check(same_on_every_rank(fparams),
+          "finetune parameters and momentum equal on every rank")
+    say(f"dryrun [4/5] downstream finetune step ok: loss {floss}",
+        flush=True)
+
+    sloss, sparams = sed_check(method.student.encoder, args.device)
+    check(np.isfinite(sloss), f"SED step: loss {sloss}")
+    check(same_on_every_rank(sparams), "SED parameters equal on every rank")
+    say(f"dryrun [5/5] SED finetune step ok: loss {sloss}", flush=True)
+
+
+def finetune_check(device):
+    """Check 4's step on this rank's rows: -> (loss, the encoder, head
+    and momentum trace flattened)."""
+    from audiossl_tpu_torch.downstream.finetune import (FinetuneConfig,
+                                                        FinetuneTask,
+                                                        draw_finetune)
+    from audiossl_tpu_torch.models.atst import ast_tiny
+
+    enc = ast_tiny(spec_w=1001, device=device,
+                   generator=torch.Generator().manual_seed(2))
+    cfg = FinetuneConfig(learning_rate=1e-2, max_epochs=1, steps_per_epoch=4,
+                         num_labels=5, n_blocks=2, crop_len_s=0.5,
+                         mixup=False, specaug=False, rrc=False)
+    task = FinetuneTask(enc, cfg, enc.embed_dim * 2 * 2)
+    state = task.init_state()
+    n = PER_RANK * world().size
+    batch = host_batch(8000, 3)
+    batch["label"] = np.arange(n, dtype=np.int64) % cfg.num_labels
+    draws = draw_finetune(cfg, n, task.rows(n, 8000), enc.depth,
+                          torch.Generator().manual_seed(4),
+                          np.random.default_rng(4), task.device)
+    _, out = task.train_step(state, shard_batch(batch), draws)
+    flat = torch.cat([p.detach().reshape(-1) for p in
+                      (*state.params.values(), *state.mu.values(),
+                       *state.head.buffers())])
+    return float(out["loss"]), flat
+
+
+def sed_check(encoder, device):
+    """Check 5's step on this rank's rows (check 1's student encoder, 10
+    labels, 1 s clips, rows alternately strong and weak): -> (loss, the
+    parameters flattened)."""
+    from audiossl_tpu_torch.sed.module import SEDConfig, SEDTask
+
+    task = SEDTask(encoder, SEDConfig(num_labels=10, max_epochs=1,
+                                      steps_per_epoch=4, warmup_epochs=0))
+    state = task.init_state()
+    n = PER_RANK * world().size
+    batch = host_batch(16000, 5)
+    tokens = task.adapter.token_count(16000)
+    rng = np.random.RandomState(6)
+    batch["strong"] = (rng.rand(n, tokens, 10) > 0.8).astype(np.float32)
+    batch["source"] = np.arange(n, dtype=np.int32) % 2
+    dp = task.draw(torch.Generator().manual_seed(7), n)
+    _, out = task.train_step(state, shard_batch(batch), dp)
+    return float(out["loss"]), torch.cat(
+        [p.detach().reshape(-1) for p in state.params.values()])
 
 
 def main(argv=None):

@@ -106,7 +106,12 @@ def run_cli(train: Callable, args):
             dist.destroy_process_group()
     n = args.n_devices or default_ranks(args.device)
     args.n_devices = n
-    if n == 1 or dist.is_initialized():
+    if dist.is_initialized():
+        if n != mesh.world().size:
+            raise ValueError(f"--n_devices {n} in a group of "
+                             f"{mesh.world().size} ranks")
+        return train(args)
+    if n == 1:
         return train(args)
     if torch.device(args.device).type == "cuda":
         from audiossl_tpu_torch.kernels import build as kb
@@ -118,6 +123,21 @@ def run_cli(train: Callable, args):
         kb.library()  # built once, before the ranks load it
     spawn(_cli_rank, n, (train, args), device=args.device)
     return None
+
+
+def add_n_devices(parser) -> None:
+    """The CLIs' ``--n_devices`` flag (:func:`run_cli` reads it)."""
+    parser.add_argument(
+        "--n_devices", type=int, default=None,
+        help="data-parallel ranks, one a card (default: every visible "
+             "card, or the launcher's WORLD_SIZE; 1 for --device cpu); "
+             "without torchrun the CLI starts them")
+
+
+def print0(*args, **kw) -> None:
+    """``print`` on rank 0 alone."""
+    if mesh.world().is_main:
+        print(*args, **kw)
 
 
 def _cli_rank(train: Callable, args) -> None:

@@ -1,5 +1,5 @@
-"""Data parallelism over ``torch.distributed`` (PyTorch port of the
-pretraining half of ``audiossl_tpu/parallel/mesh.py``).
+"""Data parallelism over ``torch.distributed`` (PyTorch port of
+``audiossl_tpu/parallel/mesh.py``).
 
 The JAX package runs one SPMD program over a device mesh: the batch is
 sharded over the ``data`` axis, parameters and optimizer state are
@@ -12,9 +12,20 @@ default process group:
 * ``all_reduce_sum``: a sum over ranks whose backward is the sum of the
   gradients over ranks (BatchNorm statistics, masked loss counts);
 * ``all_gather_rows``: the global batch of an input (mixup's partners);
-* ``reduce_grads``: the gradients summed over ranks, in flat buckets;
+* ``reduce_grads`` / ``sum_tensors``: the gradients summed over ranks,
+  in flat buckets;
 * ``partition_leaves`` / ``broadcast_groups``: ZeRO-1's owners and the
   owners' updated leaves sent to every rank.
+
+The downstream drivers (JAX's ``downstream_spmd``, ``maybe_shard_batch``)
+keep every rank's loader on the whole global batch and take their rows of
+it: ``shard_batch`` gives a rank its contiguous rows of a host batch, or
+the whole batch with the group's reductions off (``replicated``) where
+the rows do not divide over the ranks, so that the step equals one
+process's; ``gather_rows`` runs a row-independent function (evaluation,
+extraction) on a rank's rows of a padded batch and returns every row to
+every rank; ``broadcast_object`` sends rank 0's value (a restored state)
+to the others.
 
 They use only ``all_reduce``, ``broadcast`` and list ``all_gather``, which
 gloo supports on CUDA tensors as NCCL does, so two gloo ranks on one card
@@ -23,10 +34,11 @@ process) every helper is the identity and issues no collective.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import datetime
 import os
-from typing import Iterator, List, Optional, Sequence
+from typing import Any, Callable, Iterator, List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -56,13 +68,36 @@ def world() -> World:
     return World()
 
 
+_replicated = False  # inside ``replicated()``
+
+
+def data_world() -> World:
+    """The ranks a batch is split over: :func:`world`, or one rank inside
+    :func:`replicated`. The reductions over the batch follow it."""
+    return World() if _replicated else world()
+
+
+@contextlib.contextmanager
+def replicated():
+    """Run the body on every rank's whole batch as one process runs it:
+    the batch's rows and reductions (``local_rows``, ``all_reduce_sum``,
+    ``all_gather_rows``, ``reduce_grads``, the global BatchNorm) are this
+    rank's alone (JAX's replicated inputs under jit-SPMD)."""
+    global _replicated
+    before, _replicated = _replicated, True
+    try:
+        yield
+    finally:
+        _replicated = before
+
+
 def global_batch_size(per_device: int) -> int:
-    return per_device * world().size
+    return per_device * data_world().size
 
 
 def local_rows(n_global: int) -> slice:
     """This rank's contiguous slice of ``n_global`` rows."""
-    w = world()
+    w = data_world()
     if n_global % w.size:
         raise ValueError(f"{n_global} rows do not divide over {w.size} "
                          "ranks")
@@ -89,7 +124,7 @@ def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
     gradient of ``x`` on a rank is the sum over ranks of the gradient of
     the result, so a loss that is the sum of the ranks' losses gets its
     global gradient."""
-    if world().size == 1:
+    if data_world().size == 1:
         return x
     return _AllReduceSum.apply(x)
 
@@ -98,7 +133,7 @@ def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
 def all_gather_rows(x: torch.Tensor) -> torch.Tensor:
     """The ranks' ``x`` stacked along the first axis in rank order (no
     gradient)."""
-    n = world().size
+    n = data_world().size
     if n == 1:
         return x
     parts = [torch.empty_like(x) for _ in range(n)]
@@ -127,16 +162,24 @@ def reduce_grads(leaves: Sequence[torch.Tensor]) -> None:
     """Sum every leaf's gradient over ranks, in place, through flat
     buckets (a leaf without one gets zeros first, so every rank sends the
     same layout)."""
-    if world().size == 1:
+    if data_world().size == 1:
         return
     for p in leaves:
         if p.grad is None:
             p.grad = torch.zeros_like(p)
-    grads = [p.grad for p in leaves]
-    for idx in _buckets(grads):
-        flat = torch.cat([grads[i].reshape(-1) for i in idx])
+    sum_tensors([p.grad for p in leaves])
+
+
+@torch.no_grad()
+def sum_tensors(tensors: Sequence[torch.Tensor]) -> None:
+    """Sum each tensor over ranks, in place, through flat buckets (the
+    gradients a step holds in a list)."""
+    if data_world().size == 1:
+        return
+    for idx in _buckets(tensors):
+        flat = torch.cat([tensors[i].reshape(-1) for i in idx])
         dist.all_reduce(flat)
-        _scatter(flat, [grads[i] for i in idx])
+        _scatter(flat, [tensors[i] for i in idx])
 
 
 def _scatter(flat: torch.Tensor, tensors: Sequence[torch.Tensor]) -> None:
@@ -176,6 +219,103 @@ def broadcast_groups(groups: Sequence[Sequence[torch.Tensor]]) -> None:
             dist.broadcast(flat, src)
             if w.rank != src:
                 _scatter(flat, part)
+
+
+def _lead(v) -> Optional[int]:
+    """The length of ``v``'s leading axis; None for a scalar or a
+    string."""
+    if isinstance(v, str) or not hasattr(v, "__len__"):
+        return None
+    return len(v) if getattr(v, "ndim", 1) else None
+
+
+def batch_len(batch) -> int:
+    """The rows of a batch dict: its values' common leading length."""
+    leads = {x for x in map(_lead, batch.values()) if x is not None}
+    if len(leads) != 1:
+        raise ValueError(f"a batch's values have leading lengths {leads}")
+    return leads.pop()
+
+
+def _take(batch, rows):
+    """``batch`` at the row indices ``rows`` (a slice or a list)."""
+    def take(v):
+        if _lead(v) is None or isinstance(rows, slice):
+            return v if _lead(v) is None else v[rows]
+        if isinstance(v, list):
+            return [v[i] for i in rows]
+        if isinstance(v, torch.Tensor):
+            return v[torch.as_tensor(rows, device=v.device)]
+        return v[rows]
+
+    return {k: take(v) for k, v in batch.items()}
+
+
+_warned_replicated = False
+
+
+def shard_batch(batch) -> Optional[dict]:
+    """This rank's contiguous rows of a host batch that every rank holds
+    whole (``maybe_shard_batch`` under ``downstream_spmd``), or None
+    when its rows do not divide over the ranks: the caller then runs the
+    whole batch on every rank under :func:`replicated`. The first such
+    batch prints a warning, as JAX's does."""
+    global _warned_replicated
+    n = data_world().size
+    if n == 1:
+        return batch
+    b = batch_len(batch)
+    if b % n == 0:
+        return _take(batch, local_rows(b))
+    if not _warned_replicated:
+        _warned_replicated = True
+        print(f"[parallel] batch of {b} rows not divisible by {n} ranks - "
+              "running this (and similar) batches REPLICATED; pick a batch "
+              "size divisible by the rank count for data-parallel speedup",
+              flush=True)
+    return None
+
+
+@contextlib.contextmanager
+def batch_rows(batch):
+    """-> this rank's rows of ``batch`` (:func:`shard_batch`), the body
+    run under :func:`replicated` with the whole batch where they do not
+    divide."""
+    local = shard_batch(batch)
+    if local is not None:
+        yield local
+        return
+    with replicated():
+        yield batch
+
+
+def gather_rows(fn: Callable, batch) -> Any:
+    """``fn(rows)`` of a row-independent ``fn`` (a tensor or a tuple of
+    tensors with the rows first) on every row of ``batch``, each rank
+    running its share: the batch padded to a multiple of the ranks by
+    repeating its last row, this rank's rows run, the results gathered in
+    rank order and the padding dropped. One rank runs ``fn(batch)``."""
+    w = data_world()
+    if w.size == 1:
+        return fn(batch)
+    b = batch_len(batch)
+    per = -(-b // w.size)
+    rows = [min(i, b - 1) for i in range(w.rank * per, (w.rank + 1) * per)]
+    out = fn(_take(batch, rows))
+    many = isinstance(out, tuple)
+    outs = tuple(all_gather_rows(o.contiguous())[:b]
+                 for o in (out if many else (out,)))
+    return outs if many else outs[0]
+
+
+def broadcast_object(obj: Any, src: int = 0) -> Any:
+    """Rank ``src``'s ``obj`` (picklable) on every rank; ``obj`` itself
+    with one rank."""
+    if world().size == 1:
+        return obj
+    box = [obj]
+    dist.broadcast_object_list(box, src)
+    return box[0]
 
 
 def init_from_env(device="cuda",

@@ -6,6 +6,12 @@ Two parallel linear layers on the frame embeddings: strong =
 sigmoid(linear(x) / temp) per frame, weak = the softmax-attention pooling
 sum(strong * soft) / sum(soft) over time. The parameter names are JAX's
 module names (``linear``, ``linear_softmax``).
+
+With ``use_norm`` the embeddings are normalized by their mean and
+population variance over (B, T). Under a process group they are the
+global batch's, as under JAX's data mesh: the sum and count, then the
+centred sum of squares, each summed over ranks by
+``parallel.all_reduce_sum`` (whose backward is the global one).
 """
 from __future__ import annotations
 
@@ -13,6 +19,8 @@ from typing import Optional
 
 import torch
 from torch import nn
+
+from audiossl_tpu_torch.parallel.mesh import all_reduce_sum, data_world
 
 
 class SEDHead(nn.Module):
@@ -41,8 +49,11 @@ class SEDHead(nn.Module):
         [B, C]). ``frame_mask`` [B, T] optionally excludes padded frames
         from the weak pooling."""
         if self.use_norm:  # over (B, T), the population variance
-            mu = x.mean(dim=(0, 1), keepdim=True)
-            var = x.var(dim=(0, 1), unbiased=False, keepdim=True)
+            if data_world().size > 1:
+                mu, var = _global_moments(x)
+            else:
+                mu = x.mean(dim=(0, 1), keepdim=True)
+                var = x.var(dim=(0, 1), unbiased=False, keepdim=True)
             x = (x - mu) / torch.sqrt(var + 1e-5)
         strong = torch.sigmoid(self.linear(x) / temp)  # [B, T, C]
         soft = torch.softmax(self.linear_softmax(x), dim=-1).clamp(1e-7, 1.0)
@@ -50,3 +61,14 @@ class SEDHead(nn.Module):
             soft = soft * frame_mask[:, :, None].to(x.dtype)
         weak = (strong * soft).sum(dim=1) / soft.sum(dim=1).clamp_min(1e-7)
         return strong.transpose(1, 2), weak
+
+
+def _global_moments(x: torch.Tensor):
+    """The mean and population variance [1, 1, D] of ``x`` [B, T, D] over
+    every rank's (B, T), in two passes as one process takes them."""
+    tot = all_reduce_sum(torch.cat([x.sum(dim=(0, 1)),
+                                    x.new_tensor([float(x[..., 0].numel())])]))
+    n = tot[-1]
+    mu = (tot[:-1] / n)[None, None]
+    var = all_reduce_sum(((x - mu) ** 2).sum(dim=(0, 1))) / n
+    return mu, var[None, None]

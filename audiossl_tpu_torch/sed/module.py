@@ -17,6 +17,11 @@ the mel kernel K1 is the one kernel on the path. Its drop-path uniforms
 are handed in (``SEDTask.draw``: [depth, 2, B] from a ``torch.Generator``),
 so a test passes JAX's. Freeze mode runs the encoder in eval mode with no
 gradient and trains the head alone.
+
+Under a process group each rank steps on its rows of the global batch
+(JAX's ``downstream_spmd``): a ``MixedBatchLoader`` batch stacks its
+strong rows before its weak ones, so ranks can hold different sources,
+and every count, mean and gradient is the global batch's.
 """
 from __future__ import annotations
 
@@ -30,6 +35,9 @@ from audiossl_tpu_torch.downstream.comparison_models import EncoderAdapter
 from audiossl_tpu_torch.downstream.finetune import _f32, layer_decay_factors
 from audiossl_tpu_torch.models.atst import AudioTransformer
 from audiossl_tpu_torch.models.transformer import drop_path_multipliers
+from audiossl_tpu_torch.parallel.mesh import (all_reduce_sum, data_world,
+                                              gather_rows, local_rows,
+                                              replicated, sum_tensors)
 from audiossl_tpu_torch.sed.head import SEDHead
 from audiossl_tpu_torch.training.schedules import cosine_schedule
 
@@ -155,17 +163,26 @@ class SEDTask:
         [B, T, C], ``source`` [B]: 0 strong, 1 weak) with the drop-path
         uniforms ``dp`` (:meth:`draw`); updates the state in place and
         returns it with ``loss``, ``strong_loss``, ``weak_loss`` and
-        ``lr``."""
+        ``lr``.
+
+        Under a process group ``batch`` is this rank's rows of the global
+        batch (``parallel.shard_batch``) and ``dp`` the global batch's
+        draws, of which the step takes the rank's rows. The masked counts,
+        the means and the logged losses are the global batch's, and the
+        gradients are summed over ranks, as one process computes them."""
         cfg = self.cfg
         lr = _f32(self.lr_sched(state.step))  # JAX's schedule runs in f32
         wav, valid = self._batch(batch)
         dev = self.device
+        n = data_world().size
         y = torch.as_tensor(np.asarray(batch["strong"]), device=dev).float()
         source = torch.as_tensor(np.asarray(batch["source"]), device=dev)
         if cfg.freeze_mode:
             with torch.no_grad():
                 frames = self.adapter.frame_embeddings(wav, valid)
         else:
+            if dp is not None:
+                dp = dp[..., local_rows(len(wav) * n)]
             dps = (None if dp is None else
                    drop_path_multipliers(dp, cfg.drop_path_rate))
             frames = self.adapter.frame_embeddings(wav, valid, dps=dps)
@@ -175,40 +192,56 @@ class SEDTask:
         strong, y = strong[..., :T], y[..., :T]
         s_mask = (source == 0).to(strong.dtype)
         w_mask = (source == 1).to(strong.dtype)
+        # the global batch's row counts of each source
+        counts = all_reduce_sum(torch.stack([s_mask.sum(), w_mask.sum()]))
         strong_loss = (_bce(strong, y).mean(dim=(1, 2)) * s_mask).sum() / \
-            s_mask.sum().clamp_min(1.0)
+            counts[0].clamp_min(1.0)
         y_weak = (y.sum(-1) > 0).to(strong.dtype)
         weak_loss = (_bce(weak, y_weak).mean(-1) * w_mask).sum() / \
-            w_mask.sum().clamp_min(1.0)
+            counts[1].clamp_min(1.0)
         total = strong_loss + weak_loss
         if self.teacher_fn is not None and cfg.distill_weight > 0:
             with torch.no_grad():
                 t_strong, t_weak = self.teacher_fn(wav, valid)
             Td = min(T, t_strong.shape[-1])
-            bce_ds = _bce(strong[..., :Td], t_strong[..., :Td]).mean()
+            # means over the global batch
+            d = _bce(strong[..., :Td], t_strong[..., :Td])
+            bce_ds = d.sum() / (d.numel() * n)
             if cfg.distill_combine == "average_strong":
                 total = 0.5 * strong_loss + cfg.distill_weight * 0.5 * bce_ds
             else:
+                dw = _bce(weak, t_weak)
                 total = total + cfg.distill_weight * 0.5 * (
-                    bce_ds + _bce(weak, t_weak).mean())
+                    bce_ds + dw.sum() / (dw.numel() * n))
         params = state.params
         grads = torch.autograd.grad(total, list(params.values()),
                                     allow_unused=True)
         with torch.no_grad():
             # a parameter the loss does not reach (mask_embed) has a zero
             # gradient, as in JAX
+            grads = [torch.zeros_like(p) if g is None else g
+                     for p, g in zip(params.values(), grads)]
+            sum_tensors(grads)
             for (name, p), g in zip(params.items(), grads):
-                u = state.mu[name].mul_(MOMENTUM)
-                if g is not None:
-                    u.add_(g)
-                u = u.clone()
+                u = state.mu[name].mul_(MOMENTUM).add_(g).clone()
                 if self.factors is not None and name in self.factors:
                     u.mul_(self.factors[name])
                 p.sub_(u * lr)
+            logged = all_reduce_sum(torch.stack(
+                [total.detach(), strong_loss.detach(), weak_loss.detach()]))
         state.step += 1
-        return state, {"loss": total.detach(),
-                       "strong_loss": strong_loss.detach(),
-                       "weak_loss": weak_loss.detach(), "lr": lr}
+        return state, {"loss": logged[0], "strong_loss": logged[1],
+                       "weak_loss": logged[2], "lr": lr}
+
+    def predict_all(self, state: SEDState, batch):
+        """:meth:`predict` of a batch every rank holds whole, the same on
+        every rank: each rank scores its rows and they are gathered
+        (``parallel.gather_rows``); with ``use_norm``, whose statistics
+        span the batch, every rank scores it whole."""
+        if self.head.use_norm:
+            with replicated():
+                return self.predict(state, batch)
+        return gather_rows(lambda rows: self.predict(state, rows), batch)
 
     @torch.no_grad()
     def predict(self, state: SEDState, batch):

@@ -24,7 +24,7 @@ from typing import Dict, List, Mapping, Optional, Tuple
 
 import torch
 
-from audiossl_tpu_torch.parallel.mesh import world
+from audiossl_tpu_torch.parallel.mesh import broadcast_object, world
 from audiossl_tpu_torch.training.pretrain import full_moments
 
 STATE_FILE = "state.pt"
@@ -212,20 +212,28 @@ class TopKKeeper:
     """The ``k`` saved states ranked best by a validation metric: the
     highest with ``mode="max"``, the lowest with ``mode="min"`` (the
     AudioSet-strong validation loss). The index records the
-    mode, so a reader picks the best entry (:func:`read_topk_index`)."""
+    mode, so a reader picks the best entry (:func:`read_topk_index`).
+
+    Under a process group every rank keeps a keeper and updates it with
+    the same metrics, so all take the same decisions, but only the
+    ``writer``, rank 0, writes or removes a file; ``restore_best`` reads
+    the best state on rank 0 and sends it to every rank."""
 
     def __init__(self, directory: str, k: int = TOP_K, mode: str = "max"):
         if mode not in ("max", "min"):
             raise ValueError(f"mode {mode!r} is not 'max' or 'min'")
         self.k = k
         self.mode = mode
+        self.writer = world().is_main
         self.dir = os.path.abspath(os.path.expanduser(
             os.path.join(directory, "top")))
-        os.makedirs(self.dir, exist_ok=True)
+        if self.writer:
+            os.makedirs(self.dir, exist_ok=True)
         self._index_path = os.path.join(self.dir, "index.json")
         self._index: Dict[int, float] = {}
-        if os.path.exists(self._index_path):
+        if self.writer and os.path.exists(self._index_path):
             self._index = read_topk_index(self._index_path)[0]
+        self._index = broadcast_object(self._index)  # rank 0's, everywhere
 
     def _write_index(self):
         with open(self._index_path, "w") as f:
@@ -247,16 +255,18 @@ class TopKKeeper:
             worst = self._index[worst_tag]
             if metric < worst if self.mode == "max" else metric > worst:
                 return False
-            shutil.rmtree(os.path.join(self.dir, str(worst_tag)),
-                          ignore_errors=True)
+            if self.writer:
+                shutil.rmtree(os.path.join(self.dir, str(worst_tag)),
+                              ignore_errors=True)
             del self._index[worst_tag]
-        target = os.path.join(self.dir, str(tag))
-        if os.path.exists(target):  # a re-run of the same epoch
-            shutil.rmtree(target, ignore_errors=True)
-        os.makedirs(target)
-        torch.save(dict(state), os.path.join(target, STATE_FILE))
         self._index[int(tag)] = float(metric)
-        self._write_index()
+        if self.writer:
+            target = os.path.join(self.dir, str(tag))
+            if os.path.exists(target):  # a re-run of the same epoch
+                shutil.rmtree(target, ignore_errors=True)
+            os.makedirs(target)
+            torch.save(dict(state), os.path.join(target, STATE_FILE))
+            self._write_index()
         return True
 
     @property
@@ -271,12 +281,16 @@ class TopKKeeper:
 
     def restore_best(self):
         """The best state kept, as saved (read with ``weights_only=True``),
-        or None when none is."""
+        or None when none is; read by rank 0 and the same on every
+        rank."""
         tag = self.best_tag
         if tag is None:
             return None
-        return torch.load(os.path.join(self.dir, str(tag), STATE_FILE),
-                          map_location="cpu", weights_only=True)
+        saved = None
+        if self.writer:
+            saved = torch.load(os.path.join(self.dir, str(tag), STATE_FILE),
+                               map_location="cpu", weights_only=True)
+        return broadcast_object(saved)
 
 
 def read_topk_index(index_path: str) -> Tuple[Dict[int, float], str]:

@@ -126,7 +126,25 @@ sm_90a) and the CUDA toolkit:
    test scores (bit-equal, equal counts), and one DCASE step (4 + 4 clips)
    and one AudioSet-strong step (8 clips, ``lr_scale`` 0.75) on the card
    against the CPU from the same weights and drop-path draws (loss,
-   every leaf's gradient, the updated parameters);
+   every leaf's gradient, the updated parameters); then data-parallel
+   downstream on this one card, 2 ranks spawned by ``parallel.launch.
+   spawn`` on gloo over CUDA tensors: ``ddp_finetune`` (after the
+   finetuning paths) and ``ddp_sed`` (after the SED paths) each take 2
+   steps at a global batch of 16, 8 a rank (the clip base finetuning step
+   with mixup, SpecAugment and RandomResizeCrop on; the DCASE step at
+   ATST-Frame base on 8 strong then 8 weak rows, so the ranks hold
+   different sources), each from the 1-rank run's state before it and
+   held to the 1-rank step on the same global batch and draws (loss and
+   gradient norm rel 1e-4, every leaf's gradient cosine 0.999, a
+   vanishing leaf within 1e-4 of the largest), both ranks' states
+   bit-equal after each step, each rank's K1 launches equal to the
+   1-rank step's; then ``train_finetune`` (one epoch of batches of 16 on
+   a pack whose 33-clip validation and test splits end on a ragged batch)
+   and ``train_dcase`` (one epoch of 8 + 8) at ``--n_devices 2`` on the
+   ranks: rank 0 alone writes ``result.json`` and the keeper, finite
+   metrics, K1 once a train and evaluation batch on each rank. With 2
+   cards or more the two drivers also run over NCCL at ``--n_devices``
+   the count; on one card a line says they did not run;
 4. ATST-Frame training: one step of ``FrameMethod`` at the ATST-Frame base
    recipe (``bench.py:358-378``, B=96 clips of 10 s, bf16, seeded weights
    and waveforms) through the kernels K1-K5, K7 and K8, checking the launch
@@ -174,7 +192,12 @@ sm_90a) and the CUDA toolkit:
    0.99999 held), beside a control with no save or restore (one step from
    each of two states built alike): where the control is bit-equal, the
    restored step must be too; the run's clips/s over all its steps, saves
-   included;
+   included; then the run's newest checkpoint evaluated
+   (``pretrain_eval``): its step directory through ``embedding.
+   load_model`` and its ``state.pt`` through ``train_freeze.
+   load_encoder``, each encoder equal tensor for tensor to the saved
+   teacher encoder, the base arch read off its shapes, and one scene
+   embedding through K1;
 11. crash-restart, untimed: ``python -m audiossl_tpu_torch.methods.
    atstframe.train`` at the recipe's arguments, B=96, 8 steps, a
    checkpoint every 3, killed (SIGKILL) once its step-3 checkpoint exists;
@@ -1978,7 +2001,7 @@ def probe_path(dev, workdir, data, kind):
             "--arch", PROBE_ARCH, "--n_last_blocks", str(PROBE_BLOCKS),
             "--train_len", str(PROBE_CROP_S),
             "--batch_size", str(PROBE_B), "--max_epochs", str(PROBE_EPOCHS),
-            "--save_path", out, "--device", str(dev)]
+            "--save_path", out, "--device", str(dev), "--n_devices", "1"]
     record = {}
     torch.cuda.synchronize()
     kb.reset_launches()
@@ -2107,7 +2130,7 @@ def finetune_argv(kind, ckpt, data, out, dev):
             "--batch_size", str(FT_B), "--max_epochs", str(FT_EPOCHS),
             "--warmup_epochs", str(FT_WARMUP), "--learning_rate", str(FT_LR),
             "--alpha", "0.5", "--layer_wise_lr", "0.75", "--save_path", out,
-            "--device", str(dev), *FT_ARGS[kind]]
+            "--device", str(dev), "--n_devices", "1", *FT_ARGS[kind]]
 
 
 def step_agreement(gc, gh, pc, ph, before, skip=None):
@@ -2512,7 +2535,8 @@ def sed_path(dev, name, kind, ckpt, data, out, extra=(), want_mode="max",
     argv = ["--pretrained_ckpt_path", ckpt, "--data_path", data, "--arch",
             SED_ARCH, "--max_epochs", str(SED_EPOCHS), "--warmup_epochs",
             str(SED_WARMUP), "--median_window", "7", "--save_path", out,
-            "--device", str(dev), *SED_ARGS[kind], *extra]
+            "--device", str(dev), "--n_devices", "1", *SED_ARGS[kind],
+            *extra]
     main = train_dcase.main if kind == "dcase" else train_as_strong.main
     record = {}
     torch.cuda.synchronize()
@@ -2572,7 +2596,8 @@ def sed_path(dev, name, kind, ckpt, data, out, extra=(), want_mode="max",
 
 def sed_paths(dev, workdir, run_path):
     """The three SED paths, each through ``run_path``, with the decoding
-    and the step held against the CPU after the first two."""
+    and the step held against the CPU after the first two; returns the
+    DCASE tree, the AudioSet-strong tree and the encoder's checkpoint."""
     dcase, as_strong, ckpt = write_sed_trees(workdir)
     dcase_out = os.path.join(workdir, "sed_dcase")
 
@@ -2599,6 +2624,7 @@ def sed_paths(dev, workdir, run_path):
                   teacher=True))):
         torch.cuda.empty_cache()
         run_path(name, lambda: path(name, kind, data, out, checks, **kw))
+    return dcase, as_strong, ckpt
 
 
 def train_mel_check(dev):
@@ -3164,7 +3190,6 @@ def pretrain_frame_cli_path(dev, workdir, data):
     each state on the same batch and draws. Returns the run's launches."""
     import contextlib
     import re
-    import shutil
 
     from audiossl_tpu_torch.datasets import PackedAudioDataset
     from audiossl_tpu_torch.kernels import build as kb
@@ -3306,8 +3331,7 @@ def pretrain_frame_cli_path(dev, workdir, data):
         "cli_clips_per_s_whole_run": CLI_STEPS * TRAIN_B / wall}}))
     del method, state, run_step
     torch.cuda.empty_cache()
-    shutil.rmtree(save)
-    return launches
+    return launches  # pretrain_eval reads the checkpoints, then removes them
 
 
 def crash_restart_path(workdir, data):
@@ -3757,6 +3781,466 @@ def ddp_nccl_cli(workdir, data, n_cards):
     return {"cards": n_cards, "wall_s": wall}
 
 
+# Data-parallel downstream (ddp_finetune, ddp_sed): 2 ranks on this one
+# card on gloo, each step at a global batch of DDP_DS_B (8 a rank) held to
+# the 1-rank step on the same global batch and draws at the f32 step bounds
+DDP_DS_B, DDP_DS_STEPS = 16, 2
+DDP_DS_PACK = (("train", 64), ("valid", 33), ("test", 33))  # an odd eval
+# split: its last batch does not divide over the ranks
+
+
+def ds_save(state, path):
+    """A downstream state (``FinetuneState`` or ``SEDState``) to
+    ``path``: the encoder, the head (BatchNorm statistics included), the
+    momentum trace and the step."""
+    torch.save({"encoder": state.encoder.state_dict(),
+                "head": state.head.state_dict(), "mu": state.mu,
+                "step": state.step}, path)
+
+
+@torch.no_grad()
+def ds_load(state, path, dev):
+    """``ds_save``'s file into ``state`` in place."""
+    saved = torch.load(path, map_location=dev, weights_only=True)
+    state.encoder.load_state_dict(saved["encoder"])
+    state.head.load_state_dict(saved["head"])
+    for k, v in saved["mu"].items():
+        state.mu[k].copy_(v)
+    state.step = saved["step"]
+
+
+def ds_fingerprint(state):
+    """Two int64 sums of the bits of the encoder, the head and the
+    momentum trace (plain and weighted by position)."""
+    out = []
+    for t in (*state.encoder.state_dict().values(),
+              *state.head.state_dict().values(), *state.mu.values()):
+        bits = t.detach().contiguous().view(torch.int32).long().flatten()
+        pos = torch.arange(bits.numel(), device=bits.device) % 65521 + 1
+        out += [int(bits.sum()), int((bits * pos).sum())]
+    return out
+
+
+def ds_task(kind, dev, arg):
+    """The 1-rank and the ranks' task: for ``"finetune"`` the one
+    ``train_finetune.build_task`` makes of the flags ``arg`` (4 steps an
+    epoch, no warm-up: both steps move the weights); for ``"sed"`` the
+    DCASE task at ATST-Frame base (learning rate 0.1) on the encoder of
+    the checkpoint ``arg``."""
+    from audiossl_tpu_torch.datasets import get_dataset
+    from audiossl_tpu_torch.downstream import train_finetune
+    from audiossl_tpu_torch.downstream.train_freeze import load_encoder
+    from audiossl_tpu_torch.sed.module import SEDConfig, SEDTask
+
+    if kind == "finetune":
+        args = train_finetune.build_parser().parse_args(arg)
+        args.warmup_epochs = 0
+        enc = load_encoder(args.pretrained_ckpt_path, args.model_type,
+                           args.arch, which=args.use_encoder, device=dev)
+        return train_finetune.build_task(args, get_dataset(args.dataset_name),
+                                         enc, steps_per_epoch=4)
+    enc = load_encoder(arg, "frame", SED_ARCH, spec_w=1001, device=dev)
+    return SEDTask(enc, SEDConfig(num_labels=10, learning_rate=0.1,
+                                  max_epochs=1, steps_per_epoch=4,
+                                  warmup_epochs=0),
+                   generator=torch.Generator().manual_seed(SEED))
+
+
+def ds_step(task, state, batch, draws):
+    """One step of either task; -> (loss, gradient norm or None)."""
+    _, m = task.train_step(state, batch, draws)
+    return float(m["loss"]), (float(m["gnorm"]) if "gnorm" in m else None)
+
+
+def ds_grads(task, state, mu_before):
+    """The step's gradient by leaf (clipped, for finetuning): the momentum
+    trace less its decayed value before the step."""
+    momentum = getattr(task.cfg, "momentum", 0.9)
+    return {k: v - momentum * mu_before[k] for k, v in state.mu.items()}
+
+
+def ddp_ds_rank(out_dir, kind, task_arg, cli, cli_argv, device):
+    """One rank of ``ddp_finetune`` / ``ddp_sed``: each step on its rows
+    of the saved global batch with the global draws, from the 1-rank
+    run's state before that step, with its launches, loss, gradient norm,
+    wall time, state fingerprint and (rank 0) each leaf's gradient cosine
+    to the 1-rank step's; then ``cli``'s ``main`` at ``--n_devices`` the
+    group's size, with the files each rank opens for writing. Writes
+    ``rank<r>.json``."""
+    import builtins
+    import importlib
+
+    from audiossl_tpu_torch.downstream.finetune import draws_to
+    from audiossl_tpu_torch.kernels import build as kb
+    from audiossl_tpu_torch.parallel.launch import rank_device
+    from audiossl_tpu_torch.parallel.mesh import batch_rows, world
+
+    record_launch_shapes()
+    w = world()
+    dev = rank_device(device)
+    task = ds_task(kind, dev, task_arg)
+    state = task.init_state()
+    res = {"rank": w.rank, "steps": []}
+    total = dict.fromkeys(kb.LAUNCHES, 0)
+    for i in range(DDP_DS_STEPS):
+        ds_load(state, os.path.join(out_dir, f"pre{i}.pt"), dev)
+        inp = torch.load(os.path.join(out_dir, f"input{i}.pt"),
+                         weights_only=False)
+        draws = (draws_to(inp["draws"], dev) if kind == "finetune"
+                 else inp["draws"].to(dev))
+        mu_before = {k: v.clone() for k, v in state.mu.items()}
+        torch.cuda.synchronize()
+        kb.reset_launches()
+        t0 = time.perf_counter()
+        with batch_rows(inp["batch"]) as rows:
+            loss, gnorm = ds_step(task, state, rows, draws)
+        torch.cuda.synchronize()
+        rec = {"loss": loss, "gnorm": gnorm, "launches": dict(kb.LAUNCHES),
+               "wall_s": time.perf_counter() - t0,
+               "fingerprint": ds_fingerprint(state)}
+        for k, n in rec["launches"].items():
+            total[k] += n
+        if w.is_main:
+            ref = torch.load(os.path.join(out_dir, f"ref{i}.pt"),
+                             map_location=dev, weights_only=True)
+            g = ds_grads(task, state, mu_before)
+            top = max(float(v.norm()) for v in ref.values())
+            cos = {k: float(torch.nn.functional.cosine_similarity(
+                g[k].double().flatten(), v.double().flatten(), dim=0))
+                for k, v in ref.items() if float(v.norm()) > FT_ZERO_REL * top}
+            worst = min(cos, key=cos.get)
+            small = [k for k in ref if k not in cos]
+            rec.update(min_cos=cos[worst], min_cos_leaf=worst,
+                       small_leaves=small, small_diff_rel=max(
+                           [float((g[k] - ref[k]).norm()) / top
+                            for k in small] or [0.0]))
+        res["steps"].append(rec)
+    del task, state
+    torch.cuda.empty_cache()
+
+    writes = []
+    opened = builtins.open
+    save = torch.save
+
+    def record_open(f, mode="r", *a, **k):
+        if any(c in mode for c in "wax") and isinstance(f, (str,
+                                                           os.PathLike)):
+            writes.append(str(f))
+        return opened(f, mode, *a, **k)
+
+    def record_save(obj, f, *a, **k):
+        if isinstance(f, (str, os.PathLike)):
+            writes.append(str(f))
+        return save(obj, f, *a, **k)
+
+    record = {} if w.is_main else None
+    torch.cuda.synchronize()
+    kb.reset_launches()
+    t0 = time.perf_counter()
+    builtins.open, torch.save = record_open, record_save
+    try:
+        result = importlib.import_module(cli).main(
+            cli_argv + ["--n_devices", str(w.size), "--device", str(dev)],
+            record=record)
+    finally:
+        builtins.open, torch.save = opened, save
+    torch.cuda.synchronize()
+    res["cli"] = {"result": result, "writes": writes,
+                  "launches": dict(kb.LAUNCHES),
+                  "wall_s": time.perf_counter() - t0}
+    if record is not None:
+        res["cli"]["batches"] = {
+            "train": sum(len(e) for e in record["steps"]),
+            "eval": sum(len(b) for b in record["evals"])
+            if kind == "sed" else sum(len(b) for _, b in record["evals"]),
+            "test": (len(record["test"].get("strong", []))
+                     if kind == "sed" else None)}
+    for k, n in res["cli"]["launches"].items():
+        total[k] += n
+    res["launches"] = total
+    res["seen"] = {k: sorted(v) for k, v in LAUNCH_SEEN.items()}
+    with open(os.path.join(out_dir, f"rank{w.rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def ddp_downstream_path(dev, out_dir, kind, task_arg, batches, cli,
+                        cli_argv):
+    """A data-parallel downstream phase on this one card: the 1-rank steps
+    here on the global ``batches`` (``DDP_DS_STEPS`` of ``DDP_DS_B``
+    clips) with seeded draws, then 2 ranks (``parallel.launch.spawn``,
+    gloo over CUDA tensors) on the same batches and draws from the 1-rank
+    run's state before each step: the loss and gradient norm within
+    ``F32_STEP_LOSS_REL``, every leaf's gradient at cosine >=
+    ``F32_STEP_GRAD_COS`` (a leaf with a vanishing gradient, the final
+    norm's bias behind the head's BatchNorm, within ``FT_ZERO_REL`` of the
+    largest leaf's norm), both ranks' states bit-equal after each step and
+    each rank's K1 launches equal to the 1-rank step's; then ``cli`` at
+    ``--n_devices 2`` on the ranks: rank 0 alone writes ``result.json``
+    and the keeper, the metrics finite, K1 once a train and eval batch on
+    each rank. Returns the ranks' launches, summed, and the summary."""
+    from audiossl_tpu_torch.downstream.finetune import draw_finetune, draws_to
+    from audiossl_tpu_torch.kernels import build as kb
+    from audiossl_tpu_torch.parallel import launch
+
+    t_phase = time.perf_counter()
+    name = f"ddp_{kind}"
+    os.makedirs(out_dir)
+    task = ds_task(kind, dev, task_arg)
+    state = task.init_state()
+    gen = torch.Generator().manual_seed(SEED + 60)
+    rng = np.random.default_rng(SEED + 61)
+    ref = []
+    for i, batch in enumerate(batches):
+        if kind == "finetune":
+            draws = draw_finetune(task.cfg, DDP_DS_B, task.rows(
+                DDP_DS_B, batch["wav"].shape[1]), task.encoder.depth, gen,
+                rng)
+            on_dev = draws_to(draws, dev)
+        else:
+            draws = task.draw(gen, DDP_DS_B).cpu()
+            on_dev = draws.to(dev)
+        torch.save({"batch": batch, "draws": draws},
+                   os.path.join(out_dir, f"input{i}.pt"))
+        ds_save(state, os.path.join(out_dir, f"pre{i}.pt"))
+        mu_before = {k: v.clone() for k, v in state.mu.items()}
+        torch.cuda.synchronize()
+        kb.reset_launches()
+        t0 = time.perf_counter()
+        loss, gnorm = ds_step(task, state, batch, on_dev)
+        torch.cuda.synchronize()
+        ref.append({"loss": loss, "gnorm": gnorm,
+                    "wall_s": time.perf_counter() - t0,
+                    "launches": dict(kb.LAUNCHES)})
+        check(ref[-1]["launches"]["mel_db"] == 1
+              and sum(ref[-1]["launches"].values()) == 1,
+              f"{name} 1-rank step {i + 1}: K1 once, no other kernel "
+              f"({ref[-1]['launches']})")
+        torch.save(ds_grads(task, state, mu_before),
+                   os.path.join(out_dir, f"ref{i}.pt"))
+    del task, state
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    launch.spawn(ddp_ds_rank, DDP_RANKS,
+                 (out_dir, kind, task_arg, cli, cli_argv, str(dev)),
+                 device=str(dev), backend="gloo", timeout_s=DDP_TIMEOUT_S)
+    ranks_s = time.perf_counter() - t0
+    got = []
+    for r in range(DDP_RANKS):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            got.append(json.load(f))
+    for g in got:
+        for k, shapes in g["seen"].items():
+            LAUNCH_SEEN.setdefault(k, set()).update(map(tuple, shapes))
+    summary = {"card": CARD, "ranks": DDP_RANKS, "global_batch": DDP_DS_B,
+               "one_rank": ref, "ranks_s": ranks_s, "steps": []}
+    for i, want in enumerate(ref):
+        a, b = (g["steps"][i] for g in got)
+        rel = abs(a["loss"] - want["loss"]) / abs(want["loss"])
+        grel = (None if want["gnorm"] is None else
+                abs(a["gnorm"] - want["gnorm"]) / abs(want["gnorm"]))
+        print(f"{name} step {i + 1}: loss {a['loss']} (1-rank "
+              f"{want['loss']}, rel diff {rel}); gradient norm rel diff "
+              f"{grel}; leaf cosine to the 1-rank step min {a['min_cos']} "
+              f"({a['min_cos_leaf']}), leaves with a vanishing gradient "
+              f"{a['small_leaves']} within {a['small_diff_rel']} of the "
+              f"largest leaf's norm; wall {a['wall_s']} s / {b['wall_s']} s "
+              f"(1-rank {want['wall_s']} s; a correctness run on one card, "
+              f"not a data-parallel rate; {CARD})")
+        check(rel <= F32_STEP_LOSS_REL, f"{name} step {i + 1} loss rel "
+              f"diff {rel} <= {F32_STEP_LOSS_REL}")
+        check(grel is None or grel <= F32_STEP_LOSS_REL, f"{name} step "
+              f"{i + 1} gradient norm rel diff {grel} <= "
+              f"{F32_STEP_LOSS_REL}")
+        check(a["min_cos"] >= F32_STEP_GRAD_COS, f"{name} step {i + 1}: "
+              f"every leaf's gradient cosine to the 1-rank step >= "
+              f"{F32_STEP_GRAD_COS}")
+        check(a["small_diff_rel"] <= FT_ZERO_REL, f"{name} step {i + 1}: "
+              f"the vanishing gradients within {FT_ZERO_REL}")
+        check(a["fingerprint"] == b["fingerprint"] and a["loss"] == b["loss"],
+              f"{name} step {i + 1}: both ranks' states and losses bit-equal")
+        for r, st in enumerate((a, b)):
+            check(st["launches"] == want["launches"], f"{name} rank {r} step "
+                  f"{i + 1}: launches {st['launches']} == the 1-rank step's")
+        summary["steps"].append({"loss": a["loss"], "loss_rel": rel,
+                                 "gnorm_rel": grel, "min_leaf_cos":
+                                 a["min_cos"], "wall_s": [a["wall_s"],
+                                                          b["wall_s"]]})
+
+    c0, c1 = (g["cli"] for g in got)
+    save = cli_argv[cli_argv.index("--save_path") + 1]
+    result_file = os.path.join(save, "result.json")
+    print(f"{name}: {cli} at --n_devices {DDP_RANKS}: {c0['result']}; rank 0 "
+          f"wrote {len(c0['writes'])} files, rank 1 {len(c1['writes'])}; "
+          f"batches {c0['batches']}; K1 by rank "
+          f"{[c['launches']['mel_db'] for c in (c0, c1)]}; "
+          f"{c0['wall_s']:.1f} s")
+    check(c1["writes"] == [] and result_file in c0["writes"]
+          and any(os.sep + "top" + os.sep in p for p in c0["writes"]),
+          f"{name}: rank 0 alone writes result.json and the keeper")
+    with open(result_file) as f:
+        check(json.load(f) == c0["result"] == c1["result"],
+              f"{name}: result.json holds both ranks' result")
+    check(all(np.isfinite(v) for v in c0["result"].values()
+              if isinstance(v, float)), f"{name}: finite metrics")
+    n = c0["batches"]
+    k1 = n["train"] + n["eval"] + (n["test"] or 0)
+    check(c0["launches"]["mel_db"] == c1["launches"]["mel_db"] == k1 and
+          sum(c0["launches"].values()) == k1, f"{name}: K1 once a train "
+          f"and eval batch on each rank ({k1}), no other kernel")
+    summary["cli"] = {"result": c0["result"], "batches": n,
+                      "wall_s": [c0["wall_s"], c1["wall_s"]]}
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        nccl = list(cli_argv)
+        nccl[nccl.index("--save_path") + 1] = save + "_nccl"
+        summary["nccl_cli_s"] = ddp_downstream_nccl(cli, nccl, n_cards)
+    else:
+        print(f"{name}: {cli} over NCCL did not run: it needs 2 cards or "
+              f"more and this machine has {n_cards}")
+    summary["phase_s"] = time.perf_counter() - t_phase
+    print(json.dumps({name: summary}))
+    launches = dict.fromkeys(got[0]["launches"], 0)
+    for g in got:
+        for k, v in g["launches"].items():
+            launches[k] += v
+    return launches
+
+
+def write_ddp_pack(workdir):
+    """The ``ddp_finetune`` CLI's seeded ``audioset_b`` pack: 64 train
+    clips, 33 validation and 33 test (tone clips of 1-12 s)."""
+    from audiossl_tpu_torch.datasets import write_synthetic_pack
+
+    data = os.path.join(workdir, "ddp_audioset_b")
+    for i, (split, n) in enumerate(DDP_DS_PACK):
+        write_synthetic_pack(data, split, n, min_s=1.0, max_s=12.0,
+                             num_labels=527, multi_label=True,
+                             seed=SEED + 62 + i, kind="tones")
+    return data
+
+
+def ddp_finetune_path(dev, workdir, data):
+    """``ddp_finetune``: the clip base step of ``finetune_clip`` with
+    mixup, SpecAugment and RandomResizeCrop on, at a global batch of 16
+    from the probe pack (:func:`ddp_downstream_path`), then
+    ``train_finetune`` on 2 ranks for one epoch of batches of 16 on a pack
+    whose validation and test splits of 33 clips end on a ragged batch."""
+    from audiossl_tpu_torch.datasets import BatchLoader, PackedAudioDataset
+
+    ckpt = os.path.join(workdir, "finetune_clip.ckpt")
+    argv = finetune_argv("clip", ckpt, data, os.path.join(workdir, "unused"),
+                         dev) + ["--mask_aug", "--rrc"]
+    loader = iter(BatchLoader(PackedAudioDataset(data, "train"), DDP_DS_B,
+                              pad_samples=12 * 16000, shuffle=False))
+    batches = [next(loader) for _ in range(DDP_DS_STEPS)]
+    pack = write_ddp_pack(workdir)
+    cli_argv = ["--pretrained_ckpt_path", ckpt, "--data_path", pack,
+                "--dataset_name", "audioset_b", "--model_type", "clip",
+                "--arch", FT_ARCH, "--n_last_blocks", str(FT_BLOCKS),
+                "--batch_size", str(DDP_DS_B), "--max_epochs", "1",
+                "--warmup_epochs", "0", "--train_len", "12", "--mask_aug",
+                "--rrc", "--save_path", os.path.join(workdir, "ddp_ft_cli")]
+    return ddp_downstream_path(
+        dev, os.path.join(workdir, "ddp_finetune"), "finetune", argv,
+        batches, "audiossl_tpu_torch.downstream.train_finetune", cli_argv)
+
+
+def ddp_sed_path(dev, workdir, dcase, ckpt):
+    """``ddp_sed``: the DCASE step at ATST-Frame base on global batches of
+    8 strong then 8 weak rows (rank 0 holds the strong ones, rank 1 the
+    weak), then ``train_dcase`` on 2 ranks for one epoch of such batches
+    (:func:`ddp_downstream_path`)."""
+    from audiossl_tpu_torch.datasets.sed import MixedBatchLoader, create_dcase
+
+    half = DDP_DS_B // 2
+    loader = iter(MixedBatchLoader(create_dcase(dcase, "train"),
+                                   [half, half], shuffle=False))
+    batches = [next(loader) for _ in range(DDP_DS_STEPS)]
+    check(all(list(b["source"]) == [0] * half + [1] * half for b in batches),
+          "ddp_sed: strong rows, then weak rows")
+    cli_argv = ["--pretrained_ckpt_path", ckpt, "--data_path", dcase,
+                "--arch", SED_ARCH, "--batch_size_synth", str(half),
+                "--batch_size_weak", str(half), "--max_epochs", "1",
+                "--warmup_epochs", "0", "--save_path",
+                os.path.join(workdir, "ddp_sed_cli")]
+    return ddp_downstream_path(
+        dev, os.path.join(workdir, "ddp_sed"), "sed", ckpt,
+        batches, "audiossl_tpu_torch.downstream.train_dcase", cli_argv)
+
+
+def ddp_downstream_nccl(module, argv, n_cards):
+    """A downstream driver at ``--n_devices n_cards`` (NCCL, one rank a
+    card, started by the driver); -> its wall seconds."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", module, *argv, "--n_devices", str(n_cards),
+           "--device", "cuda"]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
+                       timeout=DDP_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    save = argv[argv.index("--save_path") + 1]
+    print(f"{module} over NCCL on {n_cards} cards: exit {r.returncode} in "
+          f"{wall:.1f} s; {r.stdout.strip().splitlines()[-1:]}")
+    check(r.returncode == 0 and os.path.exists(os.path.join(
+        save, "result.json")), f"{module} on {n_cards} NCCL ranks wrote its "
+          f"result ({r.stderr[-2000:]})")
+    return wall
+
+
+def pretrain_eval_path(dev, workdir):
+    """The port's own pretraining checkpoint evaluated: the newest
+    ``state.pt`` of ``pretrain_frame_cli`` (ATST-Frame base) through
+    ``embedding.load_model`` (its step directory) and
+    ``train_freeze.load_encoder`` (the file): every tensor of each encoder
+    equal to the saved teacher encoder's, the arch read off the shapes,
+    and one scene embedding (K1 once) finite; then the run's directory
+    is removed. Returns its launches."""
+    import shutil
+
+    from audiossl_tpu_torch.downstream.train_freeze import load_encoder
+    from audiossl_tpu_torch.embedding import get_scene_embedding, load_model
+    from audiossl_tpu_torch.kernels import build as kb
+    from audiossl_tpu_torch.training.checkpoint import (STATE_FILE,
+                                                        CheckpointManager)
+
+    ckpts = os.path.join(workdir, "frame_cli", "ckpt")
+    step_dir = os.path.join(ckpts, str(CheckpointManager(ckpts).latest_step))
+    saved = torch.load(os.path.join(step_dir, STATE_FILE), map_location="cpu",
+                       weights_only=True)["teacher"]
+    want = {k[len("encoder."):]: v for k, v in saved.items()
+            if k.startswith("encoder.")}
+    model = load_model(step_dir, device=dev)
+    enc = load_encoder(os.path.join(step_dir, STATE_FILE), "frame", "base",
+                       device=dev)
+    for label, e in (("load_model", model.encoder), ("load_encoder", enc)):
+        got = e.state_dict()
+        unequal = [k for k in want if not torch.equal(got[k].cpu(), want[k])]
+        check(got.keys() == want.keys() and not unequal,
+              f"pretrain_eval: {label} of {step_dir} is the saved teacher "
+              f"encoder tensor for tensor ({len(want)} tensors; unequal "
+              f"{unequal[:5]})")
+    check((model.encoder.embed_dim, model.encoder.depth) == (768, 12),
+          "pretrain_eval: the base arch read off the checkpoint")
+    wav = torch.from_numpy(serving_audio()[0][:2]).to(dev)
+    torch.cuda.synchronize()
+    kb.reset_launches()
+    emb = get_scene_embedding(wav, model)
+    torch.cuda.synchronize()
+    launches = dict(kb.LAUNCHES)
+    check(tuple(emb.shape) == (2, 12 * 768) and bool(torch.isfinite(emb).all())
+          and launches["mel_db"] == 1 and sum(launches.values()) == 1,
+          f"pretrain_eval: a finite scene embedding {tuple(emb.shape)} "
+          f"through K1 ({launches})")
+    print(f"pretrain_eval: {step_dir} loaded by load_model and load_encoder, "
+          f"{len(want)} tensors equal to the saved teacher encoder's; scene "
+          f"embedding {tuple(emb.shape)}")
+    del model, enc
+    torch.cuda.empty_cache()
+    shutil.rmtree(os.path.join(workdir, "frame_cli"))
+    return launches
+
+
 def profile_step(step, state, batch, out_dir, label):
     """One kernel-path step under torch.profiler: a table of device time
     by kernel and a chrome trace in out_dir."""
@@ -3860,8 +4344,13 @@ def main():
             torch.cuda.empty_cache()
             run_path(f"finetune_{kind}",
                      lambda: finetune_path(dev, workdir, data, kind))
+        torch.cuda.empty_cache()
+        run_path("ddp_finetune", lambda: ddp_finetune_path(dev, workdir, data))
     with tempfile.TemporaryDirectory() as workdir:
-        sed_paths(dev, workdir, run_path)
+        dcase, _, sed_ckpt = sed_paths(dev, workdir, run_path)
+        torch.cuda.empty_cache()
+        run_path("ddp_sed", lambda: ddp_sed_path(dev, workdir, dcase,
+                                                 sed_ckpt))
     for name, fn in (("frame_bf16", lambda: frame_bf16_path(dev, args.profile)),
                      ("clip_f32", lambda: clip_f32_path(dev, args.profile)),
                      ("clip_bf16", lambda: clip_bf16_path(dev)),
@@ -3879,6 +4368,7 @@ def main():
         torch.cuda.empty_cache()
         run_path("pretrain_frame_cli",
                  lambda: pretrain_frame_cli_path(dev, workdir, data))
+        run_path("pretrain_eval", lambda: pretrain_eval_path(dev, workdir))
         crash_restart_path(workdir, data)
         for name, recipe, extra, want in (
                 ("pretrain_clip_cli", "torch_atst_clip_small.sh", [],

@@ -272,7 +272,7 @@ def test_dryrun_on_two_cpu_ranks():
          "--n_devices", "2", "--device", "cpu"], cwd=ROOT,
         capture_output=True, text=True, timeout=SPAWN_S)
     assert r.returncode == 0, r.stderr[-3000:]
-    for i in (1, 2, 3):
-        assert f"dryrun [{i}/3]" in r.stdout, r.stdout
+    for i in (1, 2, 3, 4, 5):
+        assert f"dryrun [{i}/5]" in r.stdout, r.stdout
     assert "2 rank(s)" in r.stdout
     assert "bit-equal to the replicated step's" in r.stdout
