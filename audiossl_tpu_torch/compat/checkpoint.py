@@ -24,7 +24,11 @@
   FinetuneState``: the encoder, the linear head and its BatchNorm
   statistics, the momentum trace), and :func:`sed_state_from_flax` turns
   an SED state's encoder and head params (``sed/module.py SEDState``) into
-  the port's state dicts.
+  the port's state dicts; :func:`distill_state_from_flax` carries a
+  distillation state (``methods/distill/method.py DistillState``: the
+  student encoder, its head and statistics, the momentum trace);
+* :func:`linear_head_state_from_torch` reads a reference ``LinearHead``
+  (the distillation teacher's head) into the port's.
 """
 from __future__ import annotations
 
@@ -176,24 +180,66 @@ def finetune_state_from_flax(state, task):
     LinearHead with its BatchNorm statistics, and ``optax.trace``'s
     momentum trace by the port's parameter names; the step carries over,
     JAX's key does not."""
-    task.encoder.load_state_dict(state_dict_from_flax(
-        _tree_np(state.enc_params)))
-    head = {}
-    _head_from_flax(_tree_np(state.head_params),
-                    _tree_np(state.head_stats), "head", head)
-    task.head.load_state_dict({k[len("head."):]: v for k, v in head.items()})
-    out = task.init_state()
-    out.step = int(np.asarray(state.step))
-    trace = state.opt_state.trace
+    return _trained_from_flax(
+        state.enc_params, state.head_params, state.head_stats,
+        state.opt_state.trace, state.step, task.encoder, task.head,
+        task.init_state)
+
+
+def distill_state_from_flax(state, method, generator: torch.Generator):
+    """The JAX package's ``DistillState`` (``methods/distill/method.py``)
+    -> the port's, loaded into ``method``'s student and its head (a
+    ``methods.distill.method.DistillMethod`` built alike): the student
+    encoder, its LinearHead with the BatchNorm statistics, and
+    ``optax.trace``'s momentum trace by the port's parameter names; the
+    step carries over, JAX's key does not: ``generator`` draws the port's
+    steps."""
+    return _trained_from_flax(
+        state.student_params, state.head_params, state.head_stats,
+        state.opt_state.trace, state.step, method.student, method.head,
+        lambda: method.init_state(generator))
+
+
+def _trained_from_flax(enc_params, head_params, head_stats, trace, step,
+                       encoder, head, init_state):
+    """An encoder and LinearHead trained with ``optax.trace``: their JAX
+    params (and the head's statistics) loaded into ``encoder`` and
+    ``head``, then ``init_state()``'s state with JAX's step and trace."""
+    encoder.load_state_dict(state_dict_from_flax(_tree_np(enc_params)))
+    sd = {}
+    _head_from_flax(_tree_np(head_params), _tree_np(head_stats), "head", sd)
+    head.load_state_dict({k[len("head."):]: v for k, v in sd.items()})
+    out = init_state()
+    out.step = int(np.asarray(step))
     got = {f"encoder.{k}": v for k, v in
            state_dict_from_flax(_tree_np(trace["enc"])).items()}
     _head_from_flax(_tree_np(trace["head"]), {}, "head", got)
     if set(got) != set(out.mu):
-        raise KeyError("the momentum trace's leaves are not the task's: "
+        raise KeyError("the momentum trace's leaves are not the state's: "
                        f"{sorted(set(got) ^ set(out.mu))[:8]}")
     for k, v in got.items():
         out.mu[k].copy_(v)
     return out
+
+
+def linear_head_state_from_torch(sd: Mapping[str, object]
+                                 ) -> Dict[str, torch.Tensor]:
+    """A reference ``LinearHead`` state dict (``modules/head.py``:
+    ``linear.weight``, ``linear.bias``, ``norm.running_mean``,
+    ``norm.running_var``) -> the port's ``models.heads.LinearHead`` state
+    dict, whose names are the reference's: the counterpart of JAX's
+    ``compat/torch_import.py linear_head_from_torch``. Copies in f32. A
+    head without a norm gives no statistics (loading it into a LinearHead,
+    which has one, then raises). ``norm.num_batches_tracked`` is dropped,
+    and so are ``norm.weight`` / ``norm.bias`` of a head built with an
+    affine norm: JAX's importer carries them, but its
+    ``LinearHead(affine=False)`` never reads them, and the port's head
+    holds no place for them."""
+    keys = ["linear.weight", "linear.bias"]
+    if "norm.running_mean" in sd:
+        keys += ["norm.running_mean", "norm.running_var"]
+    return {k: torch.as_tensor(np.asarray(sd[k], np.float32)).clone()
+            for k in keys}
 
 
 def sed_state_from_flax(enc_params, head_params):

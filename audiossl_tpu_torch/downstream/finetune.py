@@ -216,6 +216,21 @@ def local_draws(d: FinetuneDraws, batch: int) -> FinetuneDraws:
     return out
 
 
+@torch.no_grad()
+def momentum_update(mu: Dict[str, torch.Tensor],
+                    params: Dict[str, torch.nn.Parameter], grads, lr: float,
+                    momentum: float,
+                    factors: Optional[Dict[str, float]] = None) -> None:
+    """JAX's chain over ``params`` in place: ``optax.trace`` (``mu = g +
+    momentum * mu``), times each parameter's layer-decay factor (none:
+    1), then ``p -= lr * u``; ``grads`` in the order of ``params``."""
+    for (name, p), g in zip(params.items(), grads):
+        u = mu[name].mul_(momentum).add_(g).clone()
+        if factors is not None:
+            u.mul_(factors[name])
+        p.sub_(u * lr)
+
+
 def _f32(v: float) -> float:
     return float(np.float32(v))
 
@@ -352,13 +367,8 @@ class FinetuneTask:
         return state, {"loss": loss, "lr": lr, "gnorm": gnorm}
 
     def _update(self, state, params, grads, lr: float):
-        """JAX's chain: ``optax.trace`` (trace = g + momentum * trace),
-        times the layer-decay factor, then ``p -= lr * u``."""
-        for (name, p), g in zip(params.items(), grads):
-            u = state.mu[name].mul_(self.cfg.momentum).add_(g).clone()
-            if self.factors is not None:
-                u.mul_(self.factors[name])
-            p.sub_(u * lr)
+        momentum_update(state.mu, params, grads, lr, self.cfg.momentum,
+                        self.factors)
 
     def eval_all(self, state: FinetuneState, batch) -> torch.Tensor:
         """:meth:`eval_logits` of a batch every rank holds whole, the same

@@ -20,7 +20,7 @@ import os
 import shutil
 import threading
 import time
-from typing import Dict, List, Mapping, Optional, Tuple
+from typing import Callable, Dict, List, Mapping, Optional, Tuple
 
 import torch
 
@@ -93,6 +93,11 @@ class CheckpointManager:
     when a manager opens the directory. ``last_copy_ms`` and
     ``write_s`` (step -> seconds) record what the saves took.
 
+    What is saved is ``to_host(state, copy=...)``: by default
+    :func:`host_state` of a ``PretrainState``; the distillation drivers
+    pass ``methods.distill.method.host_state``. ``restore_latest`` reads
+    a ``PretrainState``.
+
     Under a process group every rank keeps a manager and calls ``save``
     at the same steps, so all take the same decisions (and enter ZeRO-1's
     gather of the moments together), but only the ``writer``, rank 0,
@@ -101,7 +106,8 @@ class CheckpointManager:
     """
 
     def __init__(self, directory: str, save_interval_steps: int = 1000,
-                 max_to_keep: int = 3):
+                 max_to_keep: int = 3, to_host: Callable = host_state):
+        self.to_host = to_host
         self.dir = os.path.abspath(os.path.expanduser(directory))
         self.save_interval_steps = save_interval_steps
         self.max_to_keep = max_to_keep
@@ -140,13 +146,13 @@ class CheckpointManager:
                 and step % self.save_interval_steps == 0)
 
     def save(self, step: int, state, force: bool = False) -> bool:
-        """Save the ``PretrainState`` as ``step`` if the rules above take
-        it; returns whether it did. Waits for the previous write first."""
+        """Save ``state`` as ``step`` if the rules above take it; returns
+        whether it did. Waits for the previous write first."""
         self.wait()
         if step in self._steps or not (force or self.should_save(step)):
             return False
         t0 = time.perf_counter()
-        saved = host_state(state, copy=self.writer)
+        saved = self.to_host(state, copy=self.writer)
         self.last_copy_ms = (time.perf_counter() - t0) * 1e3
         self._steps.append(step)
         drop = self._steps[:-self.max_to_keep] if self.max_to_keep else []

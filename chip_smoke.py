@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """GPU smoke check of the PyTorch port: the serving path of ATST-Frame
-base (bf16 and int8), the linear probe and full finetuning at ATST-Clip
-and ATST-Frame base width, sound event detection (DCASE, AudioSet-strong,
-distill) at ATST-Frame base, the pretraining steps of ATST-Frame base (bf16, f32 and the int8
+base (bf16 and int8), the linear probe, full finetuning and clip-to-frame
+distillation at ATST-Clip and ATST-Frame base width, sound event
+detection (DCASE, AudioSet-strong, distill) at ATST-Frame base, the pretraining steps of ATST-Frame base (bf16, f32 and the int8
 recipes) and ATST-Clip small (f32, bf16 and the int8 recipes), the
 pretraining CLIs with their run loop, checkpoints and crash-restart, and
 data-parallel pretraining on 2 ranks (replicated and ZeRO-1).
@@ -35,7 +35,9 @@ sm_90a) and the CUDA toolkit:
    its error and both times from CUDA events: K1 at the main paths' STFT
    shapes (serving's 8 and the frame step's 96 clips of 10 s, clip
    inference's 8 and the clip step's 96 crops of 6 s: [8 or 96, 1026, 1001
-   or 601]; the probes' and clip finetuning's 64 crops of 12 s: [64, 1026, 1201]; the clip
+   or 601]; the probes', clip finetuning's and ``distill_other``'s 64 crops
+   of 12 s: [64, 1026, 1201]; ``distill_as``'s 64 clips of 10 s: [64, 1026,
+   1001]; the clip
    CLI's 96 crops of 9 s: [96, 1026, 901]; the DCASE step's 256 and the
    SED evaluations' and AudioSet-strong step's 32 clips of 10 s: [256 or
    32, 1026, 1001]), also in
@@ -144,7 +146,26 @@ sm_90a) and the CUDA toolkit:
    ranks: rank 0 alone writes ``result.json`` and the keeper, finite
    metrics, K1 once a train and evaluation batch on each rank. With 2
    cards or more the two drivers also run over NCCL at ``--n_devices``
-   the count; on one card a line says they did not run;
+   the count; on one card a line says they did not run; then clip-to-frame
+   distillation at base width, after ``ddp_finetune`` on the probe pack: a
+   seeded random ATST-Clip base classifier (its encoder and a LinearHead
+   with non-trivial running statistics) as a reference-layout teacher
+   ``.ckpt`` and the finetuning paths' ATST-Frame base ``.ckpt`` as the
+   student; ``distill_as`` (``methods.distill.train.main``: batches of 64
+   drawn by class-balanced weights, 2 epochs with 1 of warm-up, lambda_d
+   0.5): K1 once a train batch (one mel for teacher and student) and no
+   other kernel, finite losses, the checkpoint manager's one save (the
+   first epoch's) read back by the ``distillatst`` adapter equal tensor for
+   tensor; train clips/s by step (the first left out), peak memory; one
+   step at B = 4 on the card against the CPU (loss, each leaf's clipped
+   gradient, the updated parameters) and one step's device time by kernel
+   at B = 64; ``distill_other`` (``train_other.main`` on a seeded spcv2
+   tree of 1 s clips, 35 labels, 256 / 70 / 70 clips, 12 s central crops,
+   batches of 64, 1 epoch): K1 once a train and evaluation batch,
+   ``result.json``'s ACC finite in [0, 1], train and evaluation clips/s;
+   ``ddp_distill``: the ``distill_as`` step on 2 ranks as ``ddp_finetune``
+   holds its step, then ``train_other`` at ``--n_devices 2`` on a 64 / 33 /
+   33 spcv2 tree;
 4. ATST-Frame training: one step of ``FrameMethod`` at the ATST-Frame base
    recipe (``bench.py:358-378``, B=96 clips of 10 s, bf16, seeded weights
    and waveforms) through the kernels K1-K5, K7 and K8, checking the launch
@@ -742,18 +763,21 @@ def gemm_s8_checks(dev):
 # K1 at the main paths' STFT shapes [B, 2 * 513, T], timed: serving 8 x
 # 10 s, clip inference 8 x 6 s, the frame step 96 x 10 s, the clip step 96 x
 # 6 s crops, the probes' extraction batches 64 x 12 s, the clip CLI's 96 x
-# 9 s crops, the DCASE step's 128 + 128 x 10 s and the SED evaluations' and
-# AudioSet-strong step's 32 x 10 s; any other shape a main path hands K1 is compared after the
-# paths (``k1_compare``)
+# 9 s crops, the DCASE step's 128 + 128 x 10 s, the SED evaluations' and
+# AudioSet-strong step's 32 x 10 s and the AudioSet distillation step's 64 x
+# 10 s; any other shape a main path hands K1 is compared after the paths
+# (``k1_compare``)
 K1_SHAPES = {"serving": (B, 1026, 1001), "clip_serving": (B, 1026, 601),
              "frame_bf16": (TRAIN_B, 1026, 1001),
              "clip_f32": (TRAIN_B, 1026, 601),
              "probe_clip": (64, 1026, 1201),
              "pretrain_clip_cli": (TRAIN_B, 1026, 901),
-             "sed_dcase": (256, 1026, 1001), "sed_as_strong": (32, 1026, 1001)}
+             "sed_dcase": (256, 1026, 1001), "sed_as_strong": (32, 1026, 1001),
+             "distill_as": (64, 1026, 1001)}
 # paths that hand K1 the shape another path's entry times
 K1_SAME_SHAPE = {"probe_frame": "probe_clip", "finetune_clip": "probe_clip",
-                 "sed_dcase_distill": "sed_dcase"}
+                 "sed_dcase_distill": "sed_dcase",
+                 "distill_other": "probe_clip"}
 # The shape of each launch, as its comparison with the plain version must
 # have covered it: K1's STFT [B, 2F, T]; K2-K5 and K2q-K5q (tokens, width,
 # heads or hidden width: the batch only sizes the grid); K6 (dtype,
@@ -2246,6 +2270,39 @@ def finetune_breakdown(task, state, data, kind):
     breakdown(step, f"finetune_{kind}_step_of_{FT_B}", top=8)
 
 
+def run_timed(main, argv):
+    """``main(argv, record)`` with the launch counts and the peak memory
+    reset first; -> (its result, record, launches, peak GiB, seconds)."""
+    from audiossl_tpu_torch.kernels import build as kb
+
+    record = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kb.reset_launches()
+    t0 = time.perf_counter()
+    res = main(argv, record=record)
+    torch.cuda.synchronize()
+    return (res, record, dict(kb.LAUNCHES),
+            torch.cuda.max_memory_allocated() / 2 ** 30,
+            time.perf_counter() - t0)
+
+
+def write_ft_ckpt(workdir, kind):
+    """A seeded random encoder of ``FT_ARCH`` with 1001 frames of position
+    embeddings as a reference-layout ``.ckpt`` (the finetuning paths' and
+    the distillation student's), written once; returns its path."""
+    from audiossl_tpu_torch.downstream.train_freeze import _MAKERS
+
+    ckpt = os.path.join(workdir, f"finetune_{kind}.ckpt")
+    if not os.path.exists(ckpt):
+        sd = _MAKERS[(kind, FT_ARCH)](
+            spec_w=1001, device="cpu",
+            generator=torch.Generator().manual_seed(SEED + 21)).state_dict()
+        torch.save({"state_dict": {f"model.teacher.encoder.{k}": v
+                                   for k, v in sd.items()}}, ckpt)
+    return ckpt
+
+
 def finetune_path(dev, workdir, data, kind):
     """``train_finetune.main`` at base width on the card: a reference
     ``.ckpt`` (1001 frames of position embeddings, as the driver loads it),
@@ -2260,28 +2317,11 @@ def finetune_path(dev, workdir, data, kind):
     test metric; for the clip encoder also one step's device breakdown.
     Returns the launch counts of ``main``."""
     from audiossl_tpu_torch.downstream import train_finetune
-    from audiossl_tpu_torch.downstream.train_freeze import _MAKERS
-    from audiossl_tpu_torch.kernels import build as kb
 
-    ckpt = os.path.join(workdir, f"finetune_{kind}.ckpt")
-    sd = _MAKERS[(kind, FT_ARCH)](
-        spec_w=1001, device="cpu",
-        generator=torch.Generator().manual_seed(SEED + 21)).state_dict()
-    torch.save({"state_dict": {f"model.teacher.encoder.{k}": v
-                               for k, v in sd.items()}}, ckpt)
-    del sd
+    ckpt = write_ft_ckpt(workdir, kind)
     out = os.path.join(workdir, f"finetune_{kind}")
     argv = finetune_argv(kind, ckpt, data, out, dev)
-    record = {}
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    kb.reset_launches()
-    t0 = time.perf_counter()
-    res = train_finetune.main(argv, record=record)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(kb.LAUNCHES)
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    res, record, launches, peak, wall = run_timed(train_finetune.main, argv)
     steps = [s for epoch in record["steps"] for s in epoch]
     evals = [b for _, batches in record["evals"] for b in batches]
     print(f"finetune_{kind} launches: {launches}; {len(steps)} train and "
@@ -2530,7 +2570,6 @@ def sed_path(dev, name, kind, ckpt, data, out, extra=(), want_mode="max",
     test's decoding and scoring seconds and peak memory.
     Returns the launch counts of ``main`` and its record."""
     from audiossl_tpu_torch.downstream import train_as_strong, train_dcase
-    from audiossl_tpu_torch.kernels import build as kb
 
     argv = ["--pretrained_ckpt_path", ckpt, "--data_path", data, "--arch",
             SED_ARCH, "--max_epochs", str(SED_EPOCHS), "--warmup_epochs",
@@ -2538,16 +2577,7 @@ def sed_path(dev, name, kind, ckpt, data, out, extra=(), want_mode="max",
             "--device", str(dev), "--n_devices", "1", *SED_ARGS[kind],
             *extra]
     main = train_dcase.main if kind == "dcase" else train_as_strong.main
-    record = {}
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    kb.reset_launches()
-    t0 = time.perf_counter()
-    res = main(argv, record=record)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(kb.LAUNCHES)
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    res, record, launches, peak, wall = run_timed(main, argv)
     steps = [s for epoch in record["steps"] for s in epoch]
     evals = [b for epoch in record["evals"] for b in epoch]
     test = record["test"]
@@ -3824,7 +3854,9 @@ def ds_fingerprint(state):
 def ds_task(kind, dev, arg):
     """The 1-rank and the ranks' task: for ``"finetune"`` the one
     ``train_finetune.build_task`` makes of the flags ``arg`` (4 steps an
-    epoch, no warm-up: both steps move the weights); for ``"sed"`` the
+    epoch, no warm-up: both steps move the weights); for ``"distill"`` the
+    ``DistillMethod`` ``methods.distill.train`` builds of them (alike); for
+    ``"sed"`` the
     DCASE task at ATST-Frame base (learning rate 0.1) on the encoder of
     the checkpoint ``arg``."""
     from audiossl_tpu_torch.datasets import get_dataset
@@ -3832,6 +3864,8 @@ def ds_task(kind, dev, arg):
     from audiossl_tpu_torch.downstream.train_freeze import load_encoder
     from audiossl_tpu_torch.sed.module import SEDConfig, SEDTask
 
+    if kind == "distill":
+        return distill_task(arg, dev, 4, warmup_epochs=0)[0]
     if kind == "finetune":
         args = train_finetune.build_parser().parse_args(arg)
         args.warmup_epochs = 0
@@ -3964,7 +3998,7 @@ def ddp_ds_rank(out_dir, kind, task_arg, cli, cli_argv, device):
 
 
 def ddp_downstream_path(dev, out_dir, kind, task_arg, batches, cli,
-                        cli_argv):
+                        cli_argv, kept="top"):
     """A data-parallel downstream phase on this one card: the 1-rank steps
     here on the global ``batches`` (``DDP_DS_STEPS`` of ``DDP_DS_B``
     clips) with seeded draws, then 2 ranks (``parallel.launch.spawn``,
@@ -3976,8 +4010,10 @@ def ddp_downstream_path(dev, out_dir, kind, task_arg, batches, cli,
     largest leaf's norm), both ranks' states bit-equal after each step and
     each rank's K1 launches equal to the 1-rank step's; then ``cli`` at
     ``--n_devices 2`` on the ranks: rank 0 alone writes ``result.json``
-    and the keeper, the metrics finite, K1 once a train and eval batch on
-    each rank. Returns the ranks' launches, summed, and the summary."""
+    and the kept states (under the folder ``kept``: the keeper's ``top``
+    or the distillation drivers' ``ckpt``), the metrics finite, K1 once a
+    train and eval batch on each rank. Returns the ranks' launches,
+    summed, and the summary."""
     from audiossl_tpu_torch.downstream.finetune import draw_finetune, draws_to
     from audiossl_tpu_torch.kernels import build as kb
     from audiossl_tpu_torch.parallel import launch
@@ -3996,6 +4032,10 @@ def ddp_downstream_path(dev, out_dir, kind, task_arg, batches, cli,
                 DDP_DS_B, batch["wav"].shape[1]), task.encoder.depth, gen,
                 rng)
             on_dev = draws_to(draws, dev)
+        elif kind == "distill":  # from the state's generator
+            draws = task.draw(state, DDP_DS_B,
+                              batch["wav"].shape[1]).to("cpu")
+            on_dev = draws.to(dev)
         else:
             draws = task.draw(gen, DDP_DS_B).cpu()
             on_dev = draws.to(dev)
@@ -4076,8 +4116,8 @@ def ddp_downstream_path(dev, out_dir, kind, task_arg, batches, cli,
           f"{[c['launches']['mel_db'] for c in (c0, c1)]}; "
           f"{c0['wall_s']:.1f} s")
     check(c1["writes"] == [] and result_file in c0["writes"]
-          and any(os.sep + "top" + os.sep in p for p in c0["writes"]),
-          f"{name}: rank 0 alone writes result.json and the keeper")
+          and any(os.sep + kept + os.sep in p for p in c0["writes"]),
+          f"{name}: rank 0 alone writes result.json and the kept states")
     with open(result_file) as f:
         check(json.load(f) == c0["result"] == c1["result"],
               f"{name}: result.json holds both ranks' result")
@@ -4186,6 +4226,328 @@ def ddp_downstream_nccl(module, argv, n_cards):
         save, "result.json")), f"{module} on {n_cards} NCCL ranks wrote its "
           f"result ({r.stderr[-2000:]})")
     return wall
+
+
+# Clip-to-frame distillation (``methods/distill``) at base width: a seeded
+# random ATST-Clip base classifier (its encoder and a LinearHead with
+# non-trivial running statistics) as a reference-layout teacher ``.ckpt``;
+# the finetuning paths' ATST-Frame base ``.ckpt`` as the student (1001
+# frames of position embeddings, the width JAX builds the student at; the
+# probe's frame file holds 601). ``train.main`` on the probe pack: batches
+# of 64 drawn by class-balanced weights, 2 epochs with 1 of warm-up (cut
+# from the reference's 40 and 2), lambda_d 0.5; ``train_other.main`` on a
+# seeded spcv2 tree (1 s clips in 12 s central crops, 1 epoch)
+DISTILL_B, DISTILL_EPOCHS, DISTILL_CHECK_B = 64, 2, 4
+SPCV2_SPLITS = (("train", 256), ("valid", 70), ("test", 70))  # ragged eval
+DDP_SPCV2_SPLITS = (("train", 64), ("valid", 33), ("test", 33))
+
+
+def write_distill_teacher(workdir, num_labels):
+    """A seeded random ATST-Clip base encoder (1001 frames) and a LinearHead
+    over its CLS and mean (1536 -> ``num_labels``: weight std 0.05, running
+    means std 0.1, variances in [0.5, 1.5]) as a finetuned classifier's
+    reference-layout ``.ckpt`` (``encoder.encoder.*``, ``head.*`` with the
+    reference's ``num_batches_tracked``), written once; returns its path."""
+    from audiossl_tpu_torch.downstream.train_freeze import _MAKERS
+    from audiossl_tpu_torch.models.heads import LinearHead
+
+    path = os.path.join(workdir, f"distill_teacher_{num_labels}.ckpt")
+    if os.path.exists(path):
+        return path
+    enc = _MAKERS[("clip", FT_ARCH)](
+        spec_w=1001, device="cpu",
+        generator=torch.Generator().manual_seed(SEED + 70))
+    head = LinearHead(2 * enc.embed_dim, num_labels,
+                      generator=torch.Generator().manual_seed(SEED + 71))
+    g = torch.Generator().manual_seed(SEED + 72)
+    with torch.no_grad():
+        head.linear.weight.normal_(0.0, 0.05, generator=g)
+        head.norm.running_mean.normal_(0.0, 0.1, generator=g)
+        head.norm.running_var.uniform_(0.5, 1.5, generator=g)
+    sd = {f"encoder.encoder.{k}": v for k, v in enc.state_dict().items()}
+    sd.update((f"head.{k}", v) for k, v in head.state_dict().items())
+    sd["head.norm.num_batches_tracked"] = torch.tensor(1000)
+    torch.save({"state_dict": sd}, path)
+    return path
+
+
+def write_spcv2_tree(workdir, name, splits):
+    """A seeded ``spcv2`` tree (``datasets.tasks.SpeechCommandsV2``'s
+    layout: a folder a label, the validation and test lists) of 1 s int16
+    tone clips, one tone a label, the labels in turn; returns its path."""
+    from scipy.io import wavfile
+
+    from audiossl_tpu_torch.datasets.tasks import SpeechCommandsV2
+
+    root = os.path.join(workdir, name)
+    rng = np.random.RandomState(SEED + 73)
+    t = np.arange(16000) / 16000.0
+    labels = SpeechCommandsV2.LABELS
+    lists, i = {"valid": [], "test": []}, 0
+    for split, n in splits:
+        for _ in range(n):
+            lab = labels[i % len(labels)]
+            rel = f"{lab}/{i:04d}.wav"
+            os.makedirs(os.path.join(root, lab), exist_ok=True)
+            wav = 0.3 * np.sin(2 * np.pi * (200 + 40 * (i % len(labels)))
+                               * t) + 0.05 * rng.randn(16000)
+            wavfile.write(os.path.join(root, rel), 16000,
+                          (wav * 32767).astype(np.int16))
+            if split != "train":
+                lists[split].append(rel)
+            i += 1
+    for split, name_ in (("valid", "validation_list.txt"),
+                         ("test", "testing_list.txt")):
+        with open(os.path.join(root, name_), "w") as f:
+            f.write("\n".join(lists[split]) + "\n")
+    return root
+
+
+def distill_argv(data, teacher, student, out, dev):
+    """``distill_as``'s flags of ``methods.distill.train.main``."""
+    return ["--data_path", data, "--teacher_ckpt_path", teacher,
+            "--student_ckpt_path", student, "--save_path", out,
+            "--batch_size", str(DISTILL_B), "--max_epochs",
+            str(DISTILL_EPOCHS), "--warmup_epochs", "1",
+            "--balanced_sampling", "--lambda_d", "0.5", "--device", str(dev),
+            "--n_devices", "1"]
+
+
+def distill_task(argv, dev, steps_per_epoch, warmup_epochs=None):
+    """The method and state ``methods.distill.train`` builds of the flags
+    ``argv`` on ``dev``, at ``steps_per_epoch`` steps an epoch."""
+    from audiossl_tpu_torch.methods.distill import train as distill
+
+    args = distill.build_parser().parse_args(argv)
+    if warmup_epochs is not None:
+        args.warmup_epochs = warmup_epochs
+    return distill.build_method(distill.build_config(args, steps_per_epoch),
+                                args, dev)
+
+
+def distill_step_check(dev, argv, data):
+    """One distillation step of the flags ``argv`` (one step an epoch, so
+    at the base learning rate) at B = 4 from the same state and draws on
+    the card and on the CPU (f32, TF32 off), held as
+    :func:`finetune_step_check` holds the finetuning step: the loss within
+    ``FT_LOSS_REL``, every leaf's clipped gradient (the momentum trace
+    after one step) at cosine >= ``FT_LEAF_COS``, the updated parameters
+    within ``FT_PARAM_ATOL``, the final norm's bias (behind the student
+    head's BatchNorm) within ``FT_ZERO_REL`` of the largest leaf's norm.
+    Returns the card's method and state."""
+    from audiossl_tpu_torch.datasets import BatchLoader, PackedAudioDataset
+
+    batch = next(iter(BatchLoader(PackedAudioDataset(data, "train"),
+                                  DISTILL_CHECK_B, pad_samples=160000,
+                                  shuffle=False)))
+    out = []
+    for d in (dev, torch.device("cpu")):
+        method, state = distill_task(argv[:-4] + ["--device", str(d)], d, 1)
+        if d == dev:
+            draws = method.draw(state, DISTILL_CHECK_B,
+                                batch["wav"].shape[1]).to("cpu")
+        before = {k: p.detach().to("cpu", copy=True)
+                  for k, p in state.params.items()}
+        t0 = time.perf_counter()
+        _, m = method.train_step(state, batch, draws.to(d))
+        out.append(({k: float(m[k]) for k in ("loss", "loss_d", "loss_c",
+                                               "gnorm")},
+                    {k: v.detach().cpu() for k, v in state.mu.items()},
+                    {k: p.detach().cpu() for k, p in state.params.items()},
+                    before, time.perf_counter() - t0, method, state))
+    (mc, gc, pc, _, tc, *card), (mh, gh, ph, before, th, *_) = out
+    rel = {k: abs(mc[k] - mh[k]) / abs(mh[k]) for k in mc}
+    zero = "encoder.norm_frame.bias"
+    top = max(float(v.norm()) for v in gh.values())
+    zero_rel = float((gc[zero] - gh[zero]).norm()) / top
+    cos, worst, unused, unchanged, param_err = step_agreement(
+        gc, gh, pc, ph, before, skip=zero)
+    print(json.dumps({"distill_as_step_card_vs_cpu": {
+        "card": CARD, "batch": DISTILL_CHECK_B, "card_metrics": mc,
+        "cpu_metrics": mh, "rel": rel, "leaves_compared": len(cos),
+        "lowest_cos": [worst, cos[worst]], "param_max_abs_diff": param_err,
+        "no_gradient": unused, "unchanged": unchanged,
+        "final_norm_bias_diff_rel": zero_rel, "card_s": tc, "cpu_s": th}}))
+    for k in ("loss", "loss_d", "loss_c", "gnorm"):
+        check(np.isfinite(mc[k]) and rel[k] <= FT_LOSS_REL,
+              f"distill_as step: card {k} {mc[k]} vs CPU {mh[k]} (rel "
+              f"{rel[k]} <= {FT_LOSS_REL})")
+    check(cos[worst] >= FT_LEAF_COS,
+          f"distill_as step: every leaf's clipped gradient at cosine >= "
+          f"{FT_LEAF_COS} to the CPU's (lowest {worst} {cos[worst]})")
+    check(param_err <= FT_PARAM_ATOL, f"distill_as step: the updated "
+          f"parameters within {FT_PARAM_ATOL} of the CPU's ({param_err})")
+    check(zero_rel <= FT_ZERO_REL, f"distill_as step: {zero}'s gradient "
+          f"within {FT_ZERO_REL} of the largest leaf's norm ({zero_rel})")
+    check(unused == ["encoder.mask_embed"],
+          "distill_as step: only the unused mask_embed has no gradient")
+    return card
+
+
+def distill_breakdown(method, state, data):
+    """Where a distillation step's time goes at B = 64
+    (:func:`breakdown`): ``DistillMethod.train_step`` on the first train
+    batch with fresh draws each step; the host's copy of the batch to the
+    card included."""
+    from audiossl_tpu_torch.datasets import BatchLoader, PackedAudioDataset
+
+    batch = next(iter(BatchLoader(PackedAudioDataset(data, "train"),
+                                  DISTILL_B, pad_samples=160000,
+                                  shuffle=False)))
+
+    def step():
+        draws = method.draw(state, DISTILL_B, batch["wav"].shape[1])
+        return float(method.train_step(state, batch, draws)[1]["loss"])
+
+    breakdown(step, f"distill_as_step_of_{DISTILL_B}", top=8)
+
+
+def distill_as_path(dev, workdir, data):
+    """``methods.distill.train.main`` at base width on the card: the
+    teacher (clip base, no gradient) and the student (frame base, drop path
+    0.1) on one mel of each batch through K1, the student head's BCE to the
+    teacher's sigmoid and to the labels, the clipped layer-decayed SGD, the
+    epoch's save. Checks K1 once a train batch and no other kernel, finite
+    losses, the checkpoint manager's one save (the first epoch's) read back
+    by the ``distillatst`` adapter equal tensor for tensor to the student at
+    that step; then one step on the card against the CPU and one step's
+    device time by kernel. Prints train clips/s by step (the first left
+    out) and peak memory. Returns the launch counts of ``main``."""
+    from audiossl_tpu_torch.downstream.comparison_models import get_adapter
+    from audiossl_tpu_torch.methods.distill import train as distill
+
+    teacher = write_distill_teacher(workdir, 527)
+    student = write_ft_ckpt(workdir, "frame")
+    out = os.path.join(workdir, "distill_as")
+    argv = distill_argv(data, teacher, student, out, dev)
+    state, record, launches, peak, wall = run_timed(distill.main, argv)
+    steps = [s for epoch in record["steps"] for s in epoch]
+    print(f"distill_as launches: {launches}; {len(steps)} train batches; "
+          f"main took {wall:.2f} s")
+    check(len(steps) == DISTILL_EPOCHS * (PROBE_SPLITS[0][1] // DISTILL_B)
+          and all(s[0] == DISTILL_B for s in steps),
+          f"distill_as: {DISTILL_EPOCHS} epochs of full train batches")
+    check(launches["mel_db"] == len(steps),
+          f"distill_as: K1 launched once per train batch, the teacher's mel "
+          f"the student's ({launches['mel_db']} of {len(steps)})")
+    check(not any(v for k, v in launches.items() if k != "mel_db"),
+          "distill_as: no other kernel launched (f32 module route)")
+    check(all(np.isfinite(s[2:]).all() for s in steps),
+          "distill_as: finite losses")
+    train = steps[1:]
+    print(json.dumps({"distill_as": {
+        "card": CARD,
+        "train_clips_per_s": sum(s[0] for s in train)
+        / sum(s[1] for s in train),
+        "by_step": [s[0] / s[1] for s in steps],
+        "loss_by_step": [s[2] for s in steps], "peak_gib": peak,
+        "main_s": wall, "k1_launches": launches["mel_db"]}}))
+    saved = sorted(os.listdir(os.path.join(out, "ckpt")))
+    first = PROBE_SPLITS[0][1] // DISTILL_B
+    check(saved == [str(first)] and list(record["saved"]) == [first],
+          f"distill_as: the checkpoint manager kept the first epoch's save "
+          f"alone ({saved})")
+    enc = get_adapter("distillatst", ckpt_path=os.path.join(
+        out, "ckpt", str(first)), arch=FT_ARCH, device=dev).encoder
+    want = record["saved"][first]
+    got = enc.state_dict()
+    check(len(got) == sum(k.startswith("encoder.") for k in want) and all(
+        torch.equal(v.cpu(), want[f"encoder.{k}"]) for k, v in got.items()),
+          "distill_as: the distillatst adapter reads the saved student "
+          "equal tensor for tensor")
+    del state, enc, got, record
+    torch.cuda.empty_cache()
+    method, state = distill_step_check(dev, argv, data)
+    distill_breakdown(method, state, data)
+    return launches
+
+
+def distill_other_path(dev, workdir):
+    """``methods.distill.train_other.main`` at base width on the card on a
+    seeded spcv2 tree (35 labels; 256 train, 70 validation and 70 test
+    clips of 1 s in 12 s central crops: the teacher's 2 chunks of 601
+    frames, the student's 2 chunks of 1001, the second unmarked), batches
+    of 64, 1 epoch: K1 once per train and evaluation batch and no other
+    kernel, ``result.json`` with the validation and test ACC finite in
+    [0, 1]; train and evaluation clips/s. Returns the launch counts."""
+    from audiossl_tpu_torch.methods.distill import train_other
+
+    tree = write_spcv2_tree(workdir, "spcv2", SPCV2_SPLITS)
+    out = os.path.join(workdir, "distill_other")
+    argv = ["--dataset_name", "spcv2", "--data_path", tree,
+            "--teacher_ckpt_path", write_distill_teacher(workdir, 35),
+            "--student_ckpt_path", write_ft_ckpt(workdir, "frame"),
+            "--arch", FT_ARCH, "--max_len", "12", "--batch_size",
+            str(DISTILL_B), "--max_epochs", "1", "--save_path", out,
+            "--device", str(dev), "--n_devices", "1"]
+    res, record, launches, peak, wall = run_timed(train_other.main, argv)
+    steps = [s for epoch in record["steps"] for s in epoch]
+    evals = [b for _, batches in record["evals"] for b in batches]
+    print(f"distill_other launches: {launches}; {len(steps)} train and "
+          f"{len(evals)} eval batches; main took {wall:.2f} s")
+    check(len(steps) == SPCV2_SPLITS[0][1] // DISTILL_B
+          and all(s[0] == DISTILL_B for s in steps),
+          "distill_other: one epoch of full train batches")
+    check(launches["mel_db"] == len(steps) + len(evals),
+          f"distill_other: K1 launched once per train and eval batch "
+          f"({launches['mel_db']} of {len(steps) + len(evals)})")
+    check(not any(v for k, v in launches.items() if k != "mel_db"),
+          "distill_other: no other kernel launched (f32 module route)")
+    train = steps[1:]
+    print(json.dumps({"distill_other": {
+        "card": CARD,
+        "train_clips_per_s": sum(s[0] for s in train)
+        / sum(s[1] for s in train),
+        "by_step": [s[0] / s[1] for s in steps],
+        "eval_clips_per_s": sum(n for n, _ in evals)
+        / sum(t for _, t in evals),
+        "eval_by_batch": [n / t for n, t in evals], "peak_gib": peak,
+        "result": res, "main_s": wall, "k1_launches": launches["mel_db"]}}))
+    with open(os.path.join(out, "result.json")) as f:
+        result = json.load(f)
+    check(result == res and set(result) == {"dataset", "val", "test"},
+          f"distill_other result.json {result}")
+    for key in ("val", "test"):
+        check(np.isfinite(result[key]) and 0.0 <= result[key] <= 1.0,
+              f"distill_other {key} ACC {result[key]} finite in [0, 1]")
+    return launches
+
+
+def ddp_distill_path(dev, workdir, data):
+    """``ddp_distill``: the ``distill_as`` step at a global batch of 16 from
+    the probe pack (:func:`ddp_downstream_path`), then ``train_other`` on 2
+    ranks for one epoch of batches of 16 on a spcv2 tree whose validation
+    and test splits of 33 clips end on a ragged batch."""
+    from audiossl_tpu_torch.datasets import BatchLoader, PackedAudioDataset
+
+    student = write_ft_ckpt(workdir, "frame")
+    argv = distill_argv(data, write_distill_teacher(workdir, 527), student,
+                        os.path.join(workdir, "unused"), dev)
+    loader = iter(BatchLoader(PackedAudioDataset(data, "train"), DDP_DS_B,
+                              pad_samples=160000, shuffle=False))
+    batches = [next(loader) for _ in range(DDP_DS_STEPS)]
+    tree = write_spcv2_tree(workdir, "ddp_spcv2", DDP_SPCV2_SPLITS)
+    cli_argv = ["--dataset_name", "spcv2", "--data_path", tree,
+                "--teacher_ckpt_path", write_distill_teacher(workdir, 35),
+                "--student_ckpt_path", student, "--arch", FT_ARCH,
+                "--batch_size", str(DDP_DS_B), "--max_epochs", "1",
+                "--save_path", os.path.join(workdir, "ddp_distill_cli")]
+    return ddp_downstream_path(
+        dev, os.path.join(workdir, "ddp_distill"), "distill", argv, batches,
+        "audiossl_tpu_torch.methods.distill.train_other", cli_argv,
+        kept="ckpt")
+
+
+def distill_paths(dev, workdir, data, run_path):
+    """The three distillation paths, each through ``run_path``."""
+    for name, fn in (("distill_as", lambda: distill_as_path(dev, workdir,
+                                                            data)),
+                     ("distill_other", lambda: distill_other_path(dev,
+                                                                  workdir)),
+                     ("ddp_distill", lambda: ddp_distill_path(dev, workdir,
+                                                              data))):
+        torch.cuda.empty_cache()
+        run_path(name, fn)
 
 
 def pretrain_eval_path(dev, workdir):
@@ -4346,6 +4708,7 @@ def main():
                      lambda: finetune_path(dev, workdir, data, kind))
         torch.cuda.empty_cache()
         run_path("ddp_finetune", lambda: ddp_finetune_path(dev, workdir, data))
+        distill_paths(dev, workdir, data, run_path)
     with tempfile.TemporaryDirectory() as workdir:
         dcase, _, sed_ckpt = sed_paths(dev, workdir, run_path)
         torch.cuda.empty_cache()

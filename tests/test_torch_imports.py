@@ -1,5 +1,5 @@
-"""The port stands without JAX (and its probe, finetuning and SED slices and
-pretraining CLIs without pandas and PyYAML), and its kernel wrappers launch nothing for a CPU
+"""The port stands without JAX (and its probe, finetuning, SED and
+distillation slices and pretraining CLIs without pandas and PyYAML), and its kernel wrappers launch nothing for a CPU
 tensor (they take their plain versions)."""
 import subprocess
 import sys
@@ -43,6 +43,8 @@ def test_port_imports_without_jax():
         "import audiossl_tpu_torch.downstream.train_finetune\n"
         "import audiossl_tpu_torch.transforms.target\n"
         "import audiossl_tpu_torch.methods.distill.train\n"
+        "import audiossl_tpu_torch.methods.distill.method\n"
+        "import audiossl_tpu_torch.methods.distill.train_other\n"
         "import audiossl_tpu_torch.sed, audiossl_tpu_torch.sed.psds\n"
         "import audiossl_tpu_torch.sed.module\n"
         "import audiossl_tpu_torch.datasets.sed\n"
