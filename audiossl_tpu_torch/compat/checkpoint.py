@@ -245,12 +245,16 @@ def linear_head_state_from_torch(sd: Mapping[str, object]
 def sed_state_from_flax(enc_params, head_params):
     """The JAX package's SED state (``sed/module.py`` ``SEDState``'s
     ``enc_params`` and ``head_params``, arrays of any kind) -> (the
-    encoder's state dict, the ``SEDHead``'s state dict)."""
+    encoder's state dict, the ``SEDHead``'s state dict). ``enc_params``
+    None (a comparison encoder, which starts from its authors' file on
+    both sides) gives None for the encoder."""
     head: Dict[str, torch.Tensor] = {}
     for name, p in _tree_np(head_params).items():
         if name not in ("linear", "linear_softmax"):
             raise KeyError(f"param group {name!r} has no place in SEDHead")
         _dense(p, name, head)
+    if enc_params is None:
+        return None, head
     return state_dict_from_flax(_tree_np(enc_params)), head
 
 

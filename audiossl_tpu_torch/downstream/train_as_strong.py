@@ -78,8 +78,7 @@ def build_parser():
     p.add_argument("--arch", default="base",
                    choices=list(SIZES) + list_adapters(),
                    help="own frame-AST size tier, or an encoder adapter "
-                        "(reference train_as_strong.py dispatch; the port "
-                        "runs frameatst, clipatst and distillatst)")
+                        "(reference train_as_strong.py dispatch)")
     p.add_argument("--learning_rate", type=float, default=1e-3)
     p.add_argument("--lr_scale", type=float, default=0.75)
     p.add_argument("--batch_size", type=int, default=32)

@@ -18,9 +18,12 @@ that raises, it never falls back to the CPU). ``DCASE`` holds
 with ``audio/`` and a ``meta.tsv`` (``datasets/sed.py``);
 ``strong_val/durations.tsv`` (filename, duration) is optional. The encoder
 is ``train_freeze.load_encoder``'s (the f32 module route: K1 is the one
-kernel on the path) or one of the repository's own adapters
-(``comparison_models``); the TSVs are read without pandas. Each step's
-drop-path uniforms come from a seeded ``torch.Generator`` on the host.
+kernel on the path) or an adapter of ``comparison_models``: the
+repository's own, or one of the eight comparison encoders read from its
+authors' checkpoint (``--arch beats``, ``maeast``, ...; MAE-AST's
+attention runs K6); the TSVs are read without pandas. Each step's
+drop-path uniforms come from a seeded ``torch.Generator`` on the host
+(the comparison encoders take none).
 
 ``--n_devices N`` (default: every visible card, 1 on the CPU; or
 torchrun's ``WORLD_SIZE``) runs N ranks (``parallel.launch.run_cli``), as
@@ -198,8 +201,7 @@ def build_parser():
     p.add_argument("--arch", default="base",
                    choices=list(SIZES) + list_adapters(),
                    help="own frame-AST size tier, or an encoder adapter "
-                        "(reference train_dcase.py:139-175 dispatch; the "
-                        "port runs frameatst, clipatst and distillatst)")
+                        "(reference train_dcase.py:139-175 dispatch)")
     p.add_argument("--learning_rate", type=float, default=1e-1)
     p.add_argument("--batch_size_synth", type=int, default=128)
     p.add_argument("--batch_size_weak", type=int, default=128)

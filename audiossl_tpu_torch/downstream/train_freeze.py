@@ -18,7 +18,8 @@ on that device, one batch at a time; the encoder is the plain f32 one (the
 module route), as JAX's driver builds it, so the mel kernel K1 is the one
 kernel on the path. Reference ``.ckpt`` files load, and the port's own
 pretraining checkpoints (a ``state.pt`` or its step directory); an orbax
-directory needs JAX to read, and the port imports none of it.
+directory needs JAX to read, and the port imports none of it: its
+``.ckpt`` export (``scripts/export_orbax_ckpt.py``) loads.
 
 ``--n_devices N`` (default: every visible card, 1 on the CPU; or
 torchrun's ``WORLD_SIZE``) runs N ranks (``parallel.launch.run_cli``):
@@ -85,13 +86,15 @@ def load_encoder(ckpt_path: str, model_type: str, arch: str,
     it holds, which the pretraining ``--anchor_len`` set; its arch, read
     off its shapes, must be ``model_type`` and ``arch``). Any other path
     raises ``NotImplementedError``: JAX reads orbax directories through
-    orbax and tensorstore, which the port does not use."""
+    orbax and tensorstore, which the port does not use
+    (``scripts/export_orbax_ckpt.py`` writes their ``.ckpt``)."""
     device = resolve_device(device)
     if not (ckpt_path.endswith(".ckpt") or port_state_path(ckpt_path)):
         raise NotImplementedError(
             "only reference .ckpt files and the port's state.pt "
             "checkpoints load; orbax directories need JAX to read, which "
-            "the port does not import")
+            "the port does not import: turn one into a .ckpt with "
+            "scripts/export_orbax_ckpt.py where JAX and orbax are installed")
     sd, hparams = load_pretrain_checkpoint(ckpt_path, which=which)
     layout = hparams.get("layout", "reference")
     if layout == "port" and (hparams["model_type"], hparams["arch"]) != (

@@ -77,6 +77,9 @@ def load_model(ckpt_path: str, arch: Optional[str] = None,
     CLI, or that step directory) loads ``which`` branch's encoder as it
     is, every tensor of it.
 
+    An orbax directory of the JAX package is read through its ``.ckpt``
+    export (``scripts/export_orbax_ckpt.py``, run where JAX is installed).
+
     ``arch`` defaults to the checkpoint's ``hyper_parameters["arch"]``
     (for a port checkpoint, the tier its shapes have), else "base".
     ``fused=True`` builds the encoder JAX's ``load_model(fused=True)``
@@ -98,9 +101,10 @@ def load_model(ckpt_path: str, arch: Optional[str] = None,
         raise ValueError("quant requires fused=True (the quantized "
                          "products live in the fused block kernels)")
     if not (ckpt_path.endswith(".ckpt") or port_state_path(ckpt_path)):
-        raise NotImplementedError("only reference .ckpt files and the "
-                                  "port's state.pt checkpoints load; orbax "
-                                  "directories are not ported yet")
+        raise NotImplementedError(
+            "only reference .ckpt files and the port's state.pt checkpoints "
+            "load; turn an orbax directory into a .ckpt with "
+            "scripts/export_orbax_ckpt.py where JAX and orbax are installed")
     sd, hparams = load_pretrain_checkpoint(ckpt_path, which=which)
     layout = hparams.get("layout", "reference")
     if layout == "port":

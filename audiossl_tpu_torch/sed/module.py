@@ -12,11 +12,14 @@ g + momentum * trace), the traced update times each parameter's
 layer-decay factor when ``lr_scale`` < 1, then ``p -= lr * u``, with a
 cosine learning rate per step and no weight decay.
 
-The encoder is the f32 module route (``train_freeze.load_encoder``), so
-the mel kernel K1 is the one kernel on the path. Its drop-path uniforms
-are handed in (``SEDTask.draw``: [depth, 2, B] from a ``torch.Generator``),
-so a test passes JAX's. Freeze mode runs the encoder in eval mode with no
-gradient and trains the head alone.
+The repository's own encoder is the f32 module route
+(``train_freeze.load_encoder``), so the mel kernel K1 is the one kernel on
+its path, and its drop-path uniforms are handed in (``SEDTask.draw``:
+[depth, 2, B] from a ``torch.Generator``), so a test passes JAX's. A
+comparison encoder (``downstream.comparison_models``) takes no drop path,
+as in JAX, and runs its own front end; MAE-AST's attention is the MHA
+kernel K6, forward and backward. Freeze mode runs the encoder in eval mode
+with no gradient and trains the head alone.
 
 Under a process group each rank steps on its rows of the global batch
 (JAX's ``downstream_spmd``): a ``MixedBatchLoader`` batch stacks its
@@ -100,7 +103,7 @@ class SEDTask:
                  generator: Optional[torch.Generator] = None):
         """``encoder`` is an :class:`AudioTransformer` or an adapter of
         ``downstream.comparison_models`` (``frame_embeddings``,
-        ``embed_dim``, ``token_count`` and its ``encoder``).
+        ``embed_dim``, ``token_count`` and its ``encoder``, any module).
         ``teacher_fn(wav, valid) -> (strong [B, C, T], weak [B, C])``, the
         probabilities of a frozen finetuned SED teacher, enables distill
         mode. The head's weights are drawn from ``generator`` (seed 0 when
@@ -111,7 +114,11 @@ class SEDTask:
             self.adapter = encoder
         self.encoder = self.adapter.encoder
         self.cfg = cfg
-        self.device = self.encoder.pos_embed.device
+        self.device = next(self.encoder.parameters()).device
+        # the ATST encoders take drop path; the comparison encoders none,
+        # as JAX's adapters ignore their rngs
+        self.dp_depth = (self.encoder.depth
+                         if isinstance(self.adapter, EncoderAdapter) else 0)
         self.head = SEDHead(self.adapter.embed_dim, cfg.num_labels,
                             device=self.device, generator=generator)
         self.teacher_fn = teacher_fn
@@ -144,11 +151,12 @@ class SEDTask:
 
     def draw(self, gen: torch.Generator, batch: int) -> Optional[torch.Tensor]:
         """One step's drop-path uniforms [depth, 2, batch] from ``gen`` (a
-        CPU generator) on the task's device; None in freeze mode or without
-        drop path."""
-        if self.cfg.freeze_mode or self.cfg.drop_path_rate == 0:
+        CPU generator) on the task's device; None in freeze mode, without
+        drop path or for a comparison encoder."""
+        if (self.cfg.freeze_mode or self.cfg.drop_path_rate == 0
+                or not self.dp_depth):
             return None
-        u = torch.rand(self.encoder.depth, 2, batch, generator=gen)
+        u = torch.rand(self.dp_depth, 2, batch, generator=gen)
         return u.to(self.device)
 
     def _batch(self, batch):

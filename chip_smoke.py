@@ -4,8 +4,10 @@ base (bf16 and int8), the linear probe, full finetuning and clip-to-frame
 distillation at ATST-Clip and ATST-Frame base width, sound event
 detection (DCASE, AudioSet-strong, distill) at ATST-Frame base, the pretraining steps of ATST-Frame base (bf16, f32 and the int8
 recipes) and ATST-Clip small (f32, bf16 and the int8 recipes), the
-pretraining CLIs with their run loop, checkpoints and crash-restart, and
-data-parallel pretraining on 2 ranks (replicated and ZeRO-1).
+pretraining CLIs with their run loop, checkpoints and crash-restart,
+data-parallel pretraining on 2 ranks (replicated and ZeRO-1), and the eight
+comparison encoders (BEATs, BYOL-A, AudioMAE, M2D, SSAST and MAE-AST, frame
+and patch) at full width with MAE-AST's attention on K6.
 
 Run from the repository root on a machine with one CUDA GPU (Hopper,
 sm_90a) and the CUDA toolkit:
@@ -58,7 +60,13 @@ sm_90a) and the CUDA toolkit:
    12 heads), and in bf16 at [192, 250, 768], each beside
    ``scaled_dot_product_attention`` with the key mask (its library call),
    and untimed in both dtypes at [16, 97, 256] with 8 heads of 32, with a
-   sequence that has no valid key; K8 in f32 and bf16 at [192 * 151, 384] and
+   sequence that has no valid key; K6 in f32 at MAE-AST's shapes (32 clips
+   of 10 s at full width, 12 heads of 64, every key valid): [32, 499,
+   3 * 768] (frame variant, timed beside its bound and SDPA) and [32, 496,
+   3 * 768] (patch variant), on the qkv MAE-AST's layers compute from a
+   seeded authors'-layout checkpoint, each layer's largest score held
+   below the f32 ``exp`` overflow (K6 subtracts no row maximum), output,
+   r, dq, dk and dv each within 1e-4; K8 in f32 and bf16 at [192 * 151, 384] and
    [192 * 250, 768], in device time too beside aten's LayerNorm backward,
    and untimed in bf16 at [192 * 226, 384] and at 97 rows of widths 100,
    200, 1000 and 1023; K7 over the
@@ -83,7 +91,8 @@ sm_90a) and the CUDA toolkit:
    token) and ``get_timestamp_embedding`` through the kernels, checking
    shapes, finiteness, launch counts and agreement with the plain f32
    path on the card, and the plain f32 path on the card against the CPU;
-   times scene embedding (clips/s, B=8) on both paths; then the same
+   ``utils.plot.plot_attention`` without a path on the card (shape and
+   finiteness); times scene embedding (clips/s, B=8) on both paths; then the same
    with ``load_model(fused=True, quant="int8")`` (K1, K2q, K3q) against
    ``load_model(fused=True)``; then the clip encoder's inference path at
    ATST-Clip small width (``get_intermediate_layers`` of 8 ragged 6 s
@@ -99,7 +108,9 @@ sm_90a) and the CUDA toolkit:
    extractor on the CPU, the clip checkpoint's Linear and Conv2d
    patch-embed layouts bit-equal on the card, ``result.json`` (mAP, finite
    in [0, 1]) and at most 10 kept heads, the probe's ACC branch on the
-   frame embeddings; extraction clips/s by split (without the run's first
+   frame embeddings, ``datamodules.EmbeddingExtractor`` over
+   ``DownstreamDataModule``'s test loader (shape, labels, K1 a batch);
+   extraction clips/s by split (without the run's first
    batch) and the probe's seconds; then full finetuning,
    ``train_finetune.main``, on the same pack at ATST-Clip base (12 s crops,
    chunks of 601 frames) and ATST-Frame base (10 s crops, SpecAugment,
@@ -249,6 +260,23 @@ sm_90a) and the CUDA toolkit:
    data-parallel rate). With 2 cards or more, also the frame CLI over
    NCCL at ``--n_devices`` the count for 3 steps; on one card a line says
    it did not run.
+14. the comparison encoders, after ``ddp_sed`` (``comparison_encoders``):
+   each of the eight adapters of ``downstream.comparison_models`` at the
+   full width JAX's loaders build by default (BEATs iter3, ViT-B/16 for
+   AudioMAE, M2D and both SSAST variants, MAE-AST 768 / 12 / 12, BYOL-A at
+   d 3072), built in memory from seeded random weights in its authors'
+   layout (``compat.synthetic``); ``frame_embeddings`` of 4 clips of 10 s
+   on the card against the CPU (f32 both, TF32 off, rel L2 <= 1e-4), ``T'``
+   = ``token_count``, K6 12 times a forward for each MAE-AST variant and no
+   kernel for the others; clips/s at B = 32 and the peak; one SED step
+   (2 strong and 2 weak clips) of ``maeast`` (12 K6 forward and backward
+   launches) and of ``beats`` on the card against the CPU (loss rel 1e-5,
+   lowest leaf cosine 0.9999); then ``comparison_sed``: ``train_dcase
+   --arch maeast`` (finetuning through K6) and ``train_as_strong --arch
+   beats --freeze_mode``, one epoch at batches of 32 on the SED trees, each
+   reading one authors'-layout file: launches, ``result.json``, train and
+   evaluation clips/s, peak memory.
+Each path's seconds are printed (``path NAME: S s``).
 ``--profile DIR`` also writes a ``torch.profiler`` table and trace of one
 kernel-path step of phases 4, 5, 7 and 8 to DIR.
 
@@ -1787,6 +1815,21 @@ def main_path(dev, path):
     check(d <= CPU_ATOL, f"plain path on the card matches the CPU within {CPU_ATOL}")
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30} GiB")
 
+    # utils/plot.py without a path (no matplotlib on the card's machine):
+    # the last block's maps (their values are held against JAX's in the
+    # CPU tests)
+    from audiossl_tpu_torch.ops.melspec import log_melspec
+    from audiossl_tpu_torch.utils.plot import plot_attention
+
+    wav = torch.from_numpy(wav8).to(dev)
+    valid = torch.full((B,), SAMPLES, device=dev)
+    mel = log_melspec(wav, valid, plain.mel)
+    length = valid // plain.mel.hop_length + 1
+    maps = plot_attention(plain.encoder, mel, length)
+    check(maps.shape == (B, H, N, N) and np.isfinite(maps).all(),
+          f"plot_attention's maps {maps.shape} finite, (B, H, N, N) on the "
+          "card")
+
     # scene-embedding throughput, in turns: plain, fused, fused, plain
     rates = {"plain_f32": [], "fused_bf16": []}
     for label in ("plain_f32", "fused_bf16", "fused_bf16", "plain_f32"):
@@ -2119,6 +2162,24 @@ def probe_path(dev, workdir, data, kind):
         check(np.isfinite(acc["test_metric"])
               and 0.0 <= acc["test_metric"] <= 1.0,
               "probe_frame: the probe's ACC branch gives a finite accuracy")
+        # the data-module facade (datamodules.py) over the same pack: its
+        # test loader through EmbeddingExtractor, K1 once a batch (the
+        # values are held against JAX's in the CPU tests)
+        from audiossl_tpu_torch.datamodules import (DownstreamDataModule,
+                                                    EmbeddingExtractor)
+
+        facade = DownstreamDataModule(data, "audioset_b", batch_size=PROBE_B,
+                                      train_len_s=PROBE_CROP_S)
+        kb.reset_launches()
+        x, y = EmbeddingExtractor(extract).extract(facade.test_dataloader())
+        k1 = kb.LAUNCHES["mel_db"]
+        n_test = dict(PROBE_SPLITS)["test"]
+        check(x.shape == te.shape and np.isfinite(x).all()
+              and np.array_equal(y, rec["embeddings"]["test"][1])
+              and k1 == -(-n_test // PROBE_B),
+              f"probe_frame: EmbeddingExtractor over DownstreamDataModule's "
+              f"test loader gives {x.shape} finite embeddings ({te.shape} "
+              f"from the probe) and its labels, K1 {k1} a batch")
     return launches
 
 
@@ -2655,6 +2716,359 @@ def sed_paths(dev, workdir, run_path):
         torch.cuda.empty_cache()
         run_path(name, lambda: path(name, kind, data, out, checks, **kw))
     return dcase, as_strong, ckpt
+
+
+# The comparison encoders (``compat/``, ``downstream/comparison_models.py``)
+# at the full width of the JAX package's default loaders, from seeded random
+# weights in their authors' layouts (``compat.synthetic``): BEATs iter3
+# (768 / 12 / 12, patch embedding 512 wide), ViT-B/16 for AudioMAE, M2D and
+# both SSAST variants, MAE-AST 768 / 12 / 12 (both variants: its attention
+# is K6), BYOL-A at n_mels 64, d 3072
+CMP_B, CMP_RATE_B = 4, 32  # clips of 10 s: card vs CPU; the timed rate
+CMP_REL = 1e-4  # f32 card vs f32 CPU (TF32 off), rel L2 of the frames
+CMP_LOSS_REL, CMP_LEAF_COS = 1e-5, 0.9999  # one SED step, card vs CPU
+MAEAST_N = {"maeast": 499, "patchmaeast": 496}  # K6's tokens at 10 s
+EXP_F32_MAX = 88.72  # exp overflows f32 above ln(FLT_MAX)
+# the comparison SED runs' batches: DCASE 16 strong + 16 weak, so K6 trains
+# at the [32, 499] that k6_maeast_checks holds; AudioSet-strong 32
+CMP_SED_B = 32
+
+
+def seeded_clips(n, seed):
+    """n seeded clips of 10 s (noise at 0.1) on the host."""
+    rng = np.random.RandomState(seed)
+    return torch.from_numpy((rng.randn(n, SAMPLES) * 0.1).astype(np.float32))
+
+
+def k6_maeast_checks(dev):
+    """K6 forward and backward at MAE-AST's shapes, 32 clips of 10 s at full
+    width (12 heads of 64): [32, 499, 3 * 768] (frame variant, timed beside
+    its bound and SDPA with the key mask) and [32, 496, 3 * 768] (patch
+    variant, untimed), every key valid (the zero mask MAE-AST hands it). The
+    qkv is the one MAE-AST's layers compute from a seeded authors'-layout
+    checkpoint (captured from the plain versions' forward): of the 12
+    layers, the one with the largest score. K6 subtracts no row maximum, so
+    every layer's largest score is printed and held below the f32 ``exp``
+    overflow, and the plain output must be finite. Output, r and each
+    third of the gradient (dq, dk, dv) within ``MHA_F32_REL`` of the plain
+    version."""
+    from audiossl_tpu_torch.compat import maeast, synthetic
+    from audiossl_tpu_torch.ops import mha
+
+    ckpt = synthetic.authors_checkpoint("maeast", seed=SEED + 61)
+    wav = seeded_clips(CMP_RATE_B, SEED + 62).to(dev)
+    fb = maeast.maeast_fbank(wav)
+    res = {}
+    for arch, label in (("maeast", "f32_maeast"),
+                        ("patchmaeast", "f32_maeast_patch")):
+        enc = synthetic.encoder_from_checkpoint(arch, ckpt, dev)
+        layers = []
+        orig = mha.fused_mha
+
+        def capture(qkv, mask, h, scale, plain=False):
+            layers.append(qkv.detach())
+            return orig(qkv, mask, h, scale, True)
+
+        mha.fused_mha = capture
+        try:
+            with torch.no_grad():
+                enc(fb)
+        finally:
+            mha.fused_mha = orig
+        S, n, c3 = layers[0].shape
+        c, h = c3 // 3, enc.cfg.num_heads
+        scale = (c // h) ** -0.5
+        check((n, len(layers)) == (MAEAST_N[arch], 12),
+              f"{arch}: 12 layers hand K6 {MAEAST_N[arch]} tokens (got "
+              f"{len(layers)} of {n})")
+        top = []
+        for qkv in layers:
+            q, k = qkv.view(S, n, 3, h, c // h)[:, :, :2].unbind(2)
+            top.append(float(torch.einsum("bnhd,bmhd->bhnm", q, k).amax())
+                       * scale)
+        worst = int(np.argmax(top))
+        print(f"K6 {label}: the largest score of each layer {top} (f32 exp "
+              f"overflows above {EXP_F32_MAX}); the check takes layer {worst}")
+        check(max(top) < EXP_F32_MAX, f"{arch}: no score reaches the f32 exp "
+              f"overflow ({max(top)} < {EXP_F32_MAX})")
+        qkv = layers[worst].contiguous()
+        del layers, enc
+        g = torch.from_numpy(np.random.RandomState(SEED + 63).randn(
+            S, n, c).astype(np.float32)).to(dev)
+        valid = torch.ones(S, n, device=dev)
+        out, r = mha.mha_fwd(qkv, valid, h, scale)
+        out_p, r_p = mha.mha_fwd_ref(qkv, valid, h, scale)
+        dq = mha.mha_bwd(qkv, valid, out_p, r_p, g, h, scale)
+        dq_p = mha.mha_bwd_ref(qkv, valid, out_p, r_p, g, h, scale)
+        check(bool(torch.isfinite(out_p).all())
+              and bool(torch.isfinite(dq_p).all()),
+              f"K6 {label}: the plain version's output and gradient finite")
+        errs = {"out": rel_l2(out, out_p), "r": rel_l2(r, r_p)}
+        for i, part in enumerate(("dq", "dk", "dv")):
+            errs[part] = rel_l2(dq[..., i * c:(i + 1) * c],
+                                dq_p[..., i * c:(i + 1) * c])
+        e_o = float((out - out_p).abs().max())
+        e_d = float((dq - dq_p).abs().max())
+        print(f"K6 mha {label} {tuple(qkv.shape)} H={h}: rel_l2 {errs}, out "
+              f"max_abs_err {e_o}, dqkv max_abs_err {e_d}")
+        check(max(errs.values()) <= MHA_F32_REL,
+              f"K6 {label} rel L2 {max(errs.values())} <= {MHA_F32_REL}")
+        res[label] = dict(
+            fwd=dict(max_abs_err=e_o, rel_l2=max(errs["out"], errs["r"])),
+            bwd=dict(max_abs_err=e_d, rel_l2=max(errs[p] for p in
+                                                  ("dq", "dk", "dv"))))
+        if arch == "maeast":
+            # every pair valid; f32 products as three TF32 passes
+            pairs = S * n * n
+            lib_fwd, lib_bwd, backend, lib_out = sdpa_library(
+                qkv, valid, g, h, scale)
+            print(f"K6 {label} library call: scaled_dot_product_attention, "
+                  f"backend {backend}; output rel_l2 to K6 "
+                  f"{rel_l2(lib_out, out)}")
+            card_state(f"K6 {label}")
+            res[label]["fwd"].update(
+                ms=cuda_ms(lambda: mha.mha_fwd(qkv, valid, h, scale),
+                           iters=10),
+                plain_ms=cuda_ms(lambda: mha.mha_fwd_ref(qkv, valid, h,
+                                                         scale), iters=10),
+                library_ms=lib_fwd, library_backend=backend,
+                **bound(nbytes(qkv, valid, out, r), tf32=3 * 4 * c * pairs))
+            res[label]["bwd"].update(
+                ms=cuda_ms(lambda: mha.mha_bwd(qkv, valid, out_p, r_p, g, h,
+                                               scale), iters=10),
+                plain_ms=cuda_ms(lambda: mha.mha_bwd_ref(
+                    qkv, valid, out_p, r_p, g, h, scale), iters=10),
+                library_ms=lib_bwd, library_backend=backend,
+                **bound(nbytes(qkv, valid, out_p, r_p, g, dq),
+                        tf32=3 * 10 * c * pairs))
+            print(json.dumps({f"K6_{label}": dict(card=CARD, **res[label])}))
+            del lib_out
+        del qkv, g, out, r, out_p, r_p, dq, dq_p
+        torch.cuda.empty_cache()
+    return {f"mha_{d}": {k: v[d] for k, v in res.items()}
+            for d in ("fwd", "bwd")}
+
+
+def comparison_step_check(dev, arch, ckpt, ad_cpu):
+    """One ``SEDTask`` step (finetuning: the encoder trained, no drop
+    path) with ``arch``'s adapter on the card against the same step on the
+    CPU, from the same authors' weights, head and batch (2 strong and 2
+    weak clips of 10 s, seeded labels of 10 classes): the loss within
+    ``CMP_LOSS_REL``, every leaf's gradient (the momentum trace after one
+    step) at cosine >= ``CMP_LEAF_COS``. A key bias has no gradient in
+    exact arithmetic (the softmax cancels it): BEATs' ``k_proj.bias``
+    leaves are held to a vanishing norm instead. Returns the card step's
+    launch counts."""
+    from audiossl_tpu_torch.compat import synthetic
+    from audiossl_tpu_torch.downstream.comparison_models import (
+        comparison_adapter)
+    from audiossl_tpu_torch.kernels import build as kb
+    from audiossl_tpu_torch.sed.module import SEDConfig, SEDTask
+
+    T = ad_cpu.token_count(SAMPLES)
+    batch = {"wav": seeded_clips(CMP_B, SEED + 65).numpy(),
+             "valid": np.full(CMP_B, SAMPLES),
+             "strong": (np.random.RandomState(SEED + 64).rand(CMP_B, T, 10)
+                        > 0.8).astype(np.float32),
+             "source": np.arange(CMP_B) * 2 // CMP_B}  # strong, then weak
+    cfg = SEDConfig(num_labels=10, learning_rate=0.1, max_epochs=1,
+                    steps_per_epoch=1, warmup_epochs=0)
+    out = []
+    for d in (dev, None):
+        ad = ad_cpu if d is None else comparison_adapter(
+            arch, synthetic.encoder_from_checkpoint(arch, ckpt, d))
+        task = SEDTask(ad, cfg, generator=torch.Generator().manual_seed(SEED))
+        state = task.init_state()
+        check(task.draw(torch.Generator().manual_seed(0), CMP_B) is None,
+              f"{arch}: no drop-path draws for a comparison adapter")
+        torch.cuda.synchronize()
+        kb.reset_launches()
+        t0 = time.perf_counter()
+        _, m = task.train_step(state, batch, None)
+        loss = float(m["loss"])
+        launches = dict(kb.LAUNCHES)
+        out.append((loss, {k: v.detach().cpu() for k, v in state.mu.items()},
+                    launches, time.perf_counter() - t0))
+        del task, state
+    (lc, gc, launches, tc), (lh, gh, _, th) = out
+    rel = abs(lc - lh) / abs(lh)
+    zero = sorted(k for k in gh if k.endswith("k_proj.bias"))
+    cos = {k: float(torch.nn.functional.cosine_similarity(
+        gc[k].double().flatten(), v.double().flatten(), dim=0))
+        for k, v in gh.items() if k not in zero}
+    worst = min(cos, key=cos.get)
+    vanish = max([float(max(gc[k].norm(), gh[k].norm())
+                        / gh[k.replace("bias", "weight")].norm())
+                  for k in zero] or [0.0])
+    print(json.dumps({f"sed_{arch}_step_card_vs_cpu": {
+        "card": CARD, "batch": CMP_B, "loss": [lc, lh], "loss_rel": rel,
+        "leaves_compared": len(cos), "lowest_cos": [worst, cos[worst]],
+        "key_bias_grad_over_key_weight_grad": vanish,
+        "launches": launches, "card_s": tc, "cpu_s": th}}))
+    check(np.isfinite(lc) and rel <= CMP_LOSS_REL, f"sed_{arch}: card loss "
+          f"{lc} vs CPU {lh} (rel {rel} <= {CMP_LOSS_REL})")
+    check(cos[worst] >= CMP_LEAF_COS, f"sed_{arch}: every leaf's gradient "
+          f"at cosine >= {CMP_LEAF_COS} to the CPU's (lowest {worst} "
+          f"{cos[worst]})")
+    check(vanish <= 1e-4, f"sed_{arch}: the key biases' gradients vanish "
+          f"({vanish} of the key weights')")
+    want = 12 if arch == "maeast" else 0
+    check(launches.get("mha_fwd", 0) == want
+          and launches.get("mha_bwd", 0) == want
+          and not any(v for k, v in launches.items()
+                      if k not in ("mha_fwd", "mha_bwd")),
+          f"sed_{arch} step: {want} K6 forward and backward launches and "
+          f"no other kernel ({launches})")
+    return launches
+
+
+def comparison_encoders_path(dev):
+    """The eight comparison adapters at full width on the card: each built
+    in memory through its loader's state-dict function from a seeded
+    authors'-layout checkpoint, ``frame_embeddings`` of ``CMP_B`` clips of
+    10 s on the card (the counted run: K6 12 times for each MAE-AST
+    variant, no kernel for the others) against the CPU within ``CMP_REL``,
+    ``T'`` = ``token_count``; clips/s at B = ``CMP_RATE_B`` and the peak;
+    then one SED step of ``maeast`` and of ``beats`` on the card against
+    the CPU (:func:`comparison_step_check`). Returns the launch counts of
+    the counted forwards and the steps."""
+    from audiossl_tpu_torch.compat import synthetic
+    from audiossl_tpu_torch.downstream.comparison_models import (
+        comparison_adapter)
+    from audiossl_tpu_torch.kernels import build as kb
+
+    wav = seeded_clips(CMP_RATE_B, SEED + 66)
+    valid = torch.full((CMP_RATE_B,), SAMPLES, dtype=torch.long)
+    wav_d, valid_d = wav.to(dev), valid.to(dev)
+    total, ckpts, rates = {}, {}, {}
+    # the variants of a family together: one checkpoint each family
+    for arch in ("audioMAE", "mmd", "ssast", "patchssast", "maeast",
+                 "patchmaeast", "beats", "byola"):
+        fam = synthetic.FAMILY[arch]
+        if fam not in ckpts:
+            ckpts = {fam: synthetic.authors_checkpoint(arch,
+                                                       seed=SEED + 67)}
+        ckpt = ckpts[fam]
+        ad = comparison_adapter(
+            arch, synthetic.encoder_from_checkpoint(arch, ckpt, dev))
+        ad_cpu = comparison_adapter(
+            arch, synthetic.encoder_from_checkpoint(arch, ckpt, "cpu"))
+        torch.cuda.synchronize()
+        kb.reset_launches()
+        with torch.no_grad():
+            card = ad.frame_embeddings(wav_d[:CMP_B], valid_d[:CMP_B])
+        torch.cuda.synchronize()
+        launches = dict(kb.LAUNCHES)
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        with torch.no_grad():
+            host = ad_cpu.frame_embeddings(wav[:CMP_B], valid[:CMP_B])
+        err = rel_l2(card.cpu(), host)
+        T = ad.token_count(SAMPLES)
+        want_k6 = 12 if fam == "maeast" else 0
+        check(tuple(card.shape) == (CMP_B, T, ad.embed_dim)
+              and bool(torch.isfinite(card).all()),
+              f"{arch}: frames {tuple(card.shape)} finite, T' = token_count "
+              f"= {T}, D = {ad.embed_dim}")
+        check(err <= CMP_REL, f"{arch}: card frames vs CPU rel L2 {err} <= "
+              f"{CMP_REL}")
+        check(launches.get("mha_fwd", 0) == want_k6 and not any(
+            v for k, v in launches.items() if k != "mha_fwd"),
+            f"{arch}: {want_k6} K6 launches a forward and no other kernel "
+            f"({launches})")
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            ad.frame_embeddings(wav_d, valid_d)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                ad.frame_embeddings(wav_d, valid_d)
+            torch.cuda.synchronize()
+        rates[arch] = {"clips_per_s": 3 * CMP_RATE_B
+                       / (time.perf_counter() - t0),
+                       "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                       "card_vs_cpu_rel_l2": err, "frames": T,
+                       "embed_dim": ad.embed_dim, "k6_launches": want_k6}
+        print(json.dumps({f"comparison_{arch}": dict(card=CARD,
+                                                     **rates[arch])}))
+        del card
+        torch.cuda.empty_cache()
+        if arch in ("maeast", "beats"):
+            for k, v in comparison_step_check(dev, arch, ckpt,
+                                              ad_cpu).items():
+                total[k] = total.get(k, 0) + v
+        del ad, ad_cpu
+        torch.cuda.empty_cache()
+    print(json.dumps({"comparison_encoders_B32": dict(card=CARD, **rates)}))
+    return total
+
+
+def comparison_sed_path(dev, workdir, dcase, as_strong):
+    """``train_dcase --arch maeast`` (finetuning: K6 forward and backward)
+    and ``train_as_strong --arch beats --freeze_mode``, one epoch each at
+    batches of ``CMP_SED_B`` (DCASE: half strong, half weak), on the SED
+    paths' trees, each reading one authors'-layout file (seeded, full
+    width) written to ``workdir``: K6 12 times a train and evaluation
+    batch (and 12 backward a train batch) for MAE-AST and no other
+    kernel, none for BEATs; ``result.json`` finite in [0, 1]; train clips/s
+    (the first step left out), eval clips/s and the peak. Returns the
+    launch counts of both runs."""
+    from audiossl_tpu_torch.compat import synthetic
+    from audiossl_tpu_torch.downstream import train_as_strong, train_dcase
+
+    total = {}
+    for name, arch, main, data, extra in (
+            ("comparison_sed_dcase_maeast", "maeast", train_dcase.main, dcase,
+             ["--batch_size_synth", str(CMP_SED_B // 2),
+              "--batch_size_weak", str(CMP_SED_B // 2),
+              "--learning_rate", "0.01"]),
+            ("comparison_sed_as_strong_beats", "beats",
+             train_as_strong.main, as_strong,
+             ["--batch_size", str(CMP_SED_B), "--learning_rate", "1e-3",
+              "--freeze_mode"])):
+        path = os.path.join(workdir, f"{arch}_authors.pt")
+        torch.save(synthetic.authors_checkpoint(arch, seed=SEED + 68), path)
+        out = os.path.join(workdir, name)
+        argv = ["--pretrained_ckpt_path", path, "--data_path", data,
+                "--arch", arch, "--max_epochs", "1", "--warmup_epochs", "1",
+                "--save_path", out, "--device", str(dev), "--n_devices", "1",
+                *extra]
+        torch.cuda.empty_cache()
+        res, record, launches, peak, wall = run_timed(main, argv)
+        steps = [s for epoch in record["steps"] for s in epoch]
+        evals = [b for epoch in record["evals"] for b in epoch]
+        n_eval = len(evals) + len(record["test"]["strong"])
+        if arch == "maeast":
+            want = {"mha_fwd": 12 * (len(steps) + n_eval),
+                    "mha_bwd": 12 * len(steps)}
+        else:
+            want = {}
+        got = {k: v for k, v in launches.items() if v}
+        print(f"{name} launches: {launches}; {len(steps)} train, "
+              f"{len(evals)} validation and {len(record['test']['strong'])} "
+              f"test batches; main took {wall:.2f} s")
+        check(got == want, f"{name}: launches {got} == {want}")
+        with open(os.path.join(out, "result.json")) as f:
+            result = json.load(f)
+        check(result == res and set(result) == {"psds1", "psds2",
+                                                "event_f1"},
+              f"{name} result.json {result}")
+        for k, v in result.items():
+            check(np.isfinite(v) and 0.0 <= v <= 1.0,
+                  f"{name} {k} {v} finite in [0, 1]")
+        train = steps[1:]
+        print(json.dumps({name: {
+            "card": CARD, "batch": steps[0][0] if steps else None,
+            "train_clips_per_s": (sum(n for n, _, _ in train)
+                                  / sum(t for _, t, _ in train)
+                                  if train else None),
+            "eval_clips_per_s": sum(n for n, _, _ in evals)
+            / sum(t for _, t, _ in evals),
+            "peak_gib": peak, "main_s": wall, "result": res}}))
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        del record
+    return total
 
 
 def train_mel_check(dev):
@@ -4669,6 +5083,10 @@ def main():
     train_mel_check(dev)
     res.update(train_kernel_checks(dev))
     res.update(mha_kernel_checks(dev))
+    t0 = time.perf_counter()
+    for name, cases in k6_maeast_checks(dev).items():
+        res[name].update(cases)
+    print(f"K6 at MAE-AST's shapes: {time.perf_counter() - t0:.1f} s")
     res.update(ln_kernel_checks(dev))
     res["adamw_ema"] = adamw_ema_check(dev, *student_leaves(dev))
     for part in zero1_leaves(*student_leaves(dev)):  # ddp_frame's ZeRO-1
@@ -4689,7 +5107,9 @@ def main():
 
     def run_path(name, fn):
         LAUNCH_SEEN.clear()
+        t0 = time.perf_counter()
         paths[name] = fn()
+        print(f"path {name}: {time.perf_counter() - t0:.1f} s")
         seen[name] = {k: sorted(v) for k, v in LAUNCH_SEEN.items()}
 
     with tempfile.TemporaryDirectory() as workdir:
@@ -4710,10 +5130,16 @@ def main():
         run_path("ddp_finetune", lambda: ddp_finetune_path(dev, workdir, data))
         distill_paths(dev, workdir, data, run_path)
     with tempfile.TemporaryDirectory() as workdir:
-        dcase, _, sed_ckpt = sed_paths(dev, workdir, run_path)
+        dcase, as_strong, sed_ckpt = sed_paths(dev, workdir, run_path)
         torch.cuda.empty_cache()
         run_path("ddp_sed", lambda: ddp_sed_path(dev, workdir, dcase,
                                                  sed_ckpt))
+        torch.cuda.empty_cache()
+        run_path("comparison_encoders",
+                 lambda: comparison_encoders_path(dev))
+        torch.cuda.empty_cache()
+        run_path("comparison_sed", lambda: comparison_sed_path(
+            dev, workdir, dcase, as_strong))
     for name, fn in (("frame_bf16", lambda: frame_bf16_path(dev, args.profile)),
                      ("clip_f32", lambda: clip_f32_path(dev, args.profile)),
                      ("clip_bf16", lambda: clip_bf16_path(dev)),

@@ -1,6 +1,8 @@
 """The port stands without JAX (and its probe, finetuning, SED and
-distillation slices and pretraining CLIs without pandas and PyYAML), and its kernel wrappers launch nothing for a CPU
-tensor (they take their plain versions)."""
+distillation slices and pretraining CLIs without pandas and PyYAML; its
+comparison encoders, data modules and plots without matplotlib), the
+orbax exporter lies outside it, and its kernel wrappers launch nothing
+for a CPU tensor (they take their plain versions)."""
 import subprocess
 import sys
 from pathlib import Path
@@ -54,6 +56,18 @@ def test_port_imports_without_jax():
         "import audiossl_tpu_torch.parallel\n"
         "import audiossl_tpu_torch.parallel.launch\n"
         "import audiossl_tpu_torch.parallel.dryrun\n"
+        "import audiossl_tpu_torch.compat.vit, audiossl_tpu_torch.compat.beats\n"
+        "import audiossl_tpu_torch.compat.audiomae\n"
+        "import audiossl_tpu_torch.compat.ssast\n"
+        "import audiossl_tpu_torch.compat.maeast\n"
+        "import audiossl_tpu_torch.compat.m2d\n"
+        "import audiossl_tpu_torch.compat.byola\n"
+        "import audiossl_tpu_torch.compat.synthetic\n"
+        "import audiossl_tpu_torch.datamodules\n"
+        "import audiossl_tpu_torch.utils.plot\n"
+        "from audiossl_tpu_torch.downstream.comparison_models import (\n"
+        "    get_adapter, EnsembleModel, cal_norm)\n"
+        "assert 'matplotlib' not in sys.modules\n"
         "from audiossl_tpu_torch import load_model, get_scene_embedding\n"
         "bad = [m for m in sys.modules if m.split('.')[0] == 'audiossl_tpu']\n"
         "assert not bad, bad\n"
@@ -61,6 +75,21 @@ def test_port_imports_without_jax():
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
+
+
+def test_orbax_exporter_is_outside_the_package():
+    """Reading orbax needs JAX: the exporter is a script beside the
+    packages, and no module of the port names orbax in an import."""
+    assert (ROOT / "scripts" / "export_orbax_ckpt.py").is_file()
+    pkg = ROOT / "audiossl_tpu_torch"
+    assert not list(pkg.rglob("export_orbax*"))
+    for path in pkg.rglob("*.py"):
+        for line in path.read_text().splitlines():
+            words = line.split()
+            if words[:1] in (["import"], ["from"]) and len(words) > 1:
+                top = words[1].split(".")[0]
+                assert top not in ("orbax", "jax", "flax", "audiossl_tpu"), (
+                    path, line)
 
 
 def test_wrappers_on_cpu_launch_nothing():

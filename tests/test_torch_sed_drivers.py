@@ -11,8 +11,10 @@
   ``save_path``;
 * ``TopKKeeper(mode="min")``, an index without a mode read as "max", and
   the distill teacher read from the keeper's best state by its mode;
-* ``--arch beats`` (a comparison encoder) raises ``NotImplementedError``
-  naming ROADMAP Queue 1 item 6, and the default device raises here.
+* ``--arch beats`` (a comparison encoder) reads its checkpoint as the
+  authors' BEATs file, so the ATST ``.ckpt`` raises for the key it lacks
+  (``test_torch_comparison_adapters.py`` runs the comparison encoders
+  through both drivers), and the default device raises here.
 """
 import json
 import os
@@ -285,7 +287,7 @@ def test_comparison_arch_and_default_device_raise(tree, driver):
     argv = (_dcase_argv if driver == "train_dcase" else _as_argv)(
         tree, str(tree[0] / "unused"))
     arch = argv.index("--arch") + 1
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    with pytest.raises(KeyError, match="patch_embedding.weight"):
         mod.main(argv[:arch] + ["beats"] + argv[arch + 1:])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
