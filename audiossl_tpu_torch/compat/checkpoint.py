@@ -27,6 +27,9 @@
   the port's state dicts; :func:`distill_state_from_flax` carries a
   distillation state (``methods/distill/method.py DistillState``: the
   student encoder, its head and statistics, the momentum trace);
+  :func:`mae_state_from_flax` and :func:`dual_state_from_flax` map the
+  MAE and dual models' params, and :func:`model_state_from_flax` carries
+  their whole state (params and Adam's moments; no teacher);
 * :func:`linear_head_state_from_torch` reads a reference ``LinearHead``
   (the distillation teacher's head) into the port's.
 """
@@ -70,6 +73,16 @@ def _norm(p, prefix, out):
     out[prefix + ".bias"] = _t(p["bias"])
 
 
+def _block(p, prefix, out):
+    """A flax ``Block`` -> ``prefix.norm1.weight`` etc."""
+    _norm(p["norm1"], prefix + ".norm1", out)
+    _norm(p["norm2"], prefix + ".norm2", out)
+    _dense(p["attn"]["qkv"], prefix + ".attn.qkv", out)
+    _dense(p["attn"]["proj"], prefix + ".attn.proj", out)
+    _dense(p["mlp"]["fc1"], prefix + ".mlp.fc1", out)
+    _dense(p["mlp"]["fc2"], prefix + ".mlp.fc2", out)
+
+
 def state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
     """Frame or clip ``AudioTransformer`` flax params -> the port's state
     dict.
@@ -90,13 +103,7 @@ def state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
         elif name == "norm":
             _norm(p, "norm" if clip else "norm_frame", out)
         elif name.startswith("blocks_"):
-            b = "blocks." + name[len("blocks_"):]
-            _norm(p["norm1"], b + ".norm1", out)
-            _norm(p["norm2"], b + ".norm2", out)
-            _dense(p["attn"]["qkv"], b + ".attn.qkv", out)
-            _dense(p["attn"]["proj"], b + ".attn.proj", out)
-            _dense(p["mlp"]["fc1"], b + ".mlp.fc1", out)
-            _dense(p["mlp"]["fc2"], b + ".mlp.fc2", out)
+            _block(p, "blocks." + name[len("blocks_"):], out)
         else:
             raise KeyError(f"param group {name!r} has no place in the "
                            "port's encoder")
@@ -171,6 +178,83 @@ def pretrain_state_from_flax(state, method, generator: torch.Generator):
         mu={k: mu[k].to(dev) for k in names},
         nu={k: nu[k].to(dev) for k in names},
         count=count, generator=generator)
+
+
+def mae_state_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX package's ``MAEModel`` params (``methods/mae/method.py``)
+    -> the state dict of the port's ``MAEModel``: the Dense layers
+    transposed, ``blocks_i`` / ``dec_blocks_i`` as ``blocks.i`` /
+    ``dec_blocks.i``. Raises on a group the model has no place for."""
+    out: Dict[str, torch.Tensor] = {}
+    for name, p in params.items():
+        if name in ("patch_proj", "middle", "dec_head"):
+            _dense(p, name, out)
+        elif name in ("pos_embed", "cls_token", "dec_pos_embed",
+                      "mask_embed"):
+            out[name] = _t(p)
+        elif name in ("norm", "dec_norm"):
+            _norm(p, name, out)
+        elif name.startswith(("blocks_", "dec_blocks_")):
+            head, i = name.rsplit("_", 1)
+            _block(p, f"{head}.{i}", out)
+        else:
+            raise KeyError(f"param group {name!r} has no place in the "
+                           "port's MAEModel")
+    return out
+
+
+def dual_state_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX package's ``DualModel`` params (``methods/dual/method.py``)
+    -> the state dict of the port's ``DualModel``: each encoder through
+    :func:`state_dict_from_flax` (the frame encoder's final norm
+    ``norm_frame``), the reconstructions and each expander's ``fc0``,
+    ``ln0``, ``fc1``, ``ln1``, ``fc2``. Raises on a group the model has no
+    place for."""
+    out: Dict[str, torch.Tensor] = {}
+    for name, p in params.items():
+        if name in ("patchnet", "framenet"):
+            out.update({f"{name}.{k}": v for k, v in
+                        state_dict_from_flax(p).items()})
+        elif name in ("patch_recon", "frame_recon"):
+            _dense(p, name, out)
+        elif name in ("patch_expander", "frame_expander"):
+            for sub, q in p.items():
+                if sub in ("fc0", "fc1", "fc2"):
+                    _dense(q, f"{name}.{sub}", out)
+                elif sub in ("ln0", "ln1"):
+                    _norm(q, f"{name}.{sub}", out)
+                else:
+                    raise KeyError(f"param group {name}/{sub} has no place "
+                                   "in the port's expander")
+        else:
+            raise KeyError(f"param group {name!r} has no place in the "
+                           "port's DualModel")
+    return out
+
+
+def model_state_from_flax(state, method, generator: torch.Generator):
+    """The JAX package's ``MAEState`` or ``DualState`` (params and optax's
+    ``ScaleByAdamState``) -> the port's ``PretrainState`` without a
+    teacher, loaded into ``method.model`` (an ``MAEMethod`` or a
+    ``DualMethod`` built alike); ``generator`` becomes the state's
+    generator (JAX keys do not carry over)."""
+    from audiossl_tpu_torch.training.pretrain import PretrainState
+
+    to_sd = (dual_state_from_flax if "patchnet" in state.params
+             else mae_state_from_flax)
+    dev = method.device
+    method.model.load_state_dict(to_sd(_tree_np(state.params)))
+    mu = to_sd(_tree_np(state.opt_state.mu))
+    nu = to_sd(_tree_np(state.opt_state.nu))
+    names = [k for k, _ in method.model.named_parameters()]
+    if set(mu) != set(names):
+        raise KeyError("Adam's moments are not the model's parameters: "
+                       f"{sorted(set(mu) ^ set(names))[:8]}")
+    return PretrainState(
+        step=int(np.asarray(state.step)), student=method.model, teacher=None,
+        mu={k: mu[k].to(dev) for k in names},
+        nu={k: nu[k].to(dev) for k in names},
+        count=int(np.asarray(state.opt_state.count)), generator=generator)
 
 
 def finetune_state_from_flax(state, task):

@@ -42,12 +42,13 @@ def _rank(index: int, fn: Callable, args: Sequence, n: int, port: int,
         dist.destroy_process_group()
 
 
-def spawn(fn: Callable, n: int, args: Sequence = (), device="cpu",
+def spawn(fn: Callable, n: int, args: Sequence = (), device="cuda",
           backend: Optional[str] = None,
           timeout_s: Optional[float] = None) -> None:
     """Run ``fn(*args)`` on ``n`` ranks started here, each in a group on
     a free local port (``mesh.init_from_env``: ``cuda:rank`` for
-    ``"cuda"``, the same card for every rank for ``"cuda:k"``). Raises
+    ``"cuda"``, the default, the same card for every rank for
+    ``"cuda:k"``; ``"cpu"`` on the host). Raises
     when a rank fails (the others are stopped) or, with ``timeout_s``,
     when the ranks have not all ended by then; no rank outlives the
     call. ``fn`` must be importable by name (a module-level function)."""

@@ -34,12 +34,12 @@ TOP_K = 10  # the keeper's default k, the reference's save_top_k
 def host_state(state, copy: bool = True) -> Optional[dict]:
     """A copy on the host of everything a ``PretrainState`` holds: the step
     and Adam's count, both branches' state dicts (BatchNorm statistics
-    included), the moments of every parameter by name and the generator's
-    state. Synchronous: the step goes on changing the state in place.
-    Under ZeRO-1 the moments come from their owners first, a collective
-    that every rank enters; ``copy=False`` (a rank that writes nothing)
-    takes part in it and returns None. The layout is a one-process run's
-    either way."""
+    included; ``teacher`` None for a state without one), the moments of
+    every parameter by name and the generator's state. Synchronous: the
+    step goes on changing the state in place. Under ZeRO-1 the moments
+    come from their owners first, a collective that every rank enters;
+    ``copy=False`` (a rank that writes nothing) takes part in it and
+    returns None. The layout is a one-process run's either way."""
     mu, nu = full_moments(state)
     if not copy:
         return None
@@ -50,8 +50,8 @@ def host_state(state, copy: bool = True) -> Optional[dict]:
     return {"step": int(state.step), "count": int(state.count),
             "student": {k: host(v) for k, v in
                         state.student.state_dict().items()},
-            "teacher": {k: host(v) for k, v in
-                        state.teacher.state_dict().items()},
+            "teacher": None if state.teacher is None else {
+                k: host(v) for k, v in state.teacher.state_dict().items()},
             "mu": {k: host(v) for k, v in mu.items()},
             "nu": {k: host(v) for k, v in nu.items()},
             "generator": state.generator.get_state()}
@@ -62,13 +62,19 @@ def load_host_state(state, saved: Mapping) -> None:
     """Copy ``saved`` (from :func:`host_state`) into ``state`` in place:
     the parameters, buffers and moments keep their tensors, so the state's
     paired leaves and K7's device leaf table stay valid. A ZeRO-1 state
-    takes the moments it owns."""
+    takes the moments it owns. A state without a teacher takes only a
+    checkpoint without one, and the other way round."""
     names = set(state.owners or state.mu)
     if set(saved["mu"]) != names:
         raise KeyError("the checkpoint's moments are not this state's: "
                        f"{sorted(set(saved['mu']) ^ names)[:8]}")
+    if (saved.get("teacher") is None) != (state.teacher is None):
+        raise KeyError("the checkpoint " + ("holds no teacher and this "
+                       "state does" if state.teacher is not None else
+                       "holds a teacher and this state has none"))
     state.student.load_state_dict(saved["student"])
-    state.teacher.load_state_dict(saved["teacher"])
+    if state.teacher is not None:
+        state.teacher.load_state_dict(saved["teacher"])
     for k in state.mu:
         state.mu[k].copy_(saved["mu"][k])
         state.nu[k].copy_(saved["nu"][k])

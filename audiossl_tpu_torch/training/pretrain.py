@@ -26,6 +26,11 @@ copies, and each owner then sends them to every rank. The update is
 elementwise, so the parameters are those of the replicated step, bit for
 bit (the JAX package shards each moment's leading axis instead,
 ``mesh.shard_opt_state_tree``). The logged loss is the global one.
+
+A state may hold no teacher (``teacher=None``: the MAE and dual methods,
+whose JAX steps are optax's ``scale_by_adam`` then ``apply_adamw_update``).
+Every leaf then has no teacher copy, and K7 runs AdamW alone: the same
+step, with no EMA and no ``ema`` metric.
 """
 from __future__ import annotations
 
@@ -100,19 +105,20 @@ class OptimizerConfig:
 
 @dataclasses.dataclass
 class PretrainState:
-    """The step count, both branches (f32 master parameters), Adam's
-    moments and count per student parameter name, and the generator of
-    every random draw. ``owners`` (ZeRO-1, :func:`shard_optimizer`) gives
-    each student parameter's owning rank, and the moments are then the
-    owned ones only; None: every moment on every rank. The update's
-    leaves are paired when the state is made: every student parameter
-    (``params``), the ones the moments update in their order
-    (``leaves``), the teacher's copy of each or None (``teacher_leaves``),
-    whether each decays (``decay``), and under ZeRO-1 each rank's
-    updated leaves and teacher copies (``groups``)."""
+    """The step count, both branches (f32 master parameters; ``teacher``
+    None for a method without one), Adam's moments and count per student
+    parameter name, and the generator of every random draw. ``owners``
+    (ZeRO-1, :func:`shard_optimizer`) gives each student parameter's
+    owning rank, and the moments are then the owned ones only; None:
+    every moment on every rank. The update's leaves are paired when the
+    state is made: every student parameter (``params``), the ones the
+    moments update in their order (``leaves``), the teacher's copy of each
+    or None (``teacher_leaves``), whether each decays (``decay``), and
+    under ZeRO-1 each rank's updated leaves and teacher copies
+    (``groups``)."""
     step: int
-    student: Branch
-    teacher: Branch
+    student: nn.Module
+    teacher: Optional[nn.Module]
     mu: Dict[str, torch.Tensor]
     nu: Dict[str, torch.Tensor]
     count: int
@@ -132,7 +138,8 @@ class PretrainState:
     def pair(self) -> None:
         """Pairs the leaves anew (after the moments or owners changed)."""
         params = dict(self.student.named_parameters())
-        t_params = dict(self.teacher.named_parameters())
+        t_params = ({} if self.teacher is None
+                    else dict(self.teacher.named_parameters()))
         mask = wd_mask(self.student)
         self.params = list(params.values())
         self.leaves = [params[k] for k in self.mu]
@@ -198,11 +205,12 @@ def copy_into_structure(teacher: nn.Module, student: nn.Module) -> None:
     teacher.load_state_dict({k: src[k] for k in teacher.state_dict()})
 
 
-def init_pretrain_state(student: Branch, teacher: Branch,
+def init_pretrain_state(student: nn.Module, teacher: Optional[nn.Module],
                         generator: torch.Generator) -> PretrainState:
-    """Teacher = student restricted to the teacher's modules; zero
-    moments."""
-    copy_into_structure(teacher, student)
+    """Teacher = student restricted to the teacher's modules (none where
+    ``teacher`` is None); zero moments."""
+    if teacher is not None:
+        copy_into_structure(teacher, student)
     params = dict(student.named_parameters())
     return PretrainState(
         step=0, student=student, teacher=teacher,
@@ -216,8 +224,9 @@ def make_pretrain_step(cfg: OptimizerConfig, forward_loss: Callable,
     """Build the step ``(state, batch, draws=None) -> metrics``.
 
     ``forward_loss(student, teacher, batch, generator, draws)`` returns
-    ``(loss, aux)``; ``draws`` (None: drawn from the state's generator)
-    lets a caller pass the random numbers in. The state is updated in
+    ``(loss, aux)`` (``teacher`` None for a state without one); ``draws``
+    (None: drawn from the state's generator) lets a caller pass the random
+    numbers in. The state is updated in
     place. ``plain=True`` takes K7's plain version on any device. Outside
     the model, the step's host work per leaf is collecting the gradients
     and moments; nothing in the update waits for the device. Under a
@@ -231,7 +240,8 @@ def make_pretrain_step(cfg: OptimizerConfig, forward_loss: Callable,
 
     def step_fn(state: PretrainState, batch, draws=None):
         lr, wd, m = lr_s(state.step), wd_s(state.step), ema_s(state.step)
-        student, teacher = state.student.train(), state.teacher.train()
+        student = state.student.train()
+        teacher = None if state.teacher is None else state.teacher.train()
         for p in state.params:
             p.grad = None
         loss, aux = forward_loss(student, teacher, batch, state.generator,
@@ -251,7 +261,8 @@ def make_pretrain_step(cfg: OptimizerConfig, forward_loss: Callable,
         if state.groups is not None:
             broadcast_groups(state.groups)
         state.step += 1
+        ema = {} if teacher is None else {"ema": m}
         return {"loss": all_reduce_sum(loss.detach()), "lr": lr, "wd": wd,
-                "ema": m, **aux}
+                **ema, **aux}
 
     return step_fn

@@ -101,9 +101,12 @@ def run_pretraining(method, dataset, *, batch_size_per_device: int,
                     clip_len_s: Optional[float] = None,
                     profile_at: Optional[int] = None,
                     shard_optimizer: bool = False):
-    """Train ``method`` (a ``ClipMethod`` or ``FrameMethod``) on
-    ``dataset`` until ``max_steps``, on the method's device. Returns the
-    final ``PretrainState``.
+    """Train ``method`` on ``dataset`` until ``max_steps``, on the method's
+    device. Returns the final ``PretrainState``. ``method`` is a
+    ``ClipMethod``, ``FrameMethod``, ``MAEMethod`` or ``DualMethod``: it
+    has a ``device``, a ``cfg`` with ``out_samples`` (the crop the host
+    buffer must hold), ``init_state(seed)`` and ``make_step()``, whose
+    step takes ``(state, batch)`` and returns the metrics.
 
     With ``save_path``: TensorBoard scalars there, checkpoints under
     ``{save_path}/ckpt`` every ``ckpt_interval`` steps and at the end, and

@@ -2,10 +2,12 @@
 """GPU smoke check of the PyTorch port: the serving path of ATST-Frame
 base (bf16 and int8), the linear probe, full finetuning and clip-to-frame
 distillation at ATST-Clip and ATST-Frame base width, sound event
-detection (DCASE, AudioSet-strong, distill) at ATST-Frame base, the pretraining steps of ATST-Frame base (bf16, f32 and the int8
-recipes) and ATST-Clip small (f32, bf16 and the int8 recipes), the
-pretraining CLIs with their run loop, checkpoints and crash-restart,
-data-parallel pretraining on 2 ranks (replicated and ZeRO-1), and the eight
+detection (DCASE, AudioSet-strong, distill) at ATST-Frame base, the
+pretraining steps of ATST-Frame base (bf16, f32 and the int8 recipes),
+ATST-Clip small (f32, bf16 and the int8 recipes), MAE and dual small (f32
+and bf16), the pretraining CLIs with their run loop, checkpoints and
+crash-restart, data-parallel pretraining on 2 ranks (replicated and
+ZeRO-1; the dual step too), and the eight
 comparison encoders (BEATs, BYOL-A, AudioMAE, M2D, SSAST and MAE-AST, frame
 and patch) at full width with MAE-AST's attention on K6.
 
@@ -276,7 +278,28 @@ sm_90a) and the CUDA toolkit:
    beats --freeze_mode``, one epoch at batches of 32 on the SED trees, each
    reading one authors'-layout file: launches, ``result.json``, train and
    evaluation clips/s, peak memory.
-Each path's seconds are printed (``path NAME: S s``).
+15. the MAE and dual pretraining methods (no teacher: K7 updates with no
+   teacher leaf): ``mae_small`` (MAE at its defaults: encoder 384 wide, 12
+   blocks, 6 heads, decoder 384 wide, 6 blocks, 6 s crops, 111 of 148
+   patches masked, B = 96; K1 and K7, its blocks on the module route),
+   ``dual_f32`` (dual at ``--arch small``, 6.4 s crops: 160 tokens a
+   branch, expanders of 8192, B = 96; K6 and K8 in both encoders, K1, K7)
+   and ``dual_bf16`` (K4/K5 and K8 for the final norms), each held to its
+   plain-version step as phases 5 and 6 hold theirs and timed in turns
+   (clips/s, peak memory); ``pretrain_mae_cli`` and ``pretrain_dual_cli``
+   (3 steps at B = 96 on the CLI pack with a checkpoint at the last, then a
+   rerun that resumes from it, takes no step and holds the saved state
+   tensor for tensor); ``ddp_dual`` (the dual small f32 step on 2 gloo
+   ranks of this card at a global batch of 16, 2 steps against the 1-rank
+   step: loss rel 1e-4, every leaf's gradient cosine 0.999, ranks
+   bit-equal). Phase 2 also holds K1 at [96, 1026, 641], K4 and K5 at [96,
+   160, 384] with 6 heads, K6 in f32 at [96, 160, 3 * 384] (timed beside
+   SDPA) and at the ddp_dual steps' [8 and 16, 160, 3 * 384], K8 at [96 *
+   160, 384] in f32 and bf16 and at the ddp_dual steps' rows, and K7 over
+   the MAE and dual leaves with no teacher copy beside
+   ``torch.optim.AdamW(fused=True)``.
+Each path's seconds are printed (``path NAME: S s``), and the MAE and dual
+phases' sum.
 ``--profile DIR`` also writes a ``torch.profiler`` table and trace of one
 kernel-path step of phases 4, 5, 7 and 8 to DIR.
 
@@ -318,6 +341,9 @@ MEL_TF32_ATOL = 2e-3  # TF32 vs f32 STFT, normalized mel: the JAX package's
 CLIP_N, CLIP_C, CLIP_H = 151, 384, 6  # ATST-Clip small, 6 s crops: 150
 # patches and the CLS token, width 384, 6 heads of 64
 CLI_CLIP_N = 226  # the clip CLI's 9 s crops (recipes/torch_atst_clip_small.sh)
+# the dual method at 6.4 s (641 frames: 160 tokens a branch, G = 40; JAX's
+# default 6.0 s fails, methods/dual/method.py); ddp_dual's global batch
+DUAL_ANCHOR, DUAL_N, DUAL_DDP_B = 6.4, 160, 16
 MHA_F32_REL = 1e-4  # f32 kernel vs f32 plain (K6, K8): f32 FMA sums in
 # another order
 STEP_LOSS_REL = 1e-2  # kernel vs plain step: bf16 at the same rounding
@@ -1138,11 +1164,13 @@ def q8_infer_checks(dev):
     return {k: dict(v.pop("serving"), **v) for k, v in res.items()}
 
 
-def train_kernel_checks(dev, n=N, c=C, h=H, hid=HID, timed=True, quant=None):
+def train_kernel_checks(dev, n=N, c=C, h=H, hid=HID, timed=True, quant=None,
+                        S=2 * TRAIN_B):
     """K4 and K5 (with ``quant="int8dx"`` K4q and K5q: the int8 forward and
     the int8dx backward), forward and backward, against their plain
-    versions at a training step's shapes: 2B = 192 sequences of n tokens
-    (ATST-Frame base: 250, width 768, 12 heads), bf16, ragged lengths and
+    versions at a training step's shapes: S = 2B = 192 sequences of n
+    tokens (ATST-Frame base: 250, width 768, 12 heads; the dual step's
+    encoders take B = 96 sequences of 160 tokens), bf16, ragged lengths and
     drop-path multipliers; with ``timed``, both times and the bounds as
     well. Under ``quant`` each is also held on the residual branch of y
     (y - x) to its plain version, and to the float kernels K4/K5 on the
@@ -1155,7 +1183,7 @@ def train_kernel_checks(dev, n=N, c=C, h=H, hid=HID, timed=True, quant=None):
                                               quantize_weight_q8)
 
     rng = np.random.RandomState(SEED + 2)
-    S, bf = 2 * TRAIN_B, torch.bfloat16
+    bf = torch.bfloat16
     M = S * n
 
     def t(*shape, s=1.0, off=0.0, dtype=torch.float32):
@@ -1464,10 +1492,13 @@ def sdpa_library(qkv, valid, g, h, scale):
 def mha_kernel_checks(dev):
     """K6 forward and backward against its plain version at the shapes of
     the training steps: f32 at ATST-Clip small's ([192, 151, 3 * 384], 6
-    heads) and ATST-Frame base's ([192, 250, 3 * 768], 12 heads), bf16 at
-    the latter, each timed beside its library call (``sdpa_library``); and,
-    untimed, both dtypes at [16, 97, 3 * 256] with 8 heads of 32 (the other
-    head-dim instantiation, and tile edges that are no multiple of 16);
+    heads), ATST-Frame base's ([192, 250, 3 * 768], 12 heads) and the dual
+    small step's ([96, 160, 3 * 384], 6 heads), bf16 at ATST-Frame base's,
+    each timed beside its library call (``sdpa_library``); untimed, f32 at
+    the ddp_dual phase's rank and 1-rank steps ([8 or 16, 160, 3 * 384]);
+    and, untimed, both dtypes at [16, 97, 3 * 256] with 8 heads of 32 (the
+    other head-dim instantiation, and tile edges that are no multiple of
+    16);
     some sequences short and one with no valid key, whose output and
     gradient must be 0. The backward of both versions reads the plain
     forward's out and r. The first case is the one the summary line
@@ -1476,13 +1507,20 @@ def mha_kernel_checks(dev):
 
     rng = np.random.RandomState(SEED + 6)
     res = {}
-    for label, dtype, S, n, c, h, tol in (
-            ("f32", torch.float32, 2 * TRAIN_B, CLIP_N, CLIP_C, CLIP_H,
-             MHA_F32_REL),
-            ("f32_frame", torch.float32, 2 * TRAIN_B, N, C, H, MHA_F32_REL),
-            ("bf16", torch.bfloat16, 2 * TRAIN_B, N, C, H, BLOCK_REL_L2),
-            ("f32_d32", torch.float32, 16, 97, 256, 8, MHA_F32_REL),
-            ("bf16_d32", torch.bfloat16, 16, 97, 256, 8, BLOCK_REL_L2)):
+    f32, bf = torch.float32, torch.bfloat16
+    for label, dtype, S, n, c, h, tol, timed in (
+            ("f32", f32, 2 * TRAIN_B, CLIP_N, CLIP_C, CLIP_H, MHA_F32_REL,
+             True),
+            ("f32_frame", f32, 2 * TRAIN_B, N, C, H, MHA_F32_REL, True),
+            ("bf16", bf, 2 * TRAIN_B, N, C, H, BLOCK_REL_L2, True),
+            ("f32_dual", f32, TRAIN_B, DUAL_N, CLIP_C, CLIP_H, MHA_F32_REL,
+             True),
+            ("f32_dual_ddp_rank", f32, DUAL_DDP_B // DDP_RANKS, DUAL_N,
+             CLIP_C, CLIP_H, MHA_F32_REL, False),
+            ("f32_dual_ddp_one_rank", f32, DUAL_DDP_B, DUAL_N, CLIP_C, CLIP_H,
+             MHA_F32_REL, False),
+            ("f32_d32", f32, 16, 97, 256, 8, MHA_F32_REL, False),
+            ("bf16_d32", bf, 16, 97, 256, 8, BLOCK_REL_L2, False)):
         name = f"K6 mha {label}"
         qkv = torch.from_numpy(rng.randn(S, n, 3 * c).astype(
             np.float32)).to(dev, dtype)
@@ -1517,7 +1555,7 @@ def mha_kernel_checks(dev):
             fwd=dict(max_abs_err=err_o, rel_l2=max(errs["out"], errs["r"])),
             bwd=dict(max_abs_err=float((dq.float() - dq_p.float()).abs().max()),
                      rel_l2=errs["dqkv"]))
-        if S == 2 * TRAIN_B:  # the training shapes: timed
+        if timed:  # the training steps' shapes
             # K6 masks by key validity alone: a sequence with no valid key
             # needs no pair; f32 products count as three TF32 passes
             # (PEAK_OPS), so no f32 kernel can beat its bound
@@ -1559,7 +1597,9 @@ def ln_kernel_checks(dev):
     ([192 * 250, 768]), timed by CUDA events and in device time beside
     aten's LayerNorm backward; then untimed in bf16 at the rows of the clip
     CLI's step ([192 * 226, 384]), of the ddp_frame phase's steps
-    ([32 * 250, 768] a rank, [64 * 250, 768] the 1-rank step) and at 97
+    ([32 * 250, 768] a rank, [64 * 250, 768] the 1-rank step), in f32 and
+    bf16 at the dual small step's ([96 * 160, 384]), in f32 at the
+    ddp_dual phase's ([8 or 16 * 160, 384]), and at 97
     rows of widths 100, 200,
     1000 and 1023 (16-byte vectors that do not fill the lanes, single
     elements where a row is not a whole number of 16-byte vectors). The
@@ -1580,7 +1620,15 @@ def ln_kernel_checks(dev):
              ("bf16_ddp_rank", bf, 2 * DDP_B // DDP_RANKS * N, C,
               BLOCK_REL_L2, False),
              ("bf16_ddp_one_rank", bf, 2 * DDP_B * N, C, BLOCK_REL_L2,
-              False)]
+              False),
+             # the dual small step's encoders (96 sequences of 160 tokens)
+             # and the ddp_dual phase's rank and 1-rank f32 steps
+             ("f32_dual", f32, TRAIN_B * DUAL_N, CLIP_C, MHA_F32_REL, False),
+             ("bf16_dual", bf, TRAIN_B * DUAL_N, CLIP_C, BLOCK_REL_L2, False),
+             ("f32_dual_ddp_rank", f32, DUAL_DDP_B // DDP_RANKS * DUAL_N,
+              CLIP_C, MHA_F32_REL, False),
+             ("f32_dual_ddp_one_rank", f32, DUAL_DDP_B * DUAL_N, CLIP_C,
+              MHA_F32_REL, False)]
     cases += [(f"{n}_97x{c}", dt, 97, c, tol, False) for c in (100, 200,
                                                                 1000, 1023)
               for n, dt, tol in (("f32", f32, MHA_F32_REL),
@@ -3193,7 +3241,8 @@ def step_path(dev, label, make_method, batch, want, loss_rel, grad_cos,
               ref_margins=(REF_MEDIAN_MARGIN, REF_MIN_MARGIN),
               grad_floor=None, bn_projector=True):
     """One step of ``make_method(plain=False)`` through the kernels (launch
-    counts, finite loss, a teacher that moved), the same step from the same
+    counts, finite loss, a teacher that moved, or the model where the state
+    has no teacher), the same step from the same
     state and draws through every plain version (``make_method(True)``),
     and clips/s of both paths in turns; returns the kernel path's
     launches. Both states start at the end of warmup, so the step moves
@@ -3208,7 +3257,8 @@ def step_path(dev, label, make_method, batch, want, loss_rel, grad_cos,
     step to the turns; ``timed=False`` leaves the turns out. Behind a
     BatchNorm projector the student's final norm bias has no gradient in
     exact arithmetic (``ZERO_GRAD_REL``); ``bn_projector=False`` (the
-    data2vec student's linear projector) holds it as any other leaf."""
+    data2vec student's linear projector, MAE and dual, which have none)
+    holds it as any other leaf."""
     runs = {}
     for plain in (False, True):
         method = make_method(plain)
@@ -3219,36 +3269,45 @@ def step_path(dev, label, make_method, batch, want, loss_rel, grad_cos,
     cfg = method.cfg
     draws = method.draw(torch.Generator(device=dev).manual_seed(SEED),
                         TRAIN_B)
-    t_name = f"encoder.blocks.{method.depth - 1}.mlp.fc2.weight"
-    t_before = dict(state.teacher.named_parameters())[t_name].detach().clone()
+    # a leaf of the last block of the teacher, or of the model
+    watched = state.student if state.teacher is None else state.teacher
+    t_name = next(k for k, _ in watched.named_parameters()
+                  if k.endswith(f"blocks.{method.depth - 1}.mlp.fc2.weight"))
+    who = "model" if state.teacher is None else "teacher"
+    t_before = dict(watched.named_parameters())[t_name].detach().clone()
 
     torch.cuda.reset_peak_memory_stats()
     out, launches = counted_step(step, state, batch, draws)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     loss = float(out["loss"])
-    print(f"{label} step ({cfg.arch}, B={TRAIN_B}, {cfg.dtype}): "
+    # MAE's config names no arch and no dtype: its defaults, in f32
+    print(f"{label} step ({getattr(cfg, 'arch', 'defaults')}, B={TRAIN_B}, "
+          f"{getattr(cfg, 'dtype', 'float32')}): "
           + ", ".join(f"{k} {float(v)}" for k, v in out.items())
           + f"; peak device memory {peak} GiB")
     check_launches(f"{label} step", launches, want)
     check(np.isfinite(loss), f"{label} loss {loss} finite")
-    t_after = dict(state.teacher.named_parameters())[t_name].detach()
+    t_after = dict(watched.named_parameters())[t_name].detach()
     moved = float((t_after - t_before).abs().max())
-    check(moved > 0.0, f"{label}: the teacher moved ({t_name} max change "
+    check(moved > 0.0, f"{label}: the {who} moved ({t_name} max change "
           f"{moved})")
 
     pmethod, pstate, pstep = runs[True]
     pout = pstep(pstate, batch, draws)
     ploss = float(pout["loss"])
     rel = abs(loss - ploss) / abs(ploss)
-    zero_grad = f"encoder.{method.student.encoder._norm_name}.bias"
-    skip = {zero_grad} if bn_projector else set()
+    skip = set()
+    if bn_projector:
+        zero_grad = f"encoder.{method.student.encoder._norm_name}.bias"
+        skip = {zero_grad}
     cos, unused, norms = leaf_cos(state, pstate, skip)
     worst = min(cos, key=cos.get)
     print(f"{label} plain-path step loss {ploss}: rel diff {rel}; gradient "
           f"cosine min {cos[worst]} ({worst}), median "
           f"{float(np.median(list(cos.values())))} over {len(cos)} leaves "
-          f"(no gradient on either path: {unused}); {zero_grad} gradient "
-          f"norm {norms[zero_grad]} (largest leaf {max(norms.values())})")
+          f"(no gradient on either path: {unused})" + "".join(
+              f"; {k} gradient norm {norms[k]} (largest leaf "
+              f"{max(norms.values())})" for k in skip))
     check(rel <= loss_rel, f"{label} step loss rel diff {rel} <= {loss_rel}")
     if make_ref is None:
         check(cos[worst] >= grad_cos,
@@ -3537,6 +3596,128 @@ def clip_q8_path(dev, student_quant):
         timed=False)
 
 
+def mae_recipe():
+    """MAE at ``MAEConfig``'s defaults: encoder 384 wide, 12 blocks, 6
+    heads; decoder 384 wide, 6 blocks, 6 heads; 6 s crops, 148 patches,
+    111 of them masked."""
+    from audiossl_tpu_torch.methods.mae.method import MAEConfig
+
+    return MAEConfig()
+
+
+def dual_recipe(dtype):
+    """Dual at ``--arch small``: two 384-wide, 12-block, 6-head encoders
+    without a CLS token, expanders of 8192, output 256, at 6.4 s crops."""
+    from audiossl_tpu_torch.methods.dual.method import DualConfig
+
+    return DualConfig(arch="small", anchor_len=DUAL_ANCHOR, dtype=dtype)
+
+
+MAE_WANT = dict(mel_db=1, adamw_ema=1)  # its blocks take the module route
+
+
+def dual_want(dtype):
+    """Launches per step of the dual small step: both encoders' 12 blocks
+    on K6 and K8 (two norms a block and the final norm) in f32, on K4/K5
+    with K8 for the final norms in bf16; one K1 and one K7."""
+    if dtype == "float32":
+        want = dict(mha_fwd=24, mha_bwd=24, ln_pg_bwd=50)
+    else:
+        want = {k: 24 for k in ("attn_train_fwd", "attn_train_bwd",
+                                "mlp_train_fwd", "mlp_train_bwd")}
+        want["ln_pg_bwd"] = 2
+    want.update(mel_db=1, adamw_ema=1)
+    return want
+
+
+def mae_small_path(dev):
+    """The MAE step at its defaults, B = 96 (every fourth clip 5 s of
+    audio), f32: K1 and K7 (no teacher leaf) and no block kernel; held to
+    its plain-version step at the f32 bounds."""
+    from audiossl_tpu_torch.methods.mae.method import MAEMethod
+
+    cfg = mae_recipe()
+    check((cfg.n_patches, cfg.n_masked) == (148, 111),
+          f"MAE at 6 s: 148 patches, 111 masked ({cfg.n_patches}, "
+          f"{cfg.n_masked})")
+    return step_path(
+        dev, "mae_small",
+        lambda plain: MAEMethod(cfg, device=dev, seed=SEED, plain=plain),
+        wav_batch(dev, SAMPLES, SEED + 50, short=80000), MAE_WANT,
+        F32_STEP_LOSS_REL, F32_STEP_GRAD_COS, bn_projector=False)
+
+
+def dual_f32_path(dev):
+    """The dual small step at 6.4 s, B = 96, f32 (its default dtype): K6
+    forward and backward in both encoders' 24 blocks, K8 for their 50
+    norms, K1 and K7 (no teacher leaf); held to its plain-version step at
+    the f32 bounds."""
+    from audiossl_tpu_torch.methods.dual.method import DualMethod
+
+    cfg = dual_recipe("float32")
+    check(cfg.out_frames == 641 and cfg.n_groups == 40,
+          f"dual at {DUAL_ANCHOR} s: 641 frames, 40 groups")
+    return step_path(
+        dev, "dual_f32",
+        lambda plain: DualMethod(cfg, device=dev, seed=SEED, plain=plain),
+        wav_batch(dev, SAMPLES, SEED + 51, short=80000), dual_want("float32"),
+        F32_STEP_LOSS_REL, F32_STEP_GRAD_COS, bn_projector=False)
+
+
+def dual_bf16_path(dev):
+    """The dual small step in bf16: K4/K5 in both encoders' 24 blocks, K8
+    for the final norms, K1 and K7; both paths' gradients held to the same
+    step in f32 (plain versions) as the clip bf16 step is
+    (``REF_*_MARGIN``)."""
+    from audiossl_tpu_torch.methods.dual.method import DualMethod
+
+    cfg, ref_cfg = dual_recipe("bfloat16"), dual_recipe("float32")
+    return step_path(
+        dev, "dual_bf16",
+        lambda plain: DualMethod(cfg, device=dev, seed=SEED, plain=plain),
+        wav_batch(dev, SAMPLES, SEED + 52, short=80000),
+        dual_want("bfloat16"), STEP_LOSS_REL, None, bn_projector=False,
+        make_ref=lambda: DualMethod(ref_cfg, device=dev, seed=SEED,
+                                    plain=True))
+
+
+def adamw_no_teacher_check(dev, label, make_meta):
+    """K7 over the leaves of a method with no teacher (``make_meta()``
+    builds it on the meta device), as ``adamw_ema_check`` holds it, and
+    its library call: ``torch.optim.AdamW(fused=True)`` over the same
+    leaves (decay 0.04 on the leaves of two or more dimensions, none on
+    the rest), the same update with no EMA."""
+    model = make_meta().model
+    leaves = [p for _, p in model.named_parameters()]
+    shapes = [tuple(p.shape) for p in leaves]
+    decay = [p.ndim >= 2 for p in leaves]
+    del model, leaves
+    n = sum(int(np.prod(s)) for s in shapes)
+    print(f"K7 {label}: {len(shapes)} leaves, {n} parameters, no teacher "
+          "copy")
+    res = adamw_ema_check(dev, shapes, [False] * len(shapes), decay)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 60)
+    params = [torch.nn.Parameter(torch.randn(s, device=dev, generator=gen)
+                                 * 0.02) for s in shapes]
+    for p in params:
+        p.grad = torch.randn(p.shape, device=dev, generator=gen) * 1e-3
+    opt = torch.optim.AdamW(
+        [{"params": [p for p, d in zip(params, decay) if d],
+          "weight_decay": 0.04},
+         {"params": [p for p, d in zip(params, decay) if not d],
+          "weight_decay": 0.0}],
+        lr=8e-5, betas=(0.9, 0.999), eps=1e-6, fused=True)
+    opt.step()  # makes the moments
+    res.update(parameters=n, library_ms=cuda_ms(opt.step, iters=10),
+               library="torch.optim.AdamW(fused=True)")
+    print(f"K7 {label}: {res['ms']} ms (CUDA events), {res['device_ms']} ms "
+          f"(device), plain {res['plain_ms']} ms, AdamW(fused=True) "
+          f"{res['library_ms']} ms; bound {res['bound_ms']} ms")
+    del params, opt
+    torch.cuda.empty_cache()
+    return res
+
+
 CLI_PACK_N = 480  # tone clips of 2-10 s: 5 batches of TRAIN_B an epoch
 CLI_STEPS, CLI_CKPT, CLI_LOG = 12, 6, 3  # the timed CLI run
 CLI_UNTIMED_STEPS = 3
@@ -3594,11 +3775,12 @@ def recipe_argv(name, data, save):
 
 
 def state_tensors(state):
-    """Every tensor of a ``PretrainState`` by name, and its step, count
-    and generator state."""
+    """Every tensor of a ``PretrainState`` by name (a teacher where it has
+    one), and its step, count and generator state."""
     out = {f"student.{k}": v for k, v in state.student.state_dict().items()}
-    out.update({f"teacher.{k}": v
-                for k, v in state.teacher.state_dict().items()})
+    if state.teacher is not None:
+        out.update({f"teacher.{k}": v
+                    for k, v in state.teacher.state_dict().items()})
     out.update({f"mu.{k}": v for k, v in state.mu.items()})
     out.update({f"nu.{k}": v for k, v in state.nu.items()})
     out["generator"] = state.generator.get_state()
@@ -3882,18 +4064,84 @@ def cli_untimed_path(dev, data, recipe, extra, want):
     return launches
 
 
+def method_cli_path(dev, data, workdir, which, extra, want):
+    """``main`` of the MAE or dual CLI (``which``) at B = 96 for
+    ``CLI_UNTIMED_STEPS`` steps with ``extra`` flags and a checkpoint at
+    the last one: its launches (``want`` a step), finite parameters, no
+    teacher saved; then ``main`` again, which resumes from that
+    checkpoint, takes no step and launches nothing, and holds the first
+    run's final state tensor for tensor (the generator's state included).
+    Returns the first run's launches."""
+    import contextlib
+    import importlib
+
+    from audiossl_tpu_torch.kernels import build as kb
+
+    cli = importlib.import_module(f"audiossl_tpu_torch.methods.{which}.train")
+    save = os.path.join(workdir, f"{which}_cli")
+    steps = CLI_UNTIMED_STEPS
+    argv = ["--data_path", data, "--save_path", save, "--n_devices", "1",
+            "--batch_size_per_device", str(TRAIN_B), "--warmup_steps", "2",
+            "--max_steps", str(steps), "--ckpt_interval", str(steps), *extra]
+    label = f"{which} CLI"
+    runs = []
+    for i in range(2):
+        tee = Tee(sys.stdout)
+        torch.cuda.synchronize()
+        kb.reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(tee):
+            state = cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        runs.append((dict(kb.LAUNCHES), tee.text()))
+        print(f"{label} run {i + 1}: {wall:.1f} s")
+        if i == 0:
+            check(state.teacher is None, f"{label}: a state with no teacher")
+            check(all(bool(torch.isfinite(p).all())
+                      for p in state.student.parameters()),
+                  f"{label}: the parameters are finite")
+            first = {k: v.detach().to("cpu", copy=True)
+                     for k, v in state_tensors(state).items()}
+        else:
+            got = state_tensors(state)
+        del state
+        torch.cuda.empty_cache()
+    (launches, text), (launches2, text2) = runs
+    check("loader: native" in text, f"{label} took the native loader")
+    check_launches(label, launches, {k: v * steps for k, v in want.items()})
+    saved = torch.load(os.path.join(save, "ckpt", str(steps), "state.pt"),
+                       map_location="cpu", weights_only=True)
+    check(saved["teacher"] is None and saved["step"] == steps,
+          f"{label}: checkpoint {steps} written, with no teacher")
+    check(f"resumed from step {steps}\n" in text2
+          and f"run ended at step {steps}: 0 steps taken" in text2,
+          f"{label}: the second run resumed from step {steps} and took no "
+          "step")
+    check(not any(launches2.values()), f"{label}: the second run launched "
+          f"nothing ({launches2})")
+    check(got.keys() == first.keys(), f"{label}: the restore holds the "
+          "saved state's tensors")
+    unequal = [k for k in got if not torch.equal(got[k].cpu(), first[k])]
+    check(not unequal, f"{label}: the restored state equal to the saved one "
+          f"tensor for tensor ({len(got)} tensors; unequal {unequal[:5]})")
+    del got, first, saved
+    return launches
+
+
 DDP_RANKS, DDP_B, DDP_STEPS = 2, 32, 3  # ddp_frame: 16 clips a rank
 DDP_RUN_STEPS, DDP_RUN_CKPT = 6, 3
 DDP_TIMEOUT_S = 400  # the ranks' hard limit
 
 
-def ddp_batch(samples):
-    """The seeded global batch of the ddp_frame phase, on the host: DDP_B
-    clips of noise, every fourth with three quarters of it valid (so the
-    ranks select unequal counts of frames)."""
+def ddp_batch(samples, n=DDP_B):
+    """The seeded global batch of the ddp_frame phase (``n`` clips: the
+    ddp_dual phase's), on the host: clips of noise, every fourth with
+    three quarters of it valid (so the ranks select unequal counts of
+    frames)."""
     rng = np.random.RandomState(SEED + 40)
-    wav = (rng.randn(DDP_B, samples) * 0.1).astype(np.float32)
-    valid = np.full(DDP_B, samples, np.int64)
+    wav = (rng.randn(n, samples) * 0.1).astype(np.float32)
+    valid = np.full(n, samples, np.int64)
     valid[1::4] = samples * 3 // 4
     wav[1::4, samples * 3 // 4:] = 0.0
     return {"wav": wav, "valid": valid}
@@ -3901,9 +4149,12 @@ def ddp_batch(samples):
 
 def state_fingerprint(state):
     """Two int64 sums of the bits of every tensor of both branches (plain
-    and weighted by position): equal states give equal fingerprints."""
+    and weighted by position; the student alone where there is no
+    teacher): equal states give equal fingerprints."""
     out = []
     for branch in (state.student, state.teacher):
+        if branch is None:
+            continue
         for t in branch.state_dict().values():
             bits = t.detach().contiguous().view(torch.int32).long().flatten()
             pos = torch.arange(bits.numel(), device=bits.device) % 65521 + 1
@@ -3913,9 +4164,11 @@ def state_fingerprint(state):
 
 def save_branches(state, path):
     """What a step's gradient depends on: both branches (BatchNorm
-    statistics included), the generator, the step and Adam's count."""
+    statistics included; the student alone where there is no teacher),
+    the generator, the step and Adam's count."""
     torch.save({"student": state.student.state_dict(),
-                "teacher": state.teacher.state_dict(),
+                "teacher": (None if state.teacher is None
+                            else state.teacher.state_dict()),
                 "generator": state.generator.get_state(),
                 "step": state.step, "count": state.count}, path)
 
@@ -3926,7 +4179,8 @@ def load_branches(state, path, dev):
     on as they were)."""
     saved = torch.load(path, map_location=dev, weights_only=True)
     state.student.load_state_dict(saved["student"])
-    state.teacher.load_state_dict(saved["teacher"])
+    if state.teacher is not None:
+        state.teacher.load_state_dict(saved["teacher"])
     state.generator.set_state(saved["generator"].cpu())
     state.step, state.count = saved["step"], saved["count"]
 
@@ -4229,6 +4483,156 @@ def ddp_nccl_cli(workdir, data, n_cards):
 # card on gloo, each step at a global batch of DDP_DS_B (8 a rank) held to
 # the 1-rank step on the same global batch and draws at the f32 step bounds
 DDP_DS_B, DDP_DS_STEPS = 16, 2
+DUAL_DDP_STEPS = 2
+
+
+def ddp_dual_rank(out_dir, device):
+    """One rank of the ddp_dual phase (``parallel.launch.spawn``): the dual
+    small f32 step on its rows of the global batch of ``DUAL_DDP_B``, each
+    of ``DUAL_DDP_STEPS`` steps from the 1-rank run's state before it,
+    with its launches, metrics, wall time, state fingerprint and (rank 0)
+    the leaf cosines to the 1-rank step's gradient. Writes
+    ``rank<r>.json``."""
+    import torch.distributed as dist
+
+    from audiossl_tpu_torch.methods.dual.method import DualMethod
+    from audiossl_tpu_torch.parallel.launch import rank_device
+    from audiossl_tpu_torch.parallel.mesh import local_rows, world
+
+    record_launch_shapes()
+    w = world()
+    dev = rank_device(device)
+    cfg = dual_recipe("float32")
+    sl = local_rows(DUAL_DDP_B)
+    batch = {k: torch.from_numpy(v[sl]).to(dev)
+             for k, v in ddp_batch(SAMPLES, DUAL_DDP_B).items()}
+    method = DualMethod(cfg, device=dev, seed=SEED)
+    state = method.init_state(SEED)
+    step = method.make_step()
+    steps = []
+    for i in range(DUAL_DDP_STEPS):
+        load_branches(state, os.path.join(out_dir, f"pre{i}.pt"), dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, launches = counted_step(step, state, batch)
+        wall = time.perf_counter() - t0
+        rec = {"metrics": {k: float(v) for k, v in out.items()},
+               "launches": launches, "wall_s": wall,
+               "fingerprint": state_fingerprint(state)}
+        if w.is_main:
+            ref = torch.load(os.path.join(out_dir, f"ref_grads{i}.pt"),
+                             map_location=dev, weights_only=True)
+            cos = {k: float(torch.nn.functional.cosine_similarity(
+                p.grad.double().flatten(), ref[k].double().flatten(), dim=0))
+                for k, p in state.student.named_parameters()}
+            worst = min(cos, key=cos.get)
+            rec.update(min_cos=cos[worst], min_cos_leaf=worst,
+                       median_cos=float(np.median(list(cos.values()))))
+            del ref
+        steps.append(rec)
+    res = {"rank": w.rank, "backend": dist.get_backend(), "device": str(dev),
+           "steps": steps,
+           "seen": {k: sorted(v) for k, v in LAUNCH_SEEN.items()}}
+    with open(os.path.join(out_dir, f"rank{w.rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def ddp_dual_path(dev, workdir):
+    """Data-parallel dual pretraining on this one card: 2 gloo ranks over
+    CUDA tensors at the dual small f32 recipe, a global batch of
+    ``DUAL_DDP_B`` (8 a rank), ``DUAL_DDP_STEPS`` steps, each against the
+    1-rank step on the same global batch run here first, from the state
+    the 1-rank run had before it (the generator's too, so the same draws):
+    loss rel ``F32_STEP_LOSS_REL`` (the masked-MSE counts and the variance
+    terms' statistics span both ranks), every leaf's gradient cosine
+    ``F32_STEP_GRAD_COS``, both ranks' states and losses bit-equal, each
+    rank's launches the 1-rank step's. Returns the ranks' launches,
+    summed."""
+    from audiossl_tpu_torch.methods.dual.method import DualMethod
+    from audiossl_tpu_torch.parallel import launch
+
+    t_phase = time.perf_counter()
+    out_dir = os.path.join(workdir, "ddp_dual")
+    os.makedirs(out_dir)
+    cfg = dual_recipe("float32")
+    method = DualMethod(cfg, device=dev, seed=SEED)
+    state = method.init_state(SEED)
+    state.step = cfg.optimizer.warmup_steps
+    step = method.make_step()
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in ddp_batch(SAMPLES, DUAL_DDP_B).items()}
+    ref = []
+    for i in range(DUAL_DDP_STEPS):
+        save_branches(state, os.path.join(out_dir, f"pre{i}.pt"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, launches = counted_step(step, state, batch)
+        wall = time.perf_counter() - t0
+        check_launches(f"ddp_dual 1-rank step {i + 1}", launches,
+                       dual_want("float32"))
+        ref.append({"metrics": {k: float(v) for k, v in out.items()},
+                    "wall_s": wall})
+        torch.save({k: p.grad for k, p in state.student.named_parameters()},
+                   os.path.join(out_dir, f"ref_grads{i}.pt"))
+    del method, state, step, batch
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    launch.spawn(ddp_dual_rank, DDP_RANKS, (out_dir, str(dev)),
+                 device=str(dev), backend="gloo", timeout_s=DDP_TIMEOUT_S)
+    ranks_s = time.perf_counter() - t0
+    got = []
+    for r in range(DDP_RANKS):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            got.append(json.load(f))
+    for g in got:
+        for k, shapes in g["seen"].items():
+            LAUNCH_SEEN.setdefault(k, set()).update(map(tuple, shapes))
+    print(f"ddp_dual: {DDP_RANKS} ranks on {got[0]['device']}, backend "
+          f"{got[0]['backend']} over CUDA tensors, global batch {DUAL_DDP_B} "
+          f"({DUAL_DDP_B // DDP_RANKS} a rank); ranks ran {ranks_s:.1f} s")
+    check(all(g["backend"] == "gloo" for g in got), "ddp_dual ranks on gloo")
+    for i, want in enumerate(ref):
+        a, b = got[0]["steps"][i], got[1]["steps"][i]
+        wl, al = want["metrics"]["loss"], a["metrics"]["loss"]
+        rel = abs(al - wl) / abs(wl)
+        aux = {k: (a["metrics"][k], v) for k, v in want["metrics"].items()
+               if k not in ("loss", "lr", "wd")}
+        print(f"ddp_dual step {i + 1}: loss {al} (1-rank {wl}, rel diff "
+              f"{rel}); aux (2 ranks, 1 rank) {aux}; gradient cosine to the "
+              f"1-rank step min {a['min_cos']} ({a['min_cos_leaf']}), median "
+              f"{a['median_cos']}; wall {a['wall_s']} s / {b['wall_s']} s "
+              f"(a correctness run, not a data-parallel rate; 1-rank wall "
+              f"{want['wall_s']} s)")
+        check(rel <= F32_STEP_LOSS_REL, f"ddp_dual step {i + 1} loss rel "
+              f"diff {rel} <= {F32_STEP_LOSS_REL}")
+        check(a["min_cos"] >= F32_STEP_GRAD_COS, f"ddp_dual step {i + 1}: "
+              f"every gradient leaf cosine to the 1-rank step >= "
+              f"{F32_STEP_GRAD_COS}")
+        check(a["fingerprint"] == b["fingerprint"]
+              and a["metrics"] == b["metrics"],
+              f"ddp_dual step {i + 1}: both ranks' states and metrics "
+              "bit-equal")
+        for r, st in enumerate((a, b)):
+            check_launches(f"ddp_dual rank {r} step {i + 1}", st["launches"],
+                           dual_want("float32"))
+    print(json.dumps({"ddp_dual": {
+        "backend": got[0]["backend"], "ranks": DDP_RANKS,
+        "global_batch": DUAL_DDP_B,
+        "loss": [s["metrics"]["loss"] for s in got[0]["steps"]],
+        "one_rank_loss": [r["metrics"]["loss"] for r in ref],
+        "min_leaf_cos": [s["min_cos"] for s in got[0]["steps"]],
+        "wall_s": [[s["wall_s"] for s in g["steps"]] for g in got],
+        "one_rank_wall_s": [r["wall_s"] for r in ref],
+        "phase_s": time.perf_counter() - t_phase}}))
+    launches = dict.fromkeys(got[0]["steps"][0]["launches"], 0)
+    for g in got:
+        for st in g["steps"]:
+            for k, n in st["launches"].items():
+                launches[k] += n
+    return launches
+
+
 DDP_DS_PACK = (("train", 64), ("valid", 33), ("test", 33))  # an odd eval
 # split: its last batch does not divide over the ranks
 
@@ -5101,15 +5505,38 @@ def main():
             res[name][key] = r
     for name, r in d128_checks(dev).items():
         res[name]["d128"] = r
+    # the MAE and dual steps' shapes and leaves
+    t_new = time.perf_counter()
+    from audiossl_tpu_torch.methods.dual.method import DualMethod
+    from audiossl_tpu_torch.methods.mae.method import MAEMethod
+
+    res["mel_db"]["max_abs_err"] = max(
+        res["mel_db"]["max_abs_err"],
+        k1_compare(dev, (TRAIN_B, 1026, dual_recipe("float32").out_frames)))
+    for name, r in train_kernel_checks(dev, DUAL_N, CLIP_C, CLIP_H,
+                                       4 * CLIP_C, timed=False,
+                                       S=TRAIN_B).items():
+        res[name]["dual"] = r
+    res["adamw_ema"]["mae_no_teacher"] = adamw_no_teacher_check(
+        dev, "mae_no_teacher", lambda: MAEMethod(mae_recipe(),
+                                                 device="meta"))
+    res["adamw_ema"]["dual_no_teacher"] = adamw_no_teacher_check(
+        dev, "dual_no_teacher", lambda: DualMethod(dual_recipe("float32"),
+                                                   device="meta"))
+    new_s = {"kernel checks": time.perf_counter() - t_new}
+    print(f"MAE and dual kernel checks: {new_s['kernel checks']:.1f} s")
     # every launch so far was compared with its plain version at its shape
     checked = {k: set(v) for k, v in LAUNCH_SEEN.items()}
     paths, seen = {}, {}
+
+    path_s = {}
 
     def run_path(name, fn):
         LAUNCH_SEEN.clear()
         t0 = time.perf_counter()
         paths[name] = fn()
-        print(f"path {name}: {time.perf_counter() - t0:.1f} s")
+        path_s[name] = time.perf_counter() - t0
+        print(f"path {name}: {path_s[name]:.1f} s")
         seen[name] = {k: sorted(v) for k, v in LAUNCH_SEEN.items()}
 
     with tempfile.TemporaryDirectory() as workdir:
@@ -5149,7 +5576,10 @@ def main():
                      ("frame_int8", lambda: frame_q8_path(dev, "int8")),
                      ("clip_int8dx", lambda: clip_q8_path(dev, "int8dx")),
                      ("clip_int8", lambda: clip_q8_path(dev, "int8")),
-                     ("frame_bf16_d2v", lambda: frame_d2v_path(dev))):
+                     ("frame_bf16_d2v", lambda: frame_d2v_path(dev)),
+                     ("mae_small", lambda: mae_small_path(dev)),
+                     ("dual_f32", lambda: dual_f32_path(dev)),
+                     ("dual_bf16", lambda: dual_bf16_path(dev))):
         torch.cuda.empty_cache()
         run_path(name, fn)
     with tempfile.TemporaryDirectory() as workdir:
@@ -5172,6 +5602,20 @@ def main():
                                                     want))
         torch.cuda.empty_cache()
         run_path("ddp_frame", lambda: ddp_frame_path(dev, workdir, data))
+        for which, extra, want in (
+                ("mae", [], MAE_WANT),
+                ("dual", ["--arch", "small", "--anchor_len",
+                          str(DUAL_ANCHOR)], dual_want("float32"))):
+            torch.cuda.empty_cache()
+            run_path(f"pretrain_{which}_cli", lambda: method_cli_path(
+                dev, data, workdir, which, extra, want))
+        torch.cuda.empty_cache()
+        run_path("ddp_dual", lambda: ddp_dual_path(dev, workdir))
+    for name in ("mae_small", "dual_f32", "dual_bf16", "pretrain_mae_cli",
+                 "pretrain_dual_cli", "ddp_dual"):
+        new_s[name] = path_s[name]
+    print(f"MAE and dual phases: {sum(new_s.values()):.1f} s "
+          f"({ {k: round(v, 1) for k, v in new_s.items()} })")
     k1_seen = {p: v.get("mel_db", []) for p, v in seen.items()}
     print(f"K1 STFT shapes by path: {k1_seen}")
     for name, shape in list(K1_SHAPES.items()) + [

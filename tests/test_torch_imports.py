@@ -40,6 +40,11 @@ def test_port_imports_without_jax():
         "import audiossl_tpu_torch.utils.common\n"
         "import audiossl_tpu_torch.methods.atstframe.train\n"
         "import audiossl_tpu_torch.methods.atst.train\n"
+        "import audiossl_tpu_torch.methods.mae, audiossl_tpu_torch.methods.dual\n"
+        "import audiossl_tpu_torch.methods.mae.method\n"
+        "import audiossl_tpu_torch.methods.mae.train\n"
+        "import audiossl_tpu_torch.methods.dual.method\n"
+        "import audiossl_tpu_torch.methods.dual.train\n"
         "import audiossl_tpu_torch.models.heads\n"
         "import audiossl_tpu_torch.downstream.finetune\n"
         "import audiossl_tpu_torch.downstream.train_finetune\n"
