@@ -31,7 +31,8 @@
   MAE and dual models' params, and :func:`model_state_from_flax` carries
   their whole state (params and Adam's moments; no teacher);
 * :func:`linear_head_state_from_torch` reads a reference ``LinearHead``
-  (the distillation teacher's head) into the port's.
+  (the distillation teacher's head) into the port's, and
+  :func:`attention_head_state_from_torch` a reference ``AttentionHead``.
 """
 from __future__ import annotations
 
@@ -98,7 +99,8 @@ def state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
     for name, p in params.items():
         if name == "patch_proj":
             _dense(p, "patch_embed.patch_embed", out)
-        elif name in ("pos_embed", "mask_embed", "cls_token"):
+        elif name in ("pos_embed", "mask_embed", "cls_token",
+                      "prompt_embed"):
             out[name] = _t(p)
         elif name == "norm":
             _norm(p, "norm" if clip else "norm_frame", out)
@@ -262,12 +264,24 @@ def finetune_state_from_flax(state, task):
     -> the port's, loaded into ``task``'s encoder and head (a
     ``downstream.finetune.FinetuneTask`` built alike): the encoder, the
     LinearHead with its BatchNorm statistics, and ``optax.trace``'s
-    momentum trace by the port's parameter names; the step carries over,
-    JAX's key does not."""
-    return _trained_from_flax(
-        state.enc_params, state.head_params, state.head_stats,
-        state.opt_state.trace, state.step, task.encoder, task.head,
-        task.init_state)
+    momentum trace (under ``optimizer="adamw"``, ``scale_by_adam``'s
+    moments and count) by the port's parameter names; the step carries
+    over, JAX's key does not."""
+    opt = state.opt_state
+    if not hasattr(opt, "nu"):
+        return _trained_from_flax(
+            state.enc_params, state.head_params, state.head_stats,
+            opt.trace, state.step, task.encoder, task.head, task.init_state)
+    out = _trained_from_flax(
+        state.enc_params, state.head_params, state.head_stats, opt.mu,
+        state.step, task.encoder, task.head, task.init_state)
+    nu = {f"encoder.{k}": v for k, v in
+          state_dict_from_flax(_tree_np(opt.nu["enc"])).items()}
+    _head_from_flax(_tree_np(opt.nu["head"]), {}, "head", nu)
+    for k, v in nu.items():
+        out.nu[k].copy_(v)
+    out.count = int(np.asarray(opt.count))
+    return out
 
 
 def distill_state_from_flax(state, method, generator: torch.Generator):
@@ -322,6 +336,28 @@ def linear_head_state_from_torch(sd: Mapping[str, object]
     keys = ["linear.weight", "linear.bias"]
     if "norm.running_mean" in sd:
         keys += ["norm.running_mean", "norm.running_var"]
+    return {k: torch.as_tensor(np.asarray(sd[k], np.float32)).clone()
+            for k in keys}
+
+
+def attention_head_state_from_torch(sd: Mapping[str, object]
+                                    ) -> Dict[str, torch.Tensor]:
+    """A reference ``AttentionHead`` state dict (``modules/head.py:72``:
+    ``pre_linear``, ``cls_token``, the Block ``att``, ``norm``'s running
+    statistics, ``linear``) -> the port's ``models.heads.AttentionHead``
+    state dict, whose names are the reference's: the keys JAX's
+    ``compat/torch_import.py:159 attention_head_from_torch`` reads and no
+    others (``norm.num_batches_tracked`` is dropped; ``att.attn.qkv.bias``
+    is carried where present, as JAX carries it). Copies in f32."""
+    keys = ["pre_linear.weight", "pre_linear.bias", "cls_token",
+            "linear.weight", "linear.bias", "norm.running_mean",
+            "norm.running_var"]
+    keys += [f"att.{k}" for k in (
+        "norm1.weight", "norm1.bias", "norm2.weight", "norm2.bias",
+        "attn.qkv.weight", "attn.proj.weight", "attn.proj.bias",
+        "mlp.fc1.weight", "mlp.fc1.bias", "mlp.fc2.weight", "mlp.fc2.bias")]
+    if "att.attn.qkv.bias" in sd:
+        keys.append("att.attn.qkv.bias")
     return {k: torch.as_tensor(np.asarray(sd[k], np.float32)).clone()
             for k in keys}
 
@@ -410,8 +446,8 @@ def load_encoder_state(encoder: torch.nn.Module,
                        ) -> None:
     """Load a reference encoder state dict into the port's
     ``AudioTransformer`` through :func:`encoder_state_from_torch`. Mapped
-    keys the encoder has no place for (``prompt_embed``, which the port's
-    encoder does not hold, or a clip checkpoint's ``cls_token`` in a
+    keys the encoder has no place for (``prompt_embed`` in an encoder built
+    without prompt tokens, or a clip checkpoint's ``cls_token`` in a
     frame encoder) are dropped, as flax leaves unused params alone; a key
     the encoder needs and the file lacks raises. ``assign=True`` takes the
     tensors themselves (an encoder built on the meta device).

@@ -56,14 +56,16 @@ def _padded(path: str, fs: int, pad_to: int) -> np.ndarray:
 
 class StronglyAnnotatedSet:
     """TSV rows (filename, onset, offset, event_label) -> one example a
-    file, yielding (wav [pad_to * fs], strong [n_frames, C], filename)."""
+    file, yielding (wav [pad_to * fs], strong [n_frames, C], filename),
+    or without the filename when ``return_filename`` is False."""
 
     def __init__(self, audio_folder: str, tsv_entries: Sequence[Dict],
                  encoder: ManyHotEncoder, pad_to: float = 10.0,
-                 fs: int = 16000):
+                 fs: int = 16000, return_filename: bool = True):
         self.encoder = encoder
         self.fs = fs
         self.pad_to = int(pad_to * fs)
+        self.return_filename = return_filename
         ex: Dict[str, dict] = {}
         for r in tsv_entries:
             if not r.get("filename"):
@@ -84,19 +86,23 @@ class StronglyAnnotatedSet:
         e = self.examples[i]
         wav = _padded(e["path"], self.fs, self.pad_to)
         strong = self.encoder.encode_strong_df(e["events"]).astype(np.float32)
-        return wav, strong, self.filenames[i]
+        if self.return_filename:
+            return wav, strong, self.filenames[i]
+        return wav, strong
 
 
 class WeakSet:
     """TSV rows (filename, event_labels comma-joined) -> strong-shaped
-    labels active over every frame (the weak-pooled loss masks frames)."""
+    labels active over every frame (the weak-pooled loss masks frames);
+    ``return_filename`` as :class:`StronglyAnnotatedSet`'s."""
 
     def __init__(self, audio_folder: str, tsv_entries: Sequence[Dict],
                  encoder: ManyHotEncoder, pad_to: float = 10.0,
-                 fs: int = 16000):
+                 fs: int = 16000, return_filename: bool = True):
         self.encoder = encoder
         self.fs = fs
         self.pad_to = int(pad_to * fs)
+        self.return_filename = return_filename
         self.examples = [
             (os.path.join(audio_folder, r["filename"]),
              str(r["event_labels"]).split(","), r["filename"])
@@ -109,38 +115,44 @@ class WeakSet:
         path, labels, fname = self.examples[i]
         out = _padded(path, self.fs, self.pad_to)
         strong = self.encoder.encode_strong_df(labels).astype(np.float32)
-        return out, strong, fname
+        if self.return_filename:
+            return out, strong, fname
+        return out, strong
 
 
 class UnlabeledSet(WeakSet):
     def __init__(self, audio_folder: str, encoder: ManyHotEncoder,
-                 pad_to: float = 10.0, fs: int = 16000):
+                 pad_to: float = 10.0, fs: int = 16000,
+                 return_filename: bool = True):
         rows = [{"filename": f, "event_labels": ""}
                 for f in sorted(os.listdir(audio_folder))]
-        super().__init__(audio_folder, rows, encoder, pad_to, fs)
+        super().__init__(audio_folder, rows, encoder, pad_to, fs,
+                         return_filename)
 
 
 class MixedBatchLoader:
     """Every batch holds fixed counts from each source (reference
     ConcatDatasetSampler, sampler.py:7-101), e.g. [128 synth, 128 weak];
     shorter sources cycle. Yields dicts of wav, valid (the padded length),
-    strong, source (the source's index per row) and filenames.
+    strong, source (the source's index per row) and filenames ("" for an
+    item of a set built with ``return_filename=False``).
 
     ``mode`` picks the source whose length sets the epoch (reference
     ``batch_len_index``: steps per epoch = ``len(datasets[mode]) //
     batch_sizes[mode]``; the DCASE config uses 1, the weak set,
-    ``conf/frame_40.yaml``). Epoch e (``set_epoch``; 0 until it is called)
+    ``conf/frame_40.yaml``). Epoch e (``epoch``, then ``set_epoch``)
     shuffles with ``RandomState(seed + e)``."""
 
     def __init__(self, datasets: Sequence, batch_sizes: Sequence[int],
-                 shuffle: bool = True, seed: int = 0, mode: int = 0):
+                 shuffle: bool = True, seed: int = 0, epoch: int = 0,
+                 mode: int = 0):
         assert len(datasets) == len(batch_sizes)
         assert 0 <= mode < len(datasets)
         self.datasets = list(datasets)
         self.batch_sizes = list(batch_sizes)
         self.shuffle = shuffle
         self.seed = seed
-        self.epoch = 0
+        self.epoch = epoch
         self.mode = mode
 
     def __len__(self):
@@ -172,7 +184,7 @@ class MixedBatchLoader:
                     pos[si] += 1
                     wavs.append(item[0])
                     strongs.append(item[1])
-                    fnames.append(item[2])
+                    fnames.append(item[2] if len(item) > 2 else "")
                     src_ids.append(si)
             yield {
                 "wav": np.stack(wavs).astype(np.float32),

@@ -5,10 +5,10 @@ Reference ``FineTuningPLModule`` (``methods/atst/downstream/model.py:
 172-306``, the atstframe variant ``model.py:149-327``): the encoder and a
 :class:`~audiossl_tpu_torch.models.heads.LinearHead` trained together with
 a per-step cosine learning rate, layer-wise LR decay 0.75 over the blocks,
-SGD with momentum 0.9, cross-entropy or summed sigmoid BCE on mixup's soft
-targets, and the gradient clipped to a global norm of 3. JAX's
-``optimizer="adamw"`` and ``weight_decay`` have no caller there (its
-driver sets neither) and are not ported.
+SGD with momentum 0.9 (or, with ``optimizer="adamw"``, optax's
+``scale_by_adam``), optional decoupled weight decay on the >= 2-D
+parameters, cross-entropy or summed sigmoid BCE on mixup's soft targets,
+and the gradient clipped to a global norm of 3.
 
 A step is JAX's line for line (:meth:`FinetuneTask.train_step`): the
 central crop and the mel (K1 on the card) with no gradient, mixup by one
@@ -16,8 +16,9 @@ roll of the batch, the SpecAugment masks, RandomResizeCrop, the encoder in
 training mode with drop path (the chunked clip API or the frame encoder's
 scene embedding), the head with its BatchNorm statistics updated, the
 loss, the clip, then the update written out over the parameters as JAX's
-optax chain computes it: the momentum trace times each parameter's
-layer-decay factor, times the learning rate. The optimizer is optax's in
+optax chain computes it: the momentum trace (or Adam's bias-corrected
+moments) times each parameter's layer-decay factor, plus the weight decay,
+times the learning rate. The optimizer is optax's in
 JAX, not the fused AdamW + EMA kernel, so K7 is not on this path; the
 encoder is the f32 module route, so K1 is its only kernel.
 
@@ -63,6 +64,7 @@ class FinetuneConfig:
     steps_per_epoch: int = 100
     warmup_steps: int = 0
     momentum: float = 0.9
+    weight_decay: float = 0.0
     layer_wise_lr: float = 0.75       # reference lr_scale; 1.0 disables
     grad_clip: float = 3.0
     multi_label: bool = False
@@ -79,6 +81,7 @@ class FinetuneConfig:
     specaug: bool = False
     rrc: bool = False  # RandomResizeCrop on the training mel
     freeze_embed: bool = False
+    optimizer: str = "sgd"            # "sgd" | "adamw"
     mel: MelConfig = MelConfig()
     sr: int = 16000
     # JAX reads the drop-path rate off its encoder (AudioTransformer's
@@ -94,11 +97,14 @@ class FinetuneConfig:
 @dataclasses.dataclass
 class FinetuneState:
     """The encoder and head (trained in place), the momentum trace by
-    parameter name (``mu``) and the step."""
+    parameter name (``mu``; Adam's first moment under ``"adamw"``, with
+    its second moment ``nu`` and ``count``) and the step."""
     step: int
     encoder: AudioTransformer
     head: LinearHead
     mu: Dict[str, torch.Tensor]
+    nu: Optional[Dict[str, torch.Tensor]] = None
+    count: int = 0
 
     @property
     def params(self) -> Dict[str, torch.nn.Parameter]:
@@ -132,7 +138,8 @@ def named_params(encoder, head) -> Dict[str, torch.nn.Parameter]:
     return out
 
 
-_EMBED_KEYS = ("patch_embed", "pos_embed", "cls_token", "mask_embed")
+_EMBED_KEYS = ("patch_embed", "pos_embed", "cls_token", "mask_embed",
+               "prompt_embed")
 
 
 def layer_decay_factors(names, depth: int, decay: float,
@@ -140,8 +147,8 @@ def layer_decay_factors(names, depth: int, decay: float,
     """Per-parameter LR multipliers over the encoder's parameter names, as
     JAX's ``layer_decay_factors`` over its param tree (reference
     ``layer_wise_lr_groups``, ``methods/atst/downstream/model.py:
-    129-169``): block i ``decay**(depth - i)``; the patch, position, CLS
-    and mask embeddings ``decay**depth``, or 0.0 with
+    129-169``): block i ``decay**(depth - i)``; the patch, position, CLS,
+    mask and prompt embeddings ``decay**depth``, or 0.0 with
     ``freeze_embed`` (the blocks keep training); the final norm (``norm``
     / ``norm_frame``) ``decay``; any other name (the head's) 1.0."""
     def factor(name):
@@ -216,19 +223,49 @@ def local_draws(d: FinetuneDraws, batch: int) -> FinetuneDraws:
     return out
 
 
+def _apply(u, p, name, lr, factors, weight_decay):
+    """The rest of JAX's chain for one parameter: times its layer-decay
+    factor (none: 1), plus the decoupled weight decay on >= 2-D
+    parameters, then ``p -= lr * u``."""
+    if factors is not None:
+        u.mul_(factors[name])
+    if weight_decay > 0 and p.ndim >= 2:
+        u.add_(weight_decay * p)
+    p.sub_(u * lr)
+
+
 @torch.no_grad()
 def momentum_update(mu: Dict[str, torch.Tensor],
                     params: Dict[str, torch.nn.Parameter], grads, lr: float,
                     momentum: float,
-                    factors: Optional[Dict[str, float]] = None) -> None:
+                    factors: Optional[Dict[str, float]] = None,
+                    weight_decay: float = 0.0) -> None:
     """JAX's chain over ``params`` in place: ``optax.trace`` (``mu = g +
-    momentum * mu``), times each parameter's layer-decay factor (none:
-    1), then ``p -= lr * u``; ``grads`` in the order of ``params``."""
+    momentum * mu``), then :func:`_apply`; ``grads`` in the order of
+    ``params``."""
     for (name, p), g in zip(params.items(), grads):
         u = mu[name].mul_(momentum).add_(g).clone()
-        if factors is not None:
-            u.mul_(factors[name])
-        p.sub_(u * lr)
+        _apply(u, p, name, lr, factors, weight_decay)
+
+
+@torch.no_grad()
+def adam_update(mu: Dict[str, torch.Tensor], nu: Dict[str, torch.Tensor],
+                count: int, params: Dict[str, torch.nn.Parameter], grads,
+                lr: float, factors: Optional[Dict[str, float]] = None,
+                weight_decay: float = 0.0, b1: float = 0.9,
+                b2: float = 0.999, eps: float = 1e-6) -> None:
+    """JAX's chain under ``optimizer="adamw"`` in place: optax's
+    ``scale_by_adam(eps=1e-6)`` (``mu = (1 - b1) g + b1 mu``, ``nu = (1 -
+    b2) g^2 + b2 nu``, each bias-corrected by ``1 - b**count`` in f32,
+    ``u = mu_hat / (sqrt(nu_hat) + eps)``; ``count`` already incremented),
+    then :func:`_apply`."""
+    bc1 = float(1.0 - torch.tensor(b1, dtype=torch.float32) ** count)
+    bc2 = float(1.0 - torch.tensor(b2, dtype=torch.float32) ** count)
+    for (name, p), g in zip(params.items(), grads):
+        m = mu[name].copy_((1 - b1) * g + b1 * mu[name])
+        v = nu[name].copy_((1 - b2) * (g * g) + b2 * nu[name])
+        u = (m / bc1) / (torch.sqrt(v / bc2) + eps)
+        _apply(u, p, name, lr, factors, weight_decay)
 
 
 def _f32(v: float) -> float:
@@ -242,6 +279,8 @@ class FinetuneTask:
 
     def __init__(self, encoder: AudioTransformer, cfg: FinetuneConfig,
                  embed_dim: int, generator: Optional[torch.Generator] = None):
+        if cfg.optimizer not in ("sgd", "adamw"):
+            raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
         self.encoder = encoder
         self.cfg = cfg
         self.device = encoder.pos_embed.device
@@ -260,14 +299,16 @@ class FinetuneTask:
                             for k in named_params(encoder, self.head)}
 
     def init_state(self) -> FinetuneState:
-        """Step 0 with a zero momentum trace; the encoder and head put in
-        training mode with gradients on."""
+        """Step 0 with a zero momentum trace (or zero Adam moments); the
+        encoder and head put in training mode with gradients on."""
         self.encoder.requires_grad_(True).train()
         self.head.requires_grad_(True).train()
-        mu = {k: torch.zeros_like(p)
-              for k, p in named_params(self.encoder, self.head).items()}
+        params = named_params(self.encoder, self.head)
+        mu = {k: torch.zeros_like(p) for k, p in params.items()}
+        nu = ({k: torch.zeros_like(p) for k, p in params.items()}
+              if self.cfg.optimizer == "adamw" else None)
         return FinetuneState(step=0, encoder=self.encoder, head=self.head,
-                             mu=mu)
+                             mu=mu, nu=nu)
 
     def rows(self, batch: int, samples: int) -> int:
         """The sequences the encoder runs for ``batch`` clips of
@@ -367,8 +408,14 @@ class FinetuneTask:
         return state, {"loss": loss, "lr": lr, "gnorm": gnorm}
 
     def _update(self, state, params, grads, lr: float):
-        momentum_update(state.mu, params, grads, lr, self.cfg.momentum,
-                        self.factors)
+        cfg = self.cfg
+        if cfg.optimizer == "adamw":
+            state.count += 1
+            adam_update(state.mu, state.nu, state.count, params, grads, lr,
+                        self.factors, cfg.weight_decay)
+        else:
+            momentum_update(state.mu, params, grads, lr, cfg.momentum,
+                            self.factors, cfg.weight_decay)
 
     def eval_all(self, state: FinetuneState, batch) -> torch.Tensor:
         """:meth:`eval_logits` of a batch every rank holds whole, the same

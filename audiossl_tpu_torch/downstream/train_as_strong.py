@@ -197,7 +197,8 @@ def train(args, record: Optional[dict] = None):
 
     if record is not None:
         record["final"] = host_modules(state)
-    gt, durations = read_ground_truth(os.path.join(args.data_path, "eval"))
+    gt, durations = read_ground_truth(os.path.join(args.data_path, "eval"),
+                                      cfg.audio_len)
     if keeper is not None:
         restored = keeper.restore_best()
         if restored is not None:

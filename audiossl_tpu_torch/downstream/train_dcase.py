@@ -73,8 +73,6 @@ from audiossl_tpu_torch.training.checkpoint import (STATE_FILE, TopKKeeper,
 SEED = 0  # the head's weights and the drop-path draws
 SIZES = ("tiny", "small", "base")
 EVAL_B = 32
-N_TEST_THRESHOLDS = 50  # the test's operating points (reference: 50)
-AUDIO_LEN = 10.0  # seconds a clip: the SED sets pad or cut to it
 
 
 def timed(loader, out: Optional[list]):
@@ -126,12 +124,13 @@ def evaluate_val(task, predict, state, synth_loader, weak_loader,
 
 def evaluate_test(task, predict, state, loader, encoder, cfg, ground_truth,
                   durations, record: Optional[dict] = None):
-    """PSDS scenarios 1 and 2 over ``N_TEST_THRESHOLDS`` operating
+    """PSDS scenarios 1 and 2 over ``cfg.n_test_thresholds`` operating
     points and the event F1 at 0.5 of the loader's clips. ``record``, when
     given, receives ``decode_s`` (the decoding, the scores' host copies
     and event extraction), ``psds_s`` (the scoring) and ``strong`` (each
     batch's scores, kept only then)."""
-    thds = np.arange(1 / (N_TEST_THRESHOLDS * 2), 1, 1 / N_TEST_THRESHOLDS)
+    thds = np.arange(1 / (cfg.n_test_thresholds * 2), 1,
+                     1 / cfg.n_test_thresholds)
     dets = {t: [] for t in thds}
     d05 = []
     decode_s, scores = 0.0, []
@@ -163,9 +162,9 @@ def evaluate_test(task, predict, state, loader, encoder, cfg, ground_truth,
     return {"psds1": psds1, "psds2": psds2, "event_f1": ef1}
 
 
-def read_ground_truth(split_dir: str):
+def read_ground_truth(split_dir: str, audio_len: float = 10.0):
     """``meta.tsv`` as an event table, and ``durations.tsv`` (every file
-    ``AUDIO_LEN`` seconds when there is none)."""
+    ``audio_len`` seconds when there is none: ``SEDConfig.audio_len``)."""
     rows = read_tsv(os.path.join(split_dir, "meta.tsv"))
 
     def num(x):
@@ -179,7 +178,7 @@ def read_ground_truth(split_dir: str):
         return gt, {"filename": [r["filename"] for r in d],
                     "duration": [float(r["duration"]) for r in d]}
     files = list(dict.fromkeys(gt["filename"]))
-    return gt, {"filename": files, "duration": [AUDIO_LEN] * len(files)}
+    return gt, {"filename": files, "duration": [audio_len] * len(files)}
 
 
 def build_encoder(arch: str, ckpt_path: str, device):
@@ -382,7 +381,7 @@ def train(args, record: Optional[dict] = None):
         record["final"] = host_modules(state)
     # the test: PSDS needs the ground-truth events and the durations
     gt, durations = read_ground_truth(
-        os.path.join(args.data_path, "strong_val"))
+        os.path.join(args.data_path, "strong_val"), cfg.audio_len)
     if keeper is not None:
         # the test runs on the kept best state (the reference tests the
         # ModelCheckpoint-monitored best, train_dcase.py:51-58)

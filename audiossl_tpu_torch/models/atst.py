@@ -7,7 +7,11 @@ token, final norm ``norm_frame``) and the clip-level one (``use_cls=True``,
 reference ``audiossl/models/atst/audio_transformer.py`` AST: a CLS token
 before the patches, final norm ``norm``, the pretraining forward returns
 the normed CLS token, or with ``avg=True`` the mean of the last 8 blocks'
-CLS token). No prompt tokens. The frame encoder's ``avg_blocks`` (the
+CLS token). A frame encoder's ``nprompt`` learned prompt tokens
+(``prompt_embed``) go before the patches after the position embeddings
+are added; the blocks count them as valid keys, the frame outputs drop
+them, and the scene embedding appends their mean (JAX's ``nprompt``,
+``audiossl_tpu/models/atst.py:81``). The frame encoder's ``avg_blocks`` (the
 data2vec teacher) replaces the final norm by the mean of the last
 ``avg_blocks`` block outputs, each instance-normalized over the tokens.
 Position embeddings are "cut" (the first tokens' rows) or, with
@@ -126,7 +130,8 @@ class AudioTransformer(nn.Module):
                  fused_attention: bool = False, fused_infer: bool = False,
                  plain: bool = False, use_cls: bool = False,
                  infer_quant: str = "none", train_quant: str = "none",
-                 pos_type: str = "cut", avg_blocks: int = 0):
+                 pos_type: str = "cut", avg_blocks: int = 0,
+                 nprompt: int = 0):
         """Parameters are drawn on the CPU from ``generator`` (seed 0 when
         None) as the reference initializes them, then moved to
         ``device``; ``device="meta"`` gives the shapes and draws nothing.
@@ -137,12 +142,14 @@ class AudioTransformer(nn.Module):
         clip-level encoder; ``pos_type`` is "cut" or "interpolate";
         ``avg_blocks`` > 0 makes a frame encoder's pretraining forward
         return the data2vec target (:func:`block_average`); it then holds
-        no final norm."""
+        no final norm; ``nprompt`` > 0 gives a frame encoder that many
+        prompt tokens (``prompt_embed`` [1, nprompt, D])."""
         super().__init__()
         if pos_type not in ("cut", "interpolate"):
             raise ValueError(f"unknown pos_type {pos_type!r}")
         self.pos_type = pos_type
         self.avg_blocks = avg_blocks
+        self.nprompt = nprompt
         self.spec_h, self.spec_w = spec_h, spec_w
         device = resolve_device(device)
         self.infer_quant = check_quant(infer_quant, ("int8",))
@@ -169,6 +176,10 @@ class AudioTransformer(nn.Module):
         if use_cls:
             self.cls_token = nn.Parameter(torch.empty(1, 1, embed_dim,
                                                       device=meta))
+        if nprompt > 0:
+            self.prompt_embed = nn.Parameter(torch.empty(1, nprompt,
+                                                         embed_dim,
+                                                         device=meta))
         # the pretraining forward's route for the blocks (module docstring)
         if not (fused_attention or fused_infer):
             self._route = "module"
@@ -217,6 +228,8 @@ class AudioTransformer(nn.Module):
         if self.use_cls:
             tn(self.cls_token)
         tn(self.mask_embed)
+        if self.nprompt > 0:
+            tn(self.prompt_embed)
         for m in self.modules():
             if isinstance(m, nn.Linear):
                 tn(m.weight)
@@ -232,10 +245,10 @@ class AudioTransformer(nn.Module):
 
     def _attn_lengths(self, plen):
         """Valid token counts of the blocks' input: the patches, and the CLS
-        token of a clip encoder."""
-        if plen is None or not self.use_cls:
+        token of a clip encoder or a frame encoder's prompt tokens."""
+        if plen is None:
             return plen
-        return plen + 1
+        return plen + (1 if self.use_cls else self.nprompt)
 
     def _interpolated_pos(self, h: int, w: int) -> torch.Tensor:
         """pos_type="interpolate": the position embeddings [1, 1 + h0*w0, D]
@@ -261,8 +274,9 @@ class AudioTransformer(nn.Module):
         as flax's ``Dense``), with ``apply_mask`` the tokens of
         ``mask_index`` [B, Np] (bool) replaced by ``mask_embed``, a clip
         encoder's CLS token before the patches (N = Np + 1), and the
-        position embeddings of ``pos_type``. With "cut", more patches than
-        the position embeddings hold raise."""
+        position embeddings of ``pos_type``, then a frame encoder's prompt
+        tokens before the patches (N = nprompt + Np). With "cut", more
+        patches than the position embeddings hold raise."""
         dt = self.dtype
         B, F, T = mel.shape
         lin = self.patch_embed.patch_embed
@@ -287,7 +301,12 @@ class AudioTransformer(nn.Module):
         if self.use_cls:
             cls = self.cls_token.to(dt).expand(B, 1, self.embed_dim)
             return torch.cat([cls, x], dim=1) + pos.to(dt), plen
-        return x + pos[:, 1:].to(dt), plen
+        x = x + pos[:, 1:].to(dt)
+        if self.nprompt > 0:
+            pr = self.prompt_embed.to(dt).expand(B, self.nprompt,
+                                                  self.embed_dim)
+            x = torch.cat([pr, x], dim=1)
+        return x, plen
 
     def run_blocks(self, x, lengths, collect_from: Optional[int] = None,
                    dps: Optional[torch.Tensor] = None):
@@ -327,7 +346,8 @@ class AudioTransformer(nn.Module):
         there is no mask). Clip level: returns the final norm of the CLS
         token [B, D] in ``dtype`` (reference AST.forward); with ``avg`` the
         mean of the raw CLS token of the last 8 blocks' outputs (the
-        reference's blocks i > depth - 9), not normed. A frame encoder with
+        reference's blocks i > depth - 9), not normed. The prompt tokens'
+        rows are dropped from the frames. A frame encoder with
         ``avg_blocks`` returns :func:`block_average` of its last
         ``avg_blocks`` block outputs in place of the final norm's."""
         x, plen = self.prepare_tokens(mel, length, mask_index, apply_mask)
@@ -345,7 +365,7 @@ class AudioTransformer(nn.Module):
         if self.use_cls:
             return _norm(self.final_norm, x)[:, 0]
         frames = (block_average(collected) if self.avg_blocks > 0
-                  else _norm(self.final_norm, x))
+                  else _norm(self.final_norm, x))[:, self.nprompt:]
         B, Np = frames.shape[:2]
         if plen is not None:
             sel = length_to_token_mask(plen, Np)
@@ -437,7 +457,10 @@ class AudioTransformer(nn.Module):
         (without lengths, the mean rounded to it); for a clip
         encoder those tokens are the CLS token and the first plen - 1
         patches, as in JAX. scene=False: concat of the normed token
-        sequences, a clip encoder's CLS row first -> [B, N, n*D]. Outputs
+        sequences, a clip encoder's CLS row first -> [B, N, n*D]. A frame
+        encoder's prompt rows are left out of both, and with ``scene`` each
+        block's mean of its raw (not normed) prompt tokens follows its
+        token mean (-> [B, 2*n*D]). Outputs
         are f32, an exact cast of the blocks' dtype where it is not f32
         (the bf16 values JAX returns under ``load_model(fused=True)``).
         ``dps`` [depth, 2, B]: drop-path keep multipliers (training), or
@@ -446,20 +469,25 @@ class AudioTransformer(nn.Module):
         _, collected = self.run_blocks(x, self._attn_lengths(plen),
                                        collect_from=self.depth - n, dps=dps)
         outs = []
+        P = self.nprompt
         for h in collected:
-            norm_h = _norm(self.final_norm, h)
+            norm_h = _norm(self.final_norm, h)[:, P:]
             if not scene:
                 outs.append(norm_h.float())
                 continue
             if plen is None:  # jnp.mean: an f32 mean, rounded
                 outs.append(norm_h.float().mean(dim=1).to(norm_h.dtype)
                             .float())
-                continue
-            # JAX divides by a weakly typed f32 count: in the blocks' dtype
-            mask = length_to_token_mask(plen, norm_h.shape[1])
-            total = (norm_h.float() * mask[:, :, None]).sum(dim=1)
-            count = (plen[:, None] + 1e-6).to(norm_h.dtype)
-            outs.append((total.to(norm_h.dtype) / count).float())
+            else:
+                # JAX divides by a weakly typed f32 count: in the blocks'
+                # dtype
+                mask = length_to_token_mask(plen, norm_h.shape[1])
+                total = (norm_h.float() * mask[:, :, None]).sum(dim=1)
+                count = (plen[:, None] + 1e-6).to(norm_h.dtype)
+                outs.append((total.to(norm_h.dtype) / count).float())
+            if P > 0:  # the raw prompt tokens' mean, rounded
+                outs.append(h[:, :P].float().mean(dim=1).to(h.dtype)
+                            .float())
         return torch.cat(outs, dim=-1)
 
 

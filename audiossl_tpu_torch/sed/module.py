@@ -8,7 +8,7 @@ batch mixes strong (synthetic) and weak clips; the loss is the strong BCE
 on the strong rows plus the weak BCE of the attention-pooled scores on
 the weak rows, each masked and normalised by its row count. The update is
 JAX's optax chain written out: SGD with ``optax.trace`` momentum (trace =
-g + momentum * trace), the traced update times each parameter's
+g + ``cfg.momentum`` * trace), the traced update times each parameter's
 layer-decay factor when ``lr_scale`` < 1, then ``p -= lr * u``, with a
 cosine learning rate per step and no weight decay.
 
@@ -38,6 +38,7 @@ from audiossl_tpu_torch.downstream.comparison_models import EncoderAdapter
 from audiossl_tpu_torch.downstream.finetune import _f32, layer_decay_factors
 from audiossl_tpu_torch.models.atst import AudioTransformer
 from audiossl_tpu_torch.models.transformer import drop_path_multipliers
+from audiossl_tpu_torch.ops.melspec import MelConfig
 from audiossl_tpu_torch.parallel.mesh import (all_reduce_sum, data_world,
                                               gather_rows, local_rows,
                                               replicated, sum_tensors)
@@ -45,19 +46,27 @@ from audiossl_tpu_torch.sed.head import SEDHead
 from audiossl_tpu_torch.training.schedules import cosine_schedule
 
 EPS = 1e-7  # inside the BCE logs
-MOMENTUM = 0.9  # optax.trace's decay
 
 
 @dataclasses.dataclass(frozen=True)
 class SEDConfig:
+    """JAX's ``SEDConfig`` (``audiossl_tpu/sed/module.py:29``), plus the
+    encoder's ``drop_path_rate``. ``momentum`` is the trace's decay,
+    ``mel`` the own encoders' front end (its hop sets their frame
+    counts), ``audio_len`` the clips' seconds (the test's durations where
+    the set gives none) and ``n_test_thresholds`` the test's PSDS
+    operating points."""
     num_labels: int = 10
     learning_rate: float = 1e-1
     max_epochs: int = 100
     steps_per_epoch: int = 100
     warmup_epochs: int = 10
+    momentum: float = 0.9
     freeze_mode: bool = False      # a linear probe over the frozen encoder
     lr_scale: float = 1.0          # per-layer decay (as_strong: 0.75)
+    audio_len: float = 10.0
     median_window: int = 7
+    n_test_thresholds: int = 50
     distill_weight: float = 0.0  # > 0: add the frozen teacher's BCE
     # "add": DCASE, total += w * (strong_d + weak_d) / 2 (reference
     # utils_dcase/model_distill.py:170-174); "average_strong":
@@ -65,6 +74,8 @@ class SEDConfig:
     # left out (reference utils_as_strong/model_distill_as_strong.py:
     # 123-137)
     distill_combine: str = "add"
+    mel: MelConfig = MelConfig()
+    sr: int = 16000
     # JAX reads the drop-path rate off its encoder (0.1 as
     # train_freeze.load_encoder builds it); the port's encoder holds none
     drop_path_rate: float = 0.1
@@ -72,6 +83,10 @@ class SEDConfig:
     @property
     def max_steps(self):
         return self.max_epochs * self.steps_per_epoch
+
+    @property
+    def n_samples(self):
+        return int(self.audio_len * self.sr)
 
 
 @dataclasses.dataclass
@@ -109,7 +124,7 @@ class SEDTask:
         mode. The head's weights are drawn from ``generator`` (seed 0 when
         None) on the encoder's device."""
         if isinstance(encoder, AudioTransformer):
-            self.adapter = EncoderAdapter(encoder=encoder)
+            self.adapter = EncoderAdapter(encoder=encoder, mel=cfg.mel)
         else:
             self.adapter = encoder
         self.encoder = self.adapter.encoder
@@ -231,7 +246,7 @@ class SEDTask:
                      for p, g in zip(params.values(), grads)]
             sum_tensors(grads)
             for (name, p), g in zip(params.items(), grads):
-                u = state.mu[name].mul_(MOMENTUM).add_(g).clone()
+                u = state.mu[name].mul_(cfg.momentum).add_(g).clone()
                 if self.factors is not None and name in self.factors:
                     u.mul_(self.factors[name])
                 p.sub_(u * lr)

@@ -45,6 +45,17 @@ def mixup_spec_label(spec: torch.Tensor, label: torch.Tensor,
     return mixed, y
 
 
+def mixup_wav_label(wav: torch.Tensor, label: torch.Tensor,
+                    lam: torch.Tensor, shift: int):
+    """Waveform-domain mixup (JAX's ``mixup_wav_label``; reference
+    ``MixupWavLabel``, ``target_transform.py:11-50``): wav [B, L], label
+    [B, C] -> (lam wav + (1 - lam) partner's wav, lam label + (1 - lam)
+    partner's label), the draws handed in as :func:`mixup_spec_label`'s."""
+    wav2, label2 = (_partners(t, shift) for t in (wav, label))
+    mixed = lam[:, None] * wav + (1 - lam[:, None]) * wav2
+    y = lam[:, None] * label + (1 - lam[:, None]) * label2
+    return mixed, y
+
 
 def _partners(x: torch.Tensor, shift: int) -> torch.Tensor:
     """The rows of the global batch rolled by ``shift`` that face this

@@ -9,7 +9,8 @@ and bf16), the pretraining CLIs with their run loop, checkpoints and
 crash-restart, data-parallel pretraining on 2 ranks (replicated and
 ZeRO-1; the dual step too), and the eight
 comparison encoders (BEATs, BYOL-A, AudioMAE, M2D, SSAST and MAE-AST, frame
-and patch) at full width with MAE-AST's attention on K6.
+and patch) at full width with MAE-AST's attention on K6, and the port's
+tools (``audiossl_tpu_torch.tools``).
 
 Run from the repository root on a machine with one CUDA GPU (Hopper,
 sm_90a) and the CUDA toolkit:
@@ -298,6 +299,22 @@ sm_90a) and the CUDA toolkit:
    160, 384] in f32 and bf16 and at the ddp_dual steps' rows, and K7 over
    the MAE and dual leaves with no teacher copy beside
    ``torch.optim.AdamW(fused=True)``.
+16. the tools (``tools``, after ``pretrain_eval``): each of
+   ``audiossl_tpu_torch.tools`` through its ``main(argv)`` on the card,
+   its wall time printed: ``roofline`` (base, B = 96), ``profile_step``
+   (the frame base bf16 step at B = 96, 2 profiled steps: device time by
+   kernel in groups that add up to the device total within 1%, the
+   hand-written group holding K1-K5, K7 and K8's kernels by the names the
+   library's build log lists, the library GEMMs none of the port's),
+   ``kernel_microbench`` (K2/K3 against K2q/K3q at [96, 256, 768], int8
+   within the JAX package's budget), ``int8_drift`` (ATST-Frame base, 2
+   steps at B = 24: target cosine >= 0.9, K2q/K3q launched),
+   ``convergence_check`` (frame small, 20 steps at B = 32: finite losses,
+   teacher std > 1e-3), ``probe_gain`` (frame small, 20 steps, probes at
+   steps 0, 10, 20), ``calculate_min_max`` on the CLI pack (8 clips, within
+   1e-3 dB of K1's plain version), ``dataset2ards synth`` and
+   ``check_ards``; phase 2 also holds K2-K5, K2q/K3q and K8 at the tools'
+   shapes (``TOOLS_INFER``, ``TOOLS_Q8``, ``TOOLS_TRAIN``).
 Each path's seconds are printed (``path NAME: S s``), and the MAE and dual
 phases' sum.
 ``--profile DIR`` also writes a ``torch.profiler`` table and trace of one
@@ -344,6 +361,19 @@ CLI_CLIP_N = 226  # the clip CLI's 9 s crops (recipes/torch_atst_clip_small.sh)
 # the dual method at 6.4 s (641 frames: 160 tokens a branch, G = 40; JAX's
 # default 6.0 s fails, methods/dual/method.py); ddp_dual's global batch
 DUAL_ANCHOR, DUAL_N, DUAL_DDP_B = 6.4, 160, 16
+# The tools path's block-kernel shapes (S sequences, n tokens, width c, h
+# heads, hidden): kernel_microbench's defaults; int8_drift's ATST-Frame
+# base teachers on 2 x 24 crops of 6 s (150 tokens) and its probe batches
+# of 64; convergence_check's and probe_gain's ATST-Frame small teachers
+# and students on 2 x 32 and 2 x 48 crops of 6 s, probe_gain's probe
+# batches of 64
+TOOLS_INFER = ((96, 256, C, H, HID), (48, 150, C, H, HID),
+               (64, 150, C, H, HID), (64, 150, 384, 6, 1536),
+               (96, 150, 384, 6, 1536))
+TOOLS_Q8 = TOOLS_INFER[:3]  # microbench and int8_drift's int8 teacher
+TOOLS_TRAIN = ((48, 150, C, H, HID), (64, 150, 384, 6, 1536),
+               (96, 150, 384, 6, 1536))
+TOOLS_LIBRARY_GEMMS = "library GEMMs (cuBLAS/cuDNN/CUTLASS)"
 MHA_F32_REL = 1e-4  # f32 kernel vs f32 plain (K6, K8): f32 FMA sums in
 # another order
 STEP_LOSS_REL = 1e-2  # kernel vs plain step: bf16 at the same rounding
@@ -1072,7 +1102,7 @@ def infer_block_checks(t, x, valid, dp, h, hid, lengths=None, timed=True):
     return res
 
 
-def q8_infer_checks(dev):
+def q8_infer_checks(dev, shapes=None):
     """K2q and K3q against their plain versions on the same int8 codes, and
     against the bf16 kernels K2/K3 on the same weights (the JAX package's
     int8 budget, and at least ``Q8_SPREAD`` of the plain int8 version's
@@ -1081,7 +1111,9 @@ def q8_infer_checks(dev):
     with their bounds and the int8 products alone through
     ``torch._int_mm``, and at the ATST-Clip small teacher's [192, 151, 384]
     (6 heads, hidden 1536; errors only). The serving case is the one the
-    summary line reports at its top level."""
+    summary line reports at its top level. ``shapes`` [(label, S, n, c, h,
+    hid, timed)] replaces those three (untimed ones return their errors
+    by label)."""
     from audiossl_tpu_torch.ops import block_infer as bi
     from audiossl_tpu_torch.ops.quant import quantize_weight_q8
 
@@ -1093,7 +1125,7 @@ def q8_infer_checks(dev):
         return torch.from_numpy(a).to(dev, dtype)
 
     res = {"attn_block_q8": {}, "mlp_block_q8": {}}
-    for label, S, n, c, h, hid, timed in (
+    for label, S, n, c, h, hid, timed in shapes or (
             ("serving", B, N, C, H, HID, True),
             ("teacher", 2 * TRAIN_B, N, C, H, HID, True),
             ("clip", 2 * TRAIN_B, CLIP_N, CLIP_C, CLIP_H, 4 * CLIP_C, False)):
@@ -1161,6 +1193,8 @@ def q8_infer_checks(dev):
                     **bound(nbytes(*args, dp, got), **ops))
             del got, want, f
         torch.cuda.empty_cache()
+    if shapes:
+        return res
     return {k: dict(v.pop("serving"), **v) for k, v in res.items()}
 
 
@@ -1457,6 +1491,42 @@ def d128_checks(dev):
     return res
 
 
+def tools_kernel_checks(dev):
+    """K2/K3 (``TOOLS_INFER``), K2q/K3q (``TOOLS_Q8``) and K4/K5 forward
+    and backward (``TOOLS_TRAIN``) against their plain versions at the
+    tools path's shapes, untimed (K8 at their rows: ``ln_kernel_checks``);
+    returns each kernel's errors by shape."""
+    rng = np.random.RandomState(SEED + 30)
+
+    def t(*shape, s=1.0, off=0.0, dtype=torch.float32):
+        a = (rng.randn(*shape) * s + off).astype(np.float32)
+        return torch.from_numpy(a).to(dev, dtype)
+
+    res = {}
+
+    def add(label, got):
+        for name, r in got.items():
+            res.setdefault(name, {})[label] = r
+
+    for S, n, c, h, hid in TOOLS_INFER:
+        x = t(S, n, c, dtype=torch.bfloat16)
+        lengths = torch.full((S,), n, device=dev)
+        dp = torch.tensor([(1.0, 0.0, 1 / 0.9)[i % 3] for i in range(S)],
+                          device=dev)
+        add(f"tools_{S}x{n}x{c}", infer_block_checks(
+            t, x, torch.ones(S, n, device=dev), dp, h, hid, lengths,
+            timed=False))
+    for name, by_label in q8_infer_checks(dev, [
+            (f"tools_{S}x{n}x{c}", S, n, c, h, hid, False)
+            for S, n, c, h, hid in TOOLS_Q8]).items():
+        res.setdefault(name, {}).update(by_label)
+    for S, n, c, h, hid in TOOLS_TRAIN:
+        add(f"tools_{S}x{n}x{c}", train_kernel_checks(dev, n, c, h, hid,
+                                                       timed=False, S=S))
+    torch.cuda.empty_cache()
+    return res
+
+
 def sdpa_library(qkv, valid, g, h, scale):
     """K6's library call, timed: ``F.scaled_dot_product_attention`` on the
     q, k, v views of qkv with the boolean key mask (the same function on
@@ -1599,7 +1669,8 @@ def ln_kernel_checks(dev):
     CLI's step ([192 * 226, 384]), of the ddp_frame phase's steps
     ([32 * 250, 768] a rank, [64 * 250, 768] the 1-rank step), in f32 and
     bf16 at the dual small step's ([96 * 160, 384]), in f32 at the
-    ddp_dual phase's ([8 or 16 * 160, 384]), and at 97
+    ddp_dual phase's ([8 or 16 * 160, 384]), in bf16 at the tools path's
+    students' rows (``TOOLS_TRAIN``), and at 97
     rows of widths 100, 200,
     1000 and 1023 (16-byte vectors that do not fill the lanes, single
     elements where a row is not a whole number of 16-byte vectors). The
@@ -1629,6 +1700,11 @@ def ln_kernel_checks(dev):
               CLIP_C, MHA_F32_REL, False),
              ("f32_dual_ddp_one_rank", f32, DUAL_DDP_B * DUAL_N, CLIP_C,
               MHA_F32_REL, False)]
+    # the tools path's bf16 students: int8_drift's base steps (48
+    # sequences of 150 tokens), convergence_check's and probe_gain's small
+    # ones (64 and 96 sequences of 150)
+    cases += [(f"bf16_tools_{S}x{n}x{c}", bf, S * n, c, BLOCK_REL_L2, False)
+              for S, n, c, _, _ in TOOLS_TRAIN]
     cases += [(f"{n}_97x{c}", dt, 97, c, tol, False) for c in (100, 200,
                                                                 1000, 1023)
               for n, dt, tol in (("f32", f32, MHA_F32_REL),
@@ -2065,9 +2141,13 @@ def write_probe_ckpts(workdir, kind):
 def breakdown(run, label, top=6):
     """Where a call's time goes: ``run()`` (the host's copy to the card
     included) to ``synchronize()``, the mean of 3 calls after one, and its
-    device time by kernel from the profiler, the GEMMs (cuBLAS f32) and K1
-    grouped, the rest by name."""
+    device time by kernel from the profiler, split by
+    ``tools.profile_step``'s aggregation and groups: ``gemm_ms`` the
+    library GEMMs (cuBLAS and the like, not the port's GEMM templates),
+    ``k1_ms`` K1, the rest by name, and every group."""
     from torch.profiler import ProfilerActivity, profile
+
+    from audiossl_tpu_torch.tools import profile_step as ps
 
     run()
     torch.cuda.synchronize()
@@ -2079,17 +2159,19 @@ def breakdown(run, label, top=6):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
-    kernels = {e.key: e.self_device_time_total / 1e3
-               for e in prof.key_averages() if e.self_device_time_total > 0}
-    gemm = sum(t for k, t in kernels.items() if "gemm" in k.lower())
-    k1 = sum(t for k, t in kernels.items() if "mel_db" in k)
+    kernels = ps.device_op_totals(prof, 1)[0]
+    port = ps.library_kernel_names()
+    groups = ps.group_totals(kernels, port)
+    k1 = sum(t for k, t in kernels.items()
+             if ps.op_kind(k) == "mel_db_kernel")
     rest = sorted(((t, k) for k, t in kernels.items()
-                   if "gemm" not in k.lower() and "mel_db" not in k),
-                  reverse=True)
+                   if ps.group_of(k, port) != TOOLS_LIBRARY_GEMMS
+                   and ps.op_kind(k) != "mel_db_kernel"), reverse=True)
     print(json.dumps({label: {
         "wall_ms": wall, "device_ms": sum(kernels.values()),
-        "gemm_ms": gemm, "k1_ms": k1,
-        "rest_top": [[k[:60], t] for t, k in rest[:top]]}}))
+        "gemm_ms": groups.get(TOOLS_LIBRARY_GEMMS, 0.0), "k1_ms": k1,
+        "rest_top": [[k[:60], t] for t, k in rest[:top]],
+        "groups": dict(groups)}}))
 
 
 def probe_path(dev, workdir, data, kind):
@@ -5421,10 +5503,147 @@ def pretrain_eval_path(dev, workdir):
     return launches
 
 
+TOOLS_HAND_WRITTEN = {  # kernels of the frame bf16 step profile_step traces
+    "mel_db_kernel": "K1", "gemm_bf16_kernel": "K2-K5 products",
+    "attn_fwd_mma_kernel": "K2/K4 attention", "attn_bwd_mma_kernel":
+    "K4 backward attention", "gelu_from_u_kernel": "K5",
+    "adamw_ema_kernel": "K7", "ln_pg_bwd_kernel": "K8"}
+TOOLS_STEP_KERNELS = ("mel_db", "attn_block", "mlp_block", "attn_train_fwd",
+                      "attn_train_bwd", "mlp_train_fwd", "mlp_train_bwd",
+                      "adamw_ema", "ln_pg_bwd")
+
+
+def tools_path(dev, workdir, data):
+    """The port's tools (``audiossl_tpu_torch.tools``), each through its
+    ``main(argv)`` on the card at JAX's widths and a few steps, each one's
+    wall time printed: ``roofline`` at base, B = 96; ``profile_step``
+    (the frame base bf16 step at B = 96, 2 profiled steps: the groups
+    within 1% of the device total, the hand-written group holding K1-K5,
+    K7 and K8's kernels and nothing of a library, the library group
+    nothing of the port's, the library's kernel names read off the build
+    log equal to the sources'); ``kernel_microbench`` at its defaults,
+    10 iterations (int8 within ``Q8_FWD_REL`` of bf16); ``int8_drift``
+    (2 steps, B = 24, 10 classes of 12: target cosine >= 0.9, K2q/K3q
+    launched); ``convergence_check`` (frame, 20 steps at B = 32: finite
+    losses, teacher std > 1e-3); ``probe_gain`` (20 steps, a probe every
+    10, 6 classes of 12: accuracies in [0, 1] at steps 0, 10, 20);
+    ``calculate_min_max`` on ``data`` (8 clips: the range within 1e-3 dB
+    of K1's plain version's); ``dataset2ards synth`` and ``check_ards``.
+    Every output goes under ``workdir``. Returns the launches."""
+    import tempfile
+
+    from audiossl_tpu_torch.datasets import PackedAudioDataset
+    from audiossl_tpu_torch.kernels import build as kb
+    from audiossl_tpu_torch.tools import (calculate_min_max, check_ards,
+                                          convergence_check, dataset2ards,
+                                          int8_drift, kernel_microbench,
+                                          probe_gain, profile_step, roofline)
+
+    wall = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        before = dict(kb.LAUNCHES)
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall[name] = time.perf_counter() - t0
+        print(f"tool {name}: {wall[name]:.1f} s", flush=True)
+        return out, {k: kb.LAUNCHES[k] - before[k] for k in kb.LAUNCHES}
+
+    kb.reset_launches()
+    out = tempfile.mkdtemp(prefix="tools_", dir=workdir)
+    r, _ = timed("roofline", lambda: roofline.main(
+        ["--arch", "base", "--batch", "96"]))
+    check(r["N"] == 250 and r["step_s"] > 0, "roofline: the base step's "
+          f"floors at N = 250 ({r['step_s'] * 1e3:.2f} ms)")
+
+    p, launched = timed("profile_step", lambda: profile_step.main(
+        ["--batch", str(TRAIN_B), "--steps", "2", "--top", "10"]))
+    total, groups = p["device_ms"], p["groups"]
+    check(abs(sum(groups.values()) - total) <= 0.01 * total,
+          f"profile_step: the groups {sum(groups.values())} ms add up to "
+          f"the device total {total} ms")
+    port = profile_step.library_kernel_names()
+    check(port == profile_step.source_kernel_names(),
+          f"profile_step: the library's kernels ({sorted(port)}) are the "
+          "sources' __global__ functions")
+    hand = set(p["hand_written"])
+    check(set(TOOLS_HAND_WRITTEN) <= hand and hand <= port,
+          f"profile_step: the hand-written group holds K1-K5, K7 and K8 "
+          f"({sorted(hand)}) and nothing else")
+    lib = [k for k in p["totals"]
+           if profile_step.group_of(k, port) == TOOLS_LIBRARY_GEMMS]
+    check(not [k for k in lib if profile_step.op_kind(k) in port],
+          f"profile_step: no kernel of the port's among the library GEMMs "
+          f"({[profile_step.op_kind(k) for k in lib]})")
+    check(all(launched[k] > 0 for k in TOOLS_STEP_KERNELS),
+          f"profile_step: the step launched K1-K5, K7 and K8 ({launched})")
+    print(json.dumps({"profile_step_frame_bf16": {
+        "device_ms": total, "wall_ms": p["wall_ms"], "groups": groups,
+        "records_kept": p["records_kept"],
+        "records_expected": p["records_expected"],
+        "top10": [[k[:80], v] for k, v in sorted(
+            p["totals"].items(), key=lambda kv: -kv[1])[:10]]}}))
+
+    mb, _ = timed("kernel_microbench", lambda: kernel_microbench.main(
+        ["--iters", "10"]))
+    rel = mb["int8_rel_err"]
+    check(max(rel["attn_mean"], rel["mlp_mean"]) <= Q8_FWD_REL,
+          f"kernel_microbench: int8 mean relative error {rel} within "
+          f"{Q8_FWD_REL}")
+
+    d, launched = timed("int8_drift", lambda: int8_drift.main(
+        ["--steps", "2", "--batch", "24", "--classes", "10", "--per-class",
+         "12", "--out", out]))
+    check(all(d[k]["cos_mean"] >= 0.9 for k in ("at_init", "after_steps")),
+          f"int8_drift: target cosine {d['at_init']['cos_mean']}, "
+          f"{d['after_steps']['cos_mean']} >= 0.9")
+    check(launched["attn_block_q8"] > 0 and launched["mlp_block_q8"] > 0,
+          f"int8_drift: the int8 teacher ran K2q/K3q ({launched})")
+
+    c, _ = timed("convergence_check", lambda: convergence_check.main(
+        ["--method", "frame", "--steps", "20", "--batch", "32", "--out",
+         out]))
+    summary, hist = c["frame"]
+    check(np.isfinite(hist["loss"]).all() and min(hist["std_tea"]) > 1e-3,
+          f"convergence_check: finite losses ({summary['head_loss']} -> "
+          f"{summary['tail_loss']}), teacher std >= "
+          f"{min(hist['std_tea'])} > 1e-3")
+
+    g, _ = timed("probe_gain", lambda: probe_gain.main(
+        ["--steps", "20", "--probe-every", "10", "--classes", "6",
+         "--per-class", "12", "--out", out]))
+    check([c["step"] for c in g["curve"]] == [0, 10, 20]
+          and all(0.0 <= c["acc"] <= 1.0 for c in g["curve"]),
+          f"probe_gain: accuracies {[c['acc'] for c in g['curve']]} at "
+          "steps 0, 10, 20")
+
+    mm, _ = timed("calculate_min_max", lambda: calculate_min_max.main(
+        ["--data_path", data, "--max_items", "8"]))
+    lo, hi = calculate_min_max.db_range(PackedAudioDataset(data, "train"),
+                                        8, dev, plain=True)
+    check(abs(mm["min"] - lo) <= 1e-3 and abs(mm["max"] - hi) <= 1e-3,
+          f"calculate_min_max: [{mm['min']}, {mm['max']}] dB against K1's "
+          f"plain version's [{lo}, {hi}]")
+
+    pack = os.path.join(out, "pack")
+    timed("dataset2ards", lambda: dataset2ards.main(
+        ["synth", "--out", pack, "--n", "16"]))
+    ca, _ = timed("check_ards", lambda: check_ards.main(
+        [os.path.join(pack, "train.ards")]))
+    check(ca["records"] == 16, "dataset2ards synth read back by check_ards")
+    print(f"tools wall s: { {k: round(v, 1) for k, v in wall.items()} }")
+    return dict(kb.LAUNCHES)
+
+
 def profile_step(step, state, batch, out_dir, label):
     """One kernel-path step under torch.profiler: a table of device time
-    by kernel and a chrome trace in out_dir."""
+    by kernel, ``tools.profile_step``'s groups and a chrome trace in
+    out_dir."""
     from torch.profiler import ProfilerActivity, profile
+
+    from audiossl_tpu_torch.tools import profile_step as ps
 
     os.makedirs(out_dir, exist_ok=True)
     torch.cuda.synchronize()
@@ -5436,8 +5655,12 @@ def profile_step(step, state, batch, out_dir, label):
         wall = time.perf_counter() - t0
     table = prof.key_averages().table(sort_by="cuda_time_total",
                                       row_limit=60)
+    kernels = ps.device_op_totals(prof, 1)[0]
+    groups = dict(ps.group_totals(kernels, ps.library_kernel_names()))
+    print(json.dumps({f"{label}_step_groups": groups}))
     with open(os.path.join(out_dir, f"{label}_step_profile.txt"), "w") as f:
-        f.write(f"wall {wall * 1e3} ms\n{table}\n")
+        f.write(f"wall {wall * 1e3} ms\ngroups {json.dumps(groups)}\n"
+                f"{table}\n")
     prof.export_chrome_trace(os.path.join(out_dir,
                                           f"{label}_step_trace.json"))
     print(f"profile of one {label} step ({wall * 1e3} ms wall) written "
@@ -5525,6 +5748,10 @@ def main():
                                                    device="meta"))
     new_s = {"kernel checks": time.perf_counter() - t_new}
     print(f"MAE and dual kernel checks: {new_s['kernel checks']:.1f} s")
+    t0 = time.perf_counter()
+    for name, by_shape in tools_kernel_checks(dev).items():
+        res[name].update(by_shape)
+    print(f"tools kernel checks: {time.perf_counter() - t0:.1f} s")
     # every launch so far was compared with its plain version at its shape
     checked = {k: set(v) for k, v in LAUNCH_SEEN.items()}
     paths, seen = {}, {}
@@ -5588,6 +5815,8 @@ def main():
         run_path("pretrain_frame_cli",
                  lambda: pretrain_frame_cli_path(dev, workdir, data))
         run_path("pretrain_eval", lambda: pretrain_eval_path(dev, workdir))
+        torch.cuda.empty_cache()
+        run_path("tools", lambda: tools_path(dev, workdir, data))
         crash_restart_path(workdir, data)
         for name, recipe, extra, want in (
                 ("pretrain_clip_cli", "torch_atst_clip_small.sh", [],

@@ -11,8 +11,8 @@ valid token (see ``ZERO_VALID_ATOL``).
 
 The downstream APIs in training form (drop path through each of them,
 with every gradient) are held to JAX's as their test says; a reference
-``prompt_embed`` is left out of the port's encoder, which holds no prompt
-tokens.
+``prompt_embed`` is left out of a port encoder built without prompt
+tokens (``test_torch_heldout_api.py`` holds one built with them).
 """
 import numpy as np
 import pytest
@@ -236,8 +236,8 @@ def test_downstream_drop_path_matches_jax(monkeypatch, api):
 
 def test_reference_prompt_embed_is_left_out():
     """``load_encoder_state`` leaves a reference state dict's
-    ``prompt_embed`` out of the port's frame encoder, which holds no
-    prompt tokens, as flax leaves an unused param alone, and loads the
+    ``prompt_embed`` out of a port frame encoder built without prompt
+    tokens, as flax leaves an unused param alone, and loads the
     rest."""
     src = tatst.frame_ast_tiny(spec_w=SPEC_W, device="cpu",
                                generator=torch.Generator().manual_seed(5))

@@ -1,6 +1,7 @@
 """The port stands without JAX (and its probe, finetuning, SED and
 distillation slices and pretraining CLIs without pandas and PyYAML; its
-comparison encoders, data modules and plots without matplotlib), the
+comparison encoders, data modules and plots without matplotlib; its tools
+without any of those or lmdb), the
 orbax exporter lies outside it, and its kernel wrappers launch nothing
 for a CPU tensor (they take their plain versions)."""
 import subprocess
@@ -138,3 +139,38 @@ def test_q8_wrappers_on_cpu_launch_nothing():
         *quantize_weight_q8(w[3]), torch.zeros(C))
     assert y.shape == (B, N, C) and bool(torch.isfinite(y.float()).all())
     assert not any(kb.LAUNCHES.values()), kb.LAUNCHES
+
+
+TOOLS = ("roofline", "profile_step", "kernel_microbench", "int8_drift",
+         "probe_gain", "convergence_check", "calculate_min_max",
+         "dataset2ards", "check_ards")
+
+
+def test_tools_import_and_help_without_jax():
+    """Every ``audiossl_tpu_torch.tools`` module imports, and its ``--help``
+    runs as ``python -m`` runs it, with JAX, flax, optax, orbax, pandas,
+    PyYAML, matplotlib and lmdb blocked; nothing of ``audiossl_tpu`` is
+    imported."""
+    code = (
+        "import contextlib, io, runpy, sys\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'pandas',\n"
+        "          'yaml', 'matplotlib', 'lmdb'):\n"
+        "    sys.modules[m] = None\n"
+        f"for name in {TOOLS!r}:\n"
+        "    mod = 'audiossl_tpu_torch.tools.' + name\n"
+        "    sys.argv = [mod, '--help']\n"
+        "    out = io.StringIO()\n"
+        "    try:\n"
+        "        with contextlib.redirect_stdout(out):\n"
+        "            runpy.run_module(mod, run_name='__main__')\n"
+        "    except SystemExit as e:\n"
+        "        assert e.code == 0, (name, e.code)\n"
+        "    else:\n"
+        "        raise AssertionError(name + ': --help did not exit')\n"
+        "    assert 'usage:' in out.getvalue() and '--device' in out.getvalue(), name\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] == 'audiossl_tpu']\n"
+        "assert not bad, bad\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=180)
+    assert r.returncode == 0, r.stderr
