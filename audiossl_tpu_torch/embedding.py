@@ -114,7 +114,8 @@ def load_model(ckpt_path: str, arch: Optional[str] = None,
                              "encoder, not an ATST-Frame "
                              f"{arch or found[1]} one")
     arch = arch or hparams.get("arch", "base")
-    enc = _ARCHS[arch](spec_w=CHUNK_FRAMES, fused=fused, device=device,
+    # built on the meta device: the checkpoint's tensors are its weights
+    enc = _ARCHS[arch](spec_w=CHUNK_FRAMES, fused=fused, device="meta",
                        dtype=torch.bfloat16 if fused else torch.float32,
                        infer_quant=quant)
     if layout == "port" and sd["pos_embed"].shape != enc.pos_embed.shape:
@@ -123,7 +124,9 @@ def load_model(ckpt_path: str, arch: Optional[str] = None,
             f"embeddings; serving encodes chunks of {CHUNK_FRAMES} frames, "
             f"{enc.pos_embed.shape[1] - 1} patches (pretrain with "
             "--anchor_len 10)")
-    load_encoder_state(enc, sd, layout=layout)
+    load_encoder_state(enc, sd, assign=True, layout=layout)
+    enc = enc.to(device, torch.float32)
+    enc.cast_block_weights()
     enc.requires_grad_(False)
     return EmbeddingModel(encoder=enc.eval())
 

@@ -207,12 +207,17 @@ class AudioTransformer(nn.Module):
         # built on the meta device, so nothing draws from the global RNG
         self.to_empty(device="cpu")
         self.reset_parameters(generator)
-        if fused and not self.infer_quant:
+        self.cast_block_weights()
+        self.to(device)
+
+    def cast_block_weights(self):
+        """On the fused route without int8 (``load_model(fused=True)``),
+        hold the blocks' matmul weights in ``dtype``; the rest stays f32."""
+        if self.fused and not self.infer_quant:
             for blk in self.blocks:
                 for lin in (blk.attn.qkv, blk.attn.proj, blk.mlp.fc1,
                             blk.mlp.fc2):
-                    lin.weight.data = lin.weight.data.to(dtype)
-        self.to(device)
+                    lin.weight.data = lin.weight.data.to(self.dtype)
 
     @torch.no_grad()
     def reset_parameters(self, generator: Optional[torch.Generator] = None):

@@ -3,6 +3,7 @@
 base (bf16 and int8), the linear probe, full finetuning and clip-to-frame
 distillation at ATST-Clip and ATST-Frame base width, sound event
 detection (DCASE, AudioSet-strong, distill) at ATST-Frame base, the
+released-checkpoint verifier (``tools.verify_released``), the
 pretraining steps of ATST-Frame base (bf16, f32 and the int8 recipes),
 ATST-Clip small (f32, bf16 and the int8 recipes), MAE and dual small (f32
 and bf16), the pretraining CLIs with their run loop, checkpoints and
@@ -114,7 +115,17 @@ sm_90a) and the CUDA toolkit:
    frame embeddings, ``datamodules.EmbeddingExtractor`` over
    ``DownstreamDataModule``'s test loader (shape, labels, K1 a batch);
    extraction clips/s by split (without the run's first
-   batch) and the probe's seconds; then full finetuning,
+   batch) and the probe's seconds; then the released-checkpoint verifier
+   (``verify_released``), each step ``python -m
+   audiossl_tpu_torch.tools.verify_released`` in a fresh process with
+   PyTorch's defaults (K1's launches and STFT shapes recorded there): on
+   serving's ``.ckpt`` and a seeded 25 s int16 WAV (three chunks, the last
+   partial), ``--device cpu --out`` writes a golden, the card run against
+   it prints ``ok`` with both diffs within 1e-3, and a golden off by 0.01
+   gives exit 1 on the card; probe mode on the probe pack's ATST-Clip base
+   ``.ckpt`` for 1 epoch gives a finite score in [0, 1] and an exit code
+   that agrees with its ``ok``; K1 twice an embedding run and once a
+   probe batch, no other kernel; then full finetuning,
    ``train_finetune.main``, on the same pack at ATST-Clip base (12 s crops,
    chunks of 601 frames) and ATST-Frame base (10 s crops, SpecAugment,
    RandomResizeCrop, frozen embeddings, mixup_ratio 0.5), batches of 64
@@ -2311,6 +2322,181 @@ def probe_path(dev, workdir, data, kind):
               f"test loader gives {x.shape} finite embeddings ({te.shape} "
               f"from the probe) and its labels, K1 {k1} a batch")
     return launches
+
+
+VR_SECONDS = 25  # 2,501 frames: three chunks of 1,001, the last partial
+VR_TOL, VR_PERTURB = 1e-3, 0.01  # the tool's --tol; a golden off by more
+VR_EXPECT = 0.5  # probe mode's --expect: any score gives a definite verdict
+# Runs a module as ``python -m`` does, in a fresh process that keeps
+# PyTorch's defaults, and writes at exit its launches of each kernel, K1's
+# STFT shapes (LAUNCH_SHAPE's) and the seconds its ``__main__`` took to the
+# JSON file argv[1]. With a file named in argv[2], it imports torch, scipy
+# and the module (and starts CUDA) first, then waits for that file before
+# it runs the module: the start of a process overlaps the run it waits for.
+COUNTED_MODULE = r"""
+import atexit, importlib, json, os, runpy, sys, time
+out, after, module = sys.argv[1:4]
+import scipy.io.wavfile, torch
+from audiossl_tpu_torch.kernels import build as kb
+importlib.import_module(module)
+del sys.modules[module]  # its imports stay; runpy runs it afresh
+if after:
+    if torch.cuda.is_available():
+        torch.cuda.init()
+    deadline = time.perf_counter() + 600
+    while not os.path.exists(after):
+        if time.perf_counter() > deadline:
+            sys.exit(f"{after} did not appear")
+        time.sleep(0.02)
+shapes = []
+launch = kb.launch
+def recorded(name, device, *args):
+    if name == "mel_db":
+        b, f, t = [a for a in args if type(a) is int][:3]
+        shapes.append([b, 2 * f, t])
+    return launch(name, device, *args)
+kb.launch = recorded
+t0 = time.perf_counter()
+def dump():
+    with open(out, "w") as f:
+        json.dump({"launches": kb.LAUNCHES, "mel_db": shapes,
+                   "main_s": time.perf_counter() - t0}, f)
+atexit.register(dump)
+sys.argv = [module, *sys.argv[4:]]
+runpy.run_module(module, run_name="__main__", alter_sys=True)
+"""
+
+
+def start_counted(module, argv, workdir, name, after=""):
+    """``python -m module *argv`` in a new process (COUNTED_MODULE) that
+    waits for the file ``after`` if one is named; its output goes to
+    ``workdir/vr_<name>.log``, its record to ``vr_<name>.json``."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    log = open(os.path.join(workdir, f"vr_{name}.log"), "w")
+    record = os.path.join(workdir, f"vr_{name}.json")
+    p = subprocess.Popen([sys.executable, "-c", COUNTED_MODULE, record,
+                          after, module, *argv], cwd=root, stdout=log,
+                         stderr=subprocess.STDOUT,
+                         env={**os.environ, "PYTHONPATH": root})
+    p.name, p.log, p.record, p.t0 = name, log, record, time.perf_counter()
+    return p
+
+
+def finish_counted(p, timeout=300):
+    """Waits for ``p``; returns (exit code, its last output line parsed as
+    JSON, its launches, its K1 STFT shapes, its ``__main__``'s seconds,
+    its seconds from start to end)."""
+    p.wait(timeout=timeout)
+    wall = time.perf_counter() - p.t0
+    p.log.close()
+    with open(p.log.name) as f:
+        text = f.read()
+    lines = [ln for ln in text.splitlines() if ln.startswith("{")]
+    check(p.returncode in (0, 1) and lines and "Traceback" not in text
+          and os.path.exists(p.record),
+          f"verify_released {p.name}: exit {p.returncode} with a JSON line "
+          f"and its launches recorded (output: {text[-2000:]})")
+    with open(p.record) as f:
+        rec = json.load(f)
+    return (p.returncode, json.loads(lines[-1]), rec["launches"],
+            [tuple(s) for s in rec["mel_db"]], rec["main_s"], wall)
+
+
+def verify_released_path(workdir, data, ckpt):
+    """``python -m audiossl_tpu_torch.tools.verify_released`` as a user runs
+    it, each step in a fresh process: serving's seeded ATST-Frame base
+    ``.ckpt`` (``ckpt``) and a 25 s int16 WAV (three chunks, the last
+    partial) on the CPU (``--out``), then on the card against that golden
+    (``ok``, both diffs <= 1e-3) and against a golden off by 0.01 (exit 1),
+    and probe mode on the probe pack's ATST-Clip base ``.ckpt`` for 1 epoch
+    (a finite score in [0, 1], an exit code that agrees with its ``ok``).
+    The four processes start together; the two card runs wait, imported,
+    until the golden is written and checked. Returns the card runs'
+    launches summed; their K1 shapes go to ``LAUNCH_SEEN``."""
+    from scipy.io import wavfile
+
+    module = "audiossl_tpu_torch.tools.verify_released"
+    wav = os.path.join(workdir, "verify.wav")
+    rng = np.random.RandomState(SEED + 60)
+    wavfile.write(wav, 16000, (rng.randn(VR_SECONDS * 16000)
+                               * 3000).astype(np.int16))
+    golden = os.path.join(workdir, "golden.npz")
+    perturbed = os.path.join(workdir, "perturbed.npz")
+    go = os.path.join(workdir, "golden_checked")
+    base = ["--ckpt", ckpt, "--wav", wav]
+    procs = [
+        start_counted(module, base + ["--device", "cpu", "--out", golden],
+                      workdir, "cpu_golden"),
+        start_counted(module, [
+            "probe", "--ckpt", os.path.join(workdir, "clip_base.ckpt"),
+            "--dataset_name", "audioset_b", "--data_path", data,
+            "--model_type", "clip", "--arch", PROBE_ARCH,
+            "--expect", str(VR_EXPECT), "--max_epochs", "1"],
+            workdir, "probe"),
+        start_counted(module, base + ["--golden", golden], workdir, "card",
+                      after=go),
+        start_counted(module, base + ["--golden", perturbed], workdir,
+                      "card_perturbed", after=go)]
+    runs = {}
+    try:
+        runs["cpu_golden"] = finish_counted(procs[0])
+        rc, res, launches = runs["cpu_golden"][:3]
+        n_frames = VR_SECONDS * 16000 // 160 + 1
+        n_chunks = -(-n_frames // 1001)
+        check(rc == 0 and res["ok"] and not any(launches.values())
+              and res["scene_shape"] == [1, 12 * C]
+              and res["timestamp_shape"] == [1, 250 * n_chunks, 12 * C],
+              f"verify_released on the CPU wrote its golden ({res}), no "
+              "launch")
+        g = dict(np.load(golden))
+        g["scene"] = g["scene"] + VR_PERTURB
+        np.savez(perturbed, **g)
+        open(go, "w").close()
+        for p in procs[1:]:
+            runs[p.name] = finish_counted(p)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            p.log.close()
+
+    rc, res = runs["card"][:2]
+    print(f"verify_released on the card against the CPU golden: {res}")
+    check(rc == 0 and res["ok"] and res["scene_max_abs_diff"] <= VR_TOL
+          and res["timestamp_max_abs_diff"] <= VR_TOL,
+          f"the card's embeddings within {VR_TOL} of the CPU's (exit {rc})")
+    rc, res = runs["card_perturbed"][:2]
+    check(rc == 1 and not res["ok"] and res["scene_max_abs_diff"] > VR_TOL
+          and res["timestamp_max_abs_diff"] <= VR_TOL,
+          f"a golden off by {VR_PERTURB} fails on the card: exit {rc}, {res}")
+    rc, res = runs["probe"][:2]
+    print(f"verify_released probe on the card: exit {rc}, {res}")
+    check(np.isfinite(res["test_score"]) and 0.0 <= res["test_score"] <= 1.0
+          and res["ok"] == (res["abs_diff"] <= res["tol"])
+          and rc == (0 if res["ok"] else 1),
+          "probe mode gives a finite score in [0, 1] and an exit code that "
+          "agrees with its ok")
+
+    total = dict.fromkeys(runs["card"][2], 0)
+    for name in ("card", "card_perturbed", "probe"):
+        for k, v in runs[name][2].items():
+            total[k] += v
+        LAUNCH_SEEN.setdefault("mel_db", set()).update(runs[name][3])
+    n_probe = len(PROBE_SPLITS)  # one extraction batch a split (1,024)
+    check(total["mel_db"] == 2 * 2 + n_probe
+          and not any(v for k, v in total.items() if k != "mel_db"),
+          f"verify_released: K1 twice an embedding run (scene, timestamp) "
+          f"and once a probe batch, no other kernel: {total}")
+    print(json.dumps({"verify_released": {
+        "main_s": {k: v[4] for k, v in runs.items()},
+        "process_s": {k: v[5] for k, v in runs.items()},
+        "diffs": {k: runs["card"][1][f"{k}_max_abs_diff"]
+                  for k in ("scene", "timestamp")},
+        "probe_test_score": runs["probe"][1]["test_score"],
+        "k1_launches": total["mel_db"],
+        "k1_shapes": sorted({s for r in runs.values() for s in r[3]})}}))
+    return total
 
 
 # Full finetuning (``downstream/train_finetune.py``) at ATST-Clip and
@@ -5766,16 +5952,19 @@ def main():
         print(f"path {name}: {path_s[name]:.1f} s")
         seen[name] = {k: sorted(v) for k, v in LAUNCH_SEEN.items()}
 
-    with tempfile.TemporaryDirectory() as workdir:
-        path = write_base_ckpt(workdir)
-        run_path("serving", lambda: main_path(dev, path))
-        run_path("serving_int8", lambda: q8_serving_path(dev, path))
+    serving_dir = tempfile.TemporaryDirectory()  # verify_released reads it
+    path = write_base_ckpt(serving_dir.name)
+    run_path("serving", lambda: main_path(dev, path))
+    run_path("serving_int8", lambda: q8_serving_path(dev, path))
     run_path("clip_serving", lambda: clip_infer_path(dev))
     with tempfile.TemporaryDirectory() as workdir:
         data = write_probe_pack(workdir)
         for kind in ("clip", "frame"):
             run_path(f"probe_{kind}",
                      lambda: probe_path(dev, workdir, data, kind))
+        run_path("verify_released",
+                 lambda: verify_released_path(workdir, data, path))
+        serving_dir.cleanup()
         for kind in ("clip", "frame"):
             torch.cuda.empty_cache()
             run_path(f"finetune_{kind}",

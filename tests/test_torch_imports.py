@@ -143,7 +143,7 @@ def test_q8_wrappers_on_cpu_launch_nothing():
 
 TOOLS = ("roofline", "profile_step", "kernel_microbench", "int8_drift",
          "probe_gain", "convergence_check", "calculate_min_max",
-         "dataset2ards", "check_ards")
+         "dataset2ards", "check_ards", "verify_released")
 
 
 def test_tools_import_and_help_without_jax():
@@ -173,4 +173,36 @@ def test_tools_import_and_help_without_jax():
     )
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=180)
+    assert r.returncode == 0, r.stderr
+
+
+def test_prep_tool_imports_and_help_without_pandas():
+    """``audioset_strong_prep`` (no tensor, so no ``--device``) imports and
+    its ``--help`` runs as ``python -m`` runs it, naming its three
+    subcommands, with pandas and JAX blocked; it imports neither torch
+    nor anything of ``audiossl_tpu``."""
+    code = (
+        "import contextlib, io, runpy, sys\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'pandas',\n"
+        "          'yaml', 'matplotlib', 'lmdb'):\n"
+        "    sys.modules[m] = None\n"
+        "mod = 'audiossl_tpu_torch.tools.audioset_strong_prep'\n"
+        "sys.argv = [mod, '--help']\n"
+        "out = io.StringIO()\n"
+        "try:\n"
+        "    with contextlib.redirect_stdout(out):\n"
+        "        runpy.run_module(mod, run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0, e.code\n"
+        "else:\n"
+        "    raise AssertionError('--help did not exit')\n"
+        "text = out.getvalue()\n"
+        "assert 'usage:' in text, text\n"
+        "assert all(c in text for c in ('gen_tsv', 'common', 'merge')), text\n"
+        "bad = [m for m in sys.modules\n"
+        "       if m.split('.')[0] in ('audiossl_tpu', 'torch')]\n"
+        "assert not bad, bad\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=60)
     assert r.returncode == 0, r.stderr
