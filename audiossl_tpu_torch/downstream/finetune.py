@@ -51,6 +51,7 @@ from audiossl_tpu_torch.transforms.augment import (draw_mask, freq_mask,
                                                    time_mask)
 from audiossl_tpu_torch.transforms.target import (draw_mixup_label,
                                                   mixup_spec_label)
+from audiossl_tpu_torch.utils.spans import span
 
 FREQ_MASK, TIME_MASK = 10, 50  # the SpecAugment masks' widest bands
 RRC_CANVAS, RRC_SCALE = (1.0, 1.5), (0.6, 1.5)  # RandomResizeCrop's
@@ -355,57 +356,73 @@ class FinetuneTask:
         summed over ranks before the norm that clips them, and the head's
         BatchNorm takes the global statistics, as one process computes
         them."""
+        with span("step"):
+            cfg = self.cfg
+            lr = _f32(self.lr_sched(state.step))  # JAX's schedule runs in f32
+            with span("step.input"):
+                wav, valid = self._batch(batch)
+                n_global = len(wav) * data_world().size
+                draws = local_draws(draws, n_global)
+                y = torch.as_tensor(np.asarray(batch["label"]),
+                                    device=self.device)
+                spec, frames, y_soft, dps = self._inputs(wav, valid, y, draws)
+            with span("step.forward"):
+                logits = self.head(self._encode(spec, frames, dps))
+                if cfg.multi_label:  # optax's sigmoid BCE, summed over labels
+                    per_clip = F.binary_cross_entropy_with_logits(
+                        logits, y_soft, reduction="none").sum(-1)
+                else:
+                    per_clip = -(y_soft * F.log_softmax(logits, -1)).sum(-1)
+                # this rank's share of the global batch's mean
+                loss = per_clip.sum() / n_global if n_global != len(wav) \
+                    else per_clip.mean()
+            params = state.params
+            with span("step.backward"):
+                grads = torch.autograd.grad(loss, list(params.values()),
+                                            allow_unused=True)
+            with torch.no_grad():
+                with span("step.grad_sync"):
+                    # a parameter the loss does not reach (the clip
+                    # encoder's mask_embed) has a zero gradient, as in JAX
+                    grads = [torch.zeros_like(p) if g is None else g
+                             for p, g in zip(params.values(), grads)]
+                    sum_tensors(grads)
+                with span("step.optimizer"):
+                    gnorm = torch.sqrt(sum((g * g).sum() for g in grads))
+                    scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-6),
+                                        max=1.0)
+                    self._update(state, params, [g * scale for g in grads],
+                                 lr)
+                loss = all_reduce_sum(loss.detach())
+            state.step += 1
+            return state, {"loss": loss, "lr": lr, "gnorm": gnorm}
+
+    @torch.no_grad()
+    def _inputs(self, wav, valid, y, draws: FinetuneDraws):
+        """The step's augmented mel, its frame counts, soft labels and
+        drop-path multipliers: the central crop's mel, then mixup,
+        SpecAugment and RandomResizeCrop as the config asks."""
         cfg = self.cfg
-        lr = _f32(self.lr_sched(state.step))  # JAX's schedule runs in f32
-        wav, valid = self._batch(batch)
-        n_global = len(wav) * data_world().size
-        draws = local_draws(draws, n_global)
-        y = torch.as_tensor(np.asarray(batch["label"]), device=self.device)
-        with torch.no_grad():
-            spec, frames = self._features(wav, valid)
-            y_soft = (y.float() if cfg.multi_label
-                      else F.one_hot(y.long(), cfg.num_labels).float())
-            if cfg.mixup:
-                lam = draws.lam.float()
-                if cfg.mixup_ratio < 1.0:
-                    lam = torch.where(draws.keep >= cfg.mixup_ratio, 1.0, lam)
-                spec, y_soft = mixup_spec_label(spec, y_soft, lam,
-                                                draws.shift)
-            if cfg.specaug:
-                spec = freq_mask(spec, *draws.freq)
-                spec = time_mask(spec, *draws.time, valid_frames=frames)
-            if cfg.rrc:
-                h, iy, w, ix = draws.rrc
-                spec = random_resize_crop(
-                    spec, h, iy, w, ix, virtual_crop_scale=RRC_CANVAS,
-                    freq_scale=RRC_SCALE, time_scale=RRC_SCALE,
-                    valid_frames=frames)
+        spec, frames = self._features(wav, valid)
+        y_soft = (y.float() if cfg.multi_label
+                  else F.one_hot(y.long(), cfg.num_labels).float())
+        if cfg.mixup:
+            lam = draws.lam.float()
+            if cfg.mixup_ratio < 1.0:
+                lam = torch.where(draws.keep >= cfg.mixup_ratio, 1.0, lam)
+            spec, y_soft = mixup_spec_label(spec, y_soft, lam, draws.shift)
+        if cfg.specaug:
+            spec = freq_mask(spec, *draws.freq)
+            spec = time_mask(spec, *draws.time, valid_frames=frames)
+        if cfg.rrc:
+            h, iy, w, ix = draws.rrc
+            spec = random_resize_crop(
+                spec, h, iy, w, ix, virtual_crop_scale=RRC_CANVAS,
+                freq_scale=RRC_SCALE, time_scale=RRC_SCALE,
+                valid_frames=frames)
         dps = (None if cfg.drop_path_rate == 0 else
                drop_path_multipliers(draws.dp, cfg.drop_path_rate))
-        logits = self.head(self._encode(spec, frames, dps))
-        if cfg.multi_label:  # optax's sigmoid BCE, summed over labels
-            per_clip = F.binary_cross_entropy_with_logits(
-                logits, y_soft, reduction="none").sum(-1)
-        else:
-            per_clip = -(y_soft * F.log_softmax(logits, -1)).sum(-1)
-        # this rank's share of the global batch's mean
-        loss = per_clip.sum() / n_global if n_global != len(wav) else \
-            per_clip.mean()
-        params = state.params
-        grads = torch.autograd.grad(loss, list(params.values()),
-                                    allow_unused=True)
-        with torch.no_grad():
-            # a parameter the loss does not reach (the clip encoder's
-            # mask_embed) has a zero gradient, as in JAX
-            grads = [torch.zeros_like(p) if g is None else g
-                     for p, g in zip(params.values(), grads)]
-            sum_tensors(grads)
-            gnorm = torch.sqrt(sum((g * g).sum() for g in grads))
-            scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-6), max=1.0)
-            self._update(state, params, [g * scale for g in grads], lr)
-            loss = all_reduce_sum(loss.detach())
-        state.step += 1
-        return state, {"loss": loss, "lr": lr, "gnorm": gnorm}
+        return spec, frames, y_soft, dps
 
     def _update(self, state, params, grads, lr: float):
         cfg = self.cfg

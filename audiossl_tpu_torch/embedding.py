@@ -36,6 +36,7 @@ from audiossl_tpu_torch.models.atst import (
     frame_ast_tiny,
 )
 from audiossl_tpu_torch.ops.melspec import MelConfig, log_melspec
+from audiossl_tpu_torch.utils.spans import span
 
 CHUNK_FRAMES = 1001  # 10 s at hop 160 (reference embedding.py:61)
 _ARCHS = {"tiny": frame_ast_tiny, "small": frame_ast_small,
@@ -144,18 +145,18 @@ def _chunkify(mel, length, chunk_len):
     return chunks, torch.clamp(cur.reshape(-1), max=chunk_len), cur > 0, nc
 
 
-def _encode(audio, model: EmbeddingModel, scene: bool):
-    """audio [B, n] (or [n]) -> (per-chunk embeddings, chunk mask, B, nc)."""
-    wav = torch.as_tensor(audio, dtype=torch.float32, device=model.device)
-    wav = torch.atleast_2d(wav)
-    B, n = wav.shape
-    valid = torch.full((B,), n, dtype=torch.int64, device=wav.device)
-    mel = log_melspec(wav, valid, model.mel)
-    length = valid // model.mel.hop_length + 1
-    chunks, cur, has, nc = _chunkify(mel, length, CHUNK_FRAMES)
-    emb = model.encoder.get_intermediate_layers(chunks, cur, n=model.n_blocks,
-                                                scene=scene)
-    return emb, has, B, nc
+def _inputs(audio, model: EmbeddingModel):
+    """audio [B, n] (or [n]) -> (chunks [B*nc, F, chunk], per-chunk frame
+    counts, chunk has-audio mask [B, nc], B, nc)."""
+    with span("embed.input"):
+        wav = torch.as_tensor(audio, dtype=torch.float32, device=model.device)
+        wav = torch.atleast_2d(wav)
+        B, n = wav.shape
+        valid = torch.full((B,), n, dtype=torch.int64, device=wav.device)
+        mel = log_melspec(wav, valid, model.mel)
+        length = valid // model.mel.hop_length + 1
+        chunks, cur, has, nc = _chunkify(mel, length, CHUNK_FRAMES)
+        return chunks, cur, has, B, nc
 
 
 @torch.inference_mode()
@@ -163,11 +164,15 @@ def get_scene_embedding(audio, model: EmbeddingModel) -> torch.Tensor:
     """audio: [B, n_samples] (or [n_samples]) 16 kHz waveform ->
     [B, n_blocks*embed_dim] scene embeddings, f32 (the chunk mean rounded
     to the encoder's dtype, as JAX takes it)."""
-    emb, has, B, nc = _encode(audio, model, scene=True)
-    dt = model.encoder.dtype
-    w = has.float()[:, :, None]
-    total = (emb.reshape(B, nc, -1) * w).sum(dim=1).to(dt)
-    return (total / torch.clamp(w.sum(dim=1), min=1.0).to(dt)).float()
+    with span("embed.call"):
+        chunks, cur, has, B, nc = _inputs(audio, model)
+        with span("embed.encoder"):
+            emb = model.encoder.get_intermediate_layers(
+                chunks, cur, n=model.n_blocks, scene=True)
+            dt = model.encoder.dtype
+            w = has.float()[:, :, None]
+            total = (emb.reshape(B, nc, -1) * w).sum(dim=1).to(dt)
+            return (total / torch.clamp(w.sum(dim=1), min=1.0).to(dt)).float()
 
 
 @torch.inference_mode()
@@ -175,10 +180,14 @@ def get_timestamp_embedding(audio, model: EmbeddingModel
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """audio: [B, n_samples] -> (embeddings [B, T, n_blocks*D],
     timestamps in ms [B, T]) at one embedding per patch (40 ms)."""
-    emb, _, B, nc = _encode(audio, model, scene=False)
-    emb = emb.reshape(B, nc * emb.shape[1], emb.shape[-1])
-    T = emb.shape[1]
-    pw = model.encoder.patch_w
-    hop_ms = model.mel.hop_length / model.mel.sample_rate * 1000.0
-    ts = (torch.arange(T, device=emb.device) * pw + pw / 2.0) * hop_ms
-    return emb, ts[None, :].expand(B, T)
+    with span("embed.call"):
+        chunks, cur, _, B, nc = _inputs(audio, model)
+        with span("embed.encoder"):
+            emb = model.encoder.get_intermediate_layers(
+                chunks, cur, n=model.n_blocks, scene=False)
+            emb = emb.reshape(B, nc * emb.shape[1], emb.shape[-1])
+            T = emb.shape[1]
+            pw = model.encoder.patch_w
+            hop_ms = model.mel.hop_length / model.mel.sample_rate * 1000.0
+            ts = (torch.arange(T, device=emb.device) * pw + pw / 2.0) * hop_ms
+            return emb, ts[None, :].expand(B, T)

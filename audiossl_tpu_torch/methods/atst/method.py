@@ -44,6 +44,7 @@ from audiossl_tpu_torch.transforms.augment import (draw_crop, draw_mixup,
                                                    random_resize_crop, rows_of,
                                                    sample_crop_lengths,
                                                    view_major_rows, wav_to_f32)
+from audiossl_tpu_torch.utils.spans import span
 
 _ARCHS = {"tiny": ast_tiny, "small": ast_small, "base": ast_base}
 
@@ -230,20 +231,23 @@ class ClipMethod:
         return draw_step(gen, self.cfg, batch, self.depth, self.device)
 
     def forward_loss(self, student, teacher, batch, gen, draws=None):
-        wav = wav_to_f32(torch.as_tensor(batch["wav"], device=self.device))
-        valid = torch.as_tensor(batch["valid"], device=self.device).long()
-        batch_size = global_batch_size(wav.shape[0])
-        if draws is None:
-            draws = self.draw(gen, batch_size)
-        draws = local_draws(draws, batch_size)
-        mel, frames = clip_train_views(wav, valid, self.cfg, draws,
-                                       self.plain)
-        s_out = student(mel, frames, dps=draws.student_dp)
+        with span("step.input"):
+            wav = wav_to_f32(torch.as_tensor(batch["wav"], device=self.device))
+            valid = torch.as_tensor(batch["valid"], device=self.device).long()
+            batch_size = global_batch_size(wav.shape[0])
+            if draws is None:
+                draws = self.draw(gen, batch_size)
+            draws = local_draws(draws, batch_size)
+            mel, frames = clip_train_views(wav, valid, self.cfg, draws,
+                                           self.plain)
+        with span("step.forward"):
+            s_out = student(mel, frames, dps=draws.student_dp)
         # the reference teacher runs in train mode too (stochastic depth,
         # BatchNorm batch statistics)
-        with torch.no_grad():
+        with span("step.teacher"), torch.no_grad():
             t_out = teacher(mel, frames, dps=draws.teacher_dp)
-        ls = clip_byol_loss(s_out, t_out, ncrops=2)
+        with span("step.forward"):
+            ls = clip_byol_loss(s_out, t_out, ncrops=2)
         return ls.loss, {"std_cls_s": ls.std_student.detach(),
                          "std_cls_t": ls.std_teacher.detach()}
 

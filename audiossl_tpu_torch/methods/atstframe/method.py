@@ -46,6 +46,7 @@ from audiossl_tpu_torch.transforms.augment import (draw_crop, draw_mixup,
                                                    mixup_log, random_crop_wav,
                                                    random_resize_crop, rows_of,
                                                    view_major_rows, wav_to_f32)
+from audiossl_tpu_torch.utils.spans import span
 
 _ARCHS = {"tiny": frame_ast_tiny, "small": frame_ast_small,
           "base": frame_ast_base}
@@ -249,26 +250,29 @@ class FrameMethod:
 
     def forward_loss(self, student, teacher, batch, gen, draws=None):
         cfg = self.cfg
-        wav = wav_to_f32(torch.as_tensor(batch["wav"], device=self.device))
-        valid = torch.as_tensor(batch["valid"], device=self.device).long()
-        B = wav.shape[0]
-        if draws is None:
-            draws = self.draw(gen, global_batch_size(B))
-        draws = local_draws(draws, global_batch_size(B))
-        mel2, frames2, mask2 = frame_train_views(wav, valid, cfg, draws,
-                                                 self.plain)
+        with span("step.input"):
+            wav = wav_to_f32(torch.as_tensor(batch["wav"], device=self.device))
+            valid = torch.as_tensor(batch["valid"], device=self.device).long()
+            B = wav.shape[0]
+            if draws is None:
+                draws = self.draw(gen, global_batch_size(B))
+            draws = local_draws(draws, global_batch_size(B))
+            mel2, frames2, mask2 = frame_train_views(wav, valid, cfg, draws,
+                                                     self.plain)
         if cfg.symmetric:
             s_in, s_len, s_mask = mel2, frames2, mask2
             t_in, t_len, t_mask = mel2, frames2, mask2
         else:
             t_in, t_len, t_mask = mel2[:B], frames2[:B], mask2[:B]
             s_in, s_len, s_mask = mel2[B:], frames2[B:], mask2[B:]
-        s_out, s_sel = student(s_in, s_len, mask_index=s_mask,
-                               apply_mask=True, dps=draws.student_dp)
-        with torch.no_grad():
+        with span("step.forward"):
+            s_out, s_sel = student(s_in, s_len, mask_index=s_mask,
+                                   apply_mask=True, dps=draws.student_dp)
+        with span("step.teacher"), torch.no_grad():
             t_out, _ = teacher(t_in, t_len, mask_index=t_mask,
                                apply_mask=False, dps=draws.teacher_dp)
-        ls = frame_byol_loss(s_out, t_out, s_sel, symmetric=cfg.symmetric)
+        with span("step.forward"):
+            ls = frame_byol_loss(s_out, t_out, s_sel, symmetric=cfg.symmetric)
         return ls.loss, {"std_frm_stu": ls.std_student.detach(),
                          "std_frm_tea": ls.std_teacher.detach()}
 

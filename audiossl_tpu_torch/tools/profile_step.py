@@ -19,9 +19,14 @@ records than launches (on the H100 some windows keep 9 of 10), so each
 kernel's time per step is its mean over the records kept times its
 launches a step, and the summary says how many records were kept.
 
+Beside the groups it prints the step's spans (``utils/spans.py``: the
+step and its phases), each with its device ms a step and the device's idle
+ms a step put down to it: each stretch with no kernel or copy goes to the
+innermost span the host was in at its middle.
+
 With ``--device cpu`` (the CPU tests, with ``--tiny``) the same step runs
 through the kernels' plain versions and the CPU's operator times are
-summarized instead.
+summarized instead, the spans by their host ms.
 
 Usage:
     python -m audiossl_tpu_torch.tools.profile_step [--steps 8]
@@ -41,6 +46,7 @@ import numpy as np
 import torch
 
 from audiossl_tpu_torch.tools import add_device_flag, device_of
+from audiossl_tpu_torch.utils import spans
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 
@@ -160,19 +166,22 @@ def library_kernel_names() -> frozenset:
 
 
 # --------------------------------------------------------------- totals
-def device_op_totals(prof, steps: int, cpu: bool = False):
+def device_op_totals(prof, steps: int, cpu: bool = False,
+                     skip=frozenset()):
     """Per kernel name -> ms per step from a ``torch.profiler`` run of
     ``steps`` steps: the mean over the records kept, times the kernel's
     launches a step (its records over ``steps``, rounded, at least 1).
     Returns (totals, records kept, records expected). ``cpu``: the CPU
     operators' self times (a run on the CPU); otherwise the device's
     events alone, so a profile that also traced the CPU counts each
-    kernel once."""
+    kernel once. Names in ``skip`` (the spans' ranges) are left out."""
     from torch.autograd import DeviceType
 
     totals, kept, expected = {}, 0, 0
     for e in prof.key_averages():
         if not cpu and getattr(e, "device_type", None) == DeviceType.CPU:
+            continue
+        if e.key in skip:  # the spans' ranges
             continue
         us = e.self_cpu_time_total if cpu else e.self_device_time_total
         if us <= 0 or not e.count:
@@ -230,6 +239,31 @@ def group_totals(totals: dict, port_names) -> collections.Counter:
     return grouped
 
 
+# ---------------------------------------------------------------- spans
+def device_intervals(prof):
+    """(start, end) in Unix ns of every kernel, copy and memset of a
+    finished profile."""
+    return [(e.start_ns(), e.start_ns() + e.duration_ns())
+            for e in prof.profiler.kineto_results.events()
+            if str(e.device_type()).endswith("CUDA")]
+
+
+def span_table(records, steps: int, intervals=None):
+    """{span name: [ms a step, idle ms a step]}: the spans' device ms (host
+    ms where they ran on the CPU) and, given the device's ``intervals``,
+    the idle ms put down to each (``spans.idle_by_span``)."""
+    table = {}
+    for r in records:
+        ms = r.device_ms if r.device_ms is not None \
+            else (r.end_ns - r.start_ns) / 1e6
+        table.setdefault(r.name, [0.0, 0.0])[0] += ms / steps
+    if intervals and records:
+        for name, ns in spans.idle_by_span(intervals, records).items():
+            table.setdefault(name or "(no span)", [0.0, 0.0])[1] += \
+                ns / 1e6 / steps
+    return table
+
+
 # ------------------------------------------------------------------ CLI
 def build_parser():
     ap = argparse.ArgumentParser("profile_step", description=__doc__.split(
@@ -275,6 +309,7 @@ def main(argv=None) -> dict:
     sync()
 
     activity = ProfilerActivity.CPU if cpu else ProfilerActivity.CUDA
+    spans.clear()
     t0 = time.perf_counter()
     with profile(activities=[activity]) as prof:
         for _ in range(args.steps):
@@ -286,7 +321,9 @@ def main(argv=None) -> dict:
         os.makedirs(args.keep, exist_ok=True)
         prof.export_chrome_trace(os.path.join(args.keep, "trace.json"))
 
-    totals, kept, expected = device_op_totals(prof, args.steps, cpu)
+    records = spans.records()
+    totals, kept, expected = device_op_totals(
+        prof, args.steps, cpu, skip={r.name for r in records})
     port_names = source_kernel_names() if cpu else library_kernel_names()
     total_ms = sum(totals.values())
     print(f"device total: {total_ms:.2f} ms/step ({len(totals)} distinct "
@@ -305,10 +342,17 @@ def main(argv=None) -> dict:
         print(f"(filtered: {sum(ms for _, ms in items):.2f} ms total)")
     for name, ms in items[:args.top]:
         print(f"{ms:9.3f} ms  {name[:160]}")
+
+    table = span_table(records, args.steps,
+                       None if cpu else device_intervals(prof))
+    print(f"\n== spans: {'host' if cpu else 'device'} ms a step, and the "
+          "device's idle ms a step by the span the host was in ==")
+    for name, (ms, idle) in sorted(table.items(), key=lambda kv: -kv[1][0]):
+        print(f"{ms:9.3f} ms  {idle:7.3f} ms idle  {name}")
     if args.keep:
         print(f"\ntrace kept at {args.keep}")
     return {"device_ms": total_ms, "wall_ms": wall_ms, "totals": totals,
-            "groups": dict(grouped), "records_kept": kept,
+            "groups": dict(grouped), "spans": table, "records_kept": kept,
             "records_expected": expected,
             "hand_written": sorted({op_kind(k) for k in totals
                                     if group_of(k, port_names)

@@ -50,6 +50,7 @@ from audiossl_tpu_torch.parallel.mesh import (all_reduce_sum,
                                               partition_leaves, reduce_grads,
                                               world)
 from audiossl_tpu_torch.training.schedules import cosine_schedule
+from audiossl_tpu_torch.utils.spans import span
 
 
 class Branch(nn.Module):
@@ -239,30 +240,34 @@ def make_pretrain_step(cfg: OptimizerConfig, forward_loss: Callable,
               else functools.partial(adamw_ema, table=LeafTable()))
 
     def step_fn(state: PretrainState, batch, draws=None):
-        lr, wd, m = lr_s(state.step), wd_s(state.step), ema_s(state.step)
-        student = state.student.train()
-        teacher = None if state.teacher is None else state.teacher.train()
-        for p in state.params:
-            p.grad = None
-        loss, aux = forward_loss(student, teacher, batch, state.generator,
-                                 draws)
-        loss.backward()
-        reduce_grads(state.params)
-        state.count += 1
-        if state.leaves:
-            update(state.leaves,
-                   [p.grad if p.grad is not None else torch.zeros_like(p)
-                    for p in state.leaves],
-                   list(state.mu.values()),
-                   [state.nu[k] for k in state.mu], state.teacher_leaves,
-                   state.decay,
-                   update_scalars(lr, wd, m, state.count, cfg.b1, cfg.b2,
-                                  cfg.eps))
-        if state.groups is not None:
-            broadcast_groups(state.groups)
-        state.step += 1
-        ema = {} if teacher is None else {"ema": m}
-        return {"loss": all_reduce_sum(loss.detach()), "lr": lr, "wd": wd,
-                **ema, **aux}
+        with span("step"):
+            lr, wd, m = lr_s(state.step), wd_s(state.step), ema_s(state.step)
+            student = state.student.train()
+            teacher = None if state.teacher is None else state.teacher.train()
+            for p in state.params:
+                p.grad = None
+            loss, aux = forward_loss(student, teacher, batch, state.generator,
+                                     draws)
+            with span("step.backward"):
+                loss.backward()
+            with span("step.grad_sync"):
+                reduce_grads(state.params)
+            state.count += 1
+            with span("step.optimizer"):
+                if state.leaves:
+                    update(state.leaves,
+                           [p.grad if p.grad is not None
+                            else torch.zeros_like(p) for p in state.leaves],
+                           list(state.mu.values()),
+                           [state.nu[k] for k in state.mu],
+                           state.teacher_leaves, state.decay,
+                           update_scalars(lr, wd, m, state.count, cfg.b1,
+                                          cfg.b2, cfg.eps))
+                if state.groups is not None:
+                    broadcast_groups(state.groups)
+            state.step += 1
+            ema = {} if teacher is None else {"ema": m}
+            return {"loss": all_reduce_sum(loss.detach()), "lr": lr,
+                    "wd": wd, **ema, **aux}
 
     return step_fn

@@ -32,6 +32,7 @@ from audiossl_tpu_torch.datasets.pipeline import BatchLoader
 from audiossl_tpu_torch.parallel.mesh import world
 from audiossl_tpu_torch.training.checkpoint import CheckpointManager
 from audiossl_tpu_torch.training.pretrain import shard_optimizer as zero1
+from audiossl_tpu_torch.utils.spans import span
 
 LOADER_THREADS = 8  # records a loader reads at once
 PROFILE_STEPS = 10  # steps a ``profile_at`` trace covers
@@ -166,7 +167,7 @@ def run_pretraining(method, dataset, *, batch_size_per_device: int,
         if len(loader) == 0:
             raise ValueError(f"{len(dataset)} clips make no batch of "
                              f"{global_bs}")
-        for batch in loader:
+        for batch in _waited(loader):
             if profile_at is not None and step == profile_at and w.is_main:
                 prof = _start_profile(device)
             metrics = step_fn(state, batch)
@@ -199,11 +200,24 @@ def run_pretraining(method, dataset, *, batch_size_per_device: int,
     return state
 
 
+def _waited(loader):
+    """The loader's batches, each fetch inside a ``loader.wait`` span."""
+    batches = iter(loader)
+    while True:
+        with span("loader.wait"):
+            batch = next(batches, None)
+        if batch is None:
+            return
+        yield batch
+
+
 def _save(mgr, step, state, force=False):
     """A checkpoint: the host copy blocks the loop, the write does not
     (its error surfaces at the next save). Every rank calls it; rank 0
     writes."""
-    if mgr.save(step, state, force=force) and mgr.writer:
+    with span("checkpoint.save"):
+        saved = mgr.save(step, state, force=force)
+    if saved and mgr.writer:
         print(f"checkpoint step {step}: host copy {mgr.last_copy_ms:.1f} ms",
               flush=True)
 
