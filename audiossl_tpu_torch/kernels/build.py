@@ -10,9 +10,10 @@ device pointers and the CUDA stream, and returns ``cudaGetLastError()``.
 ``LAUNCHES`` counts the kernel launches of each wrapper; a wrapper adds
 one only where it launched its kernel, so a run can show that its main
 path went through the kernels. It lists the counterparts of the TPU
-kernels only: ``gemm_bf16`` and ``gemm_s8`` (the block kernels' GEMM
-templates alone) and ``rcp_check`` (``ops/gemm.py``) launch through
-:func:`call` and are not counted.
+kernels and the module route's GELU (``gelu_fwd``, ``gelu_bwd``:
+``ops/gelu.py``, which replaces no TPU kernel): ``gemm_bf16`` and
+``gemm_s8`` (the block kernels' GEMM templates alone) and ``rcp_check``
+(``ops/gemm.py``) launch through :func:`call` and are not counted.
 """
 from __future__ import annotations
 
@@ -38,7 +39,7 @@ LAUNCHES = {"mel_db": 0, "attn_block": 0, "mlp_block": 0,
             "mha_fwd": 0, "mha_bwd": 0, "ln_pg_bwd": 0,
             "attn_block_q8": 0, "mlp_block_q8": 0, "attn_train_fwd_q8": 0,
             "attn_train_bwd_q8dx": 0, "mlp_train_fwd_q8": 0,
-            "mlp_train_bwd_q8dx": 0}
+            "mlp_train_bwd_q8dx": 0, "gelu_fwd": 0, "gelu_bwd": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -94,6 +95,10 @@ _SIGNATURES = {
     # x, dy, u, dp, ln_w, ln_b, wt1, st1, wt2, st2, dx, dw1, db1, dw2, db2,
     # dls, dlb, h, dyb, a, du, duf, dh, aq, ar; B, N, C, Hd, eps
     "mlp_train_bwd_q8dx_launch": [_I] + [_P] * 25 + [_I, _I, _I, _I, _F, _P],
+    # u, y, n, dtype
+    "gelu_fwd_launch": [_I, _P, _P, _I, _I, _P],
+    # u, dy, du, n, dtype
+    "gelu_bwd_launch": [_I, _P, _P, _P, _I, _I, _P],
     # a, b, out, bias; M, N, K, layout, epilogue, splits
     "gemm_bf16_launch": [_I] + [_P] * 4 + [_I] * 6 + [_P],
     # a, b, ra, sb, out, bias; M, N, K, epilogue

@@ -3,12 +3,12 @@
 Port of ``audiossl_tpu/models/transformer.py`` (reference
 ``audiossl/modules/transformer.py``): ``Attention`` (joint qkv
 projection, additive -10000 padding mask), ``Mlp`` (exact GELU through
-the A&S erf polynomial) and the pre-norm residual ``Block``, whose
-residual branches take per-sample stochastic-depth multipliers in
-training (:func:`drop_path`). Parameter names are the reference's torch
-names, so reference state dicts load as they are. The modules compute in
-the dtype of their input: f32 master weights are cast to it per call,
-and LayerNorm statistics are f32.
+the A&S erf polynomial; on the card a kernel forward and backward) and
+the pre-norm residual ``Block``, whose residual branches take per-sample
+stochastic-depth multipliers in training (:func:`drop_path`). Parameter
+names are the reference's torch names, so reference state dicts load as
+they are. The modules compute in the dtype of their input: f32 master
+weights are cast to it per call, and LayerNorm statistics are f32.
 
 ``fused_attention=True`` (an encoder that runs neither block kernel, such
 as an f32 pretraining encoder) sends ``Attention``'s packed qkv through the
@@ -73,9 +73,12 @@ def erf_approx(x: torch.Tensor) -> torch.Tensor:
 
 def gelu_exact(x: torch.Tensor) -> torch.Tensor:
     """Erf-form GELU (torch.nn.GELU's default), computed in f32 with
-    :func:`erf_approx`."""
-    xf = x.float()
-    return (0.5 * xf * (1.0 + erf_approx(xf * 0.7071067811865476))).to(x.dtype)
+    :func:`erf_approx`, in x's dtype. On the CPU the eager chain
+    (``ops/gelu.py:gelu_fwd_ref``, autograd through it); on the card one
+    kernel forward and one backward, which keep only x for the gradient."""
+    from audiossl_tpu_torch.ops import gelu  # imports this module
+
+    return gelu.gelu_fwd_ref(x) if x.device.type == "cpu" else gelu.gelu(x)
 
 
 def drop_path_multipliers(u: torch.Tensor, rate: float) -> torch.Tensor:

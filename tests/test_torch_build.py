@@ -12,7 +12,7 @@ import torch
 
 from audiossl_tpu_torch.kernels import build as kb
 from audiossl_tpu_torch.ops import (adamw_ema, attn_train, block_infer,
-                                    layer_norm, mel_db, mha, mlp_train)
+                                    gelu, layer_norm, mel_db, mha, mlp_train)
 
 FAKE_NVCC = """#!/bin/sh
 # stand-in for nvcc: write the -o target, or fail when asked to
@@ -40,7 +40,7 @@ def test_build_compiles_every_source_and_links_once(fake_nvcc):
     digest = lib.name[len("libaudiossl_kernels_"):-len(".so")]
     log = (fake_nvcc / f"{digest}.log").read_text()
     n_sources = len(list(kb.CSRC.glob("*.cu")))
-    assert n_sources == 9
+    assert n_sources == 10
     assert log.count("Used 32 registers") == n_sources + 1  # + the link
     assert kb.build() == lib  # an existing library is not rebuilt
     # objects were built in a temporary directory that is gone
@@ -93,7 +93,8 @@ def test_signatures_match_the_c_entry_points(name):
                                    "ln_pg_bwd", "attn_block_q8",
                                    "mlp_block_q8", "attn_train_fwd_q8",
                                    "attn_train_bwd_q8dx", "mlp_train_fwd_q8",
-                                   "mlp_train_bwd_q8dx"])
+                                   "mlp_train_bwd_q8dx", "gelu_fwd",
+                                   "gelu_bwd"])
 def test_wrappers_raise_for_a_tensor_off_the_cpu_and_cuda(which):
     """A tensor that is not on the CPU never takes the plain version: it
     reaches the kernel path, which refuses a non-CUDA device."""
@@ -143,6 +144,10 @@ def test_wrappers_raise_for_a_tensor_off_the_cpu_and_cuda(which):
                         t(2, 8, C), 2, 0.125)
         elif which == "ln_pg_bwd":
             layer_norm.ln_bwd(t(16, C), t(16, C), t(C), 1e-6)
+        elif which == "gelu_fwd":
+            gelu.gelu_fwd(t(2, 8, 4 * C))
+        elif which == "gelu_bwd":
+            gelu.gelu_bwd(t(2, 8, 4 * C), t(2, 8, 4 * C))
         elif which == "attn_block_q8":
             block_infer.attn_block_infer_q8(
                 t(2, 8, C, dtype=bf), t(2, 8), t(C), t(C),
